@@ -28,14 +28,44 @@ exits non-zero before the last line:
      strain of 0.2, and the JAX package's PackedSimulation stalls there
      exactly as the port does.)
 
+The general-mesh path (imported tets, windowed engine, windowed-BSR AMG) on
+a 35^3 Kuhn tet box whose node numbering is shuffled, written with the
+port's write_gmsh and read back with read_gmsh (257,250 tets, 1,083,392
+padded quadrature points):
+
+  7. K4 (windowed gather) and K5 (windowed scatter) against their plain
+     versions on that mesh's exchange plan (T = 1024, K = 3), float64 and
+     float32: K4 bit-equal, K5 within a normwise tolerance and bit-equal
+     across two launches; both times.
+  8. K6 (windowed BSR SpMV) against its plain version on every A, P and R
+     level of the mesh's AMG hierarchy: float32 with select_passes 1 and 3,
+     and float64; per-level errors and times.
+  9. the general-tet bench (the JAX package's scripts/bench_unstructured.py
+     protocol): float32, max_newton=1, fixed-3 plain PCG with the windowed
+     AMG V(3,3); warm-up load scales 0.5-2.0, 10 timed steps at
+     2.0 + 0.05 (i+1), and the fixed-9 and fixed-18 re-runs of the same
+     schedule, which the settled residual must match within 2% each. First a
+     5^3 float64 reference: converged Newton steps on the card (kernels) and
+     on the CPU (plain versions) must agree.
+ 10. the user entry point on the imported mesh: PackedSimulation with
+     default options must pick the windowed engine and AMG and converge 3
+     load steps of the stretch 0.0004 k in float32. (Steps of 0.004 k, which
+     converge up to 24^3, diverge from 30^3 on in both packages, for the
+     reason phase 6 gives: the JAX package on the CPU at 30^3 ends its first
+     step at r_norm 79289 after 25 Newton iterations, the port at 76181.)
+
 Then one JSON line of per-kernel results and, last, the device JSON line.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -58,6 +88,19 @@ TOL_F32_K1 = 1e-5
 # |s_tr|/yield. Measured at 50^3: float64 <= 3.6e-15, float32 <= 1.9e-6.
 TOL_F64_K2 = 1e-9
 TOL_F32_K2 = 1e-4
+# K5 sums each node's rows in the plan's order, the plain version in another
+# (atomics on the card): a node sums at most ~24 rows, so the difference is a
+# few ulps of the largest partial sum.
+TOL_K5 = {torch.float64: 1e-13, torch.float32: 1e-6}
+# K6 sums k slots of br x bc products per row (R_0: 101 x 3) with FMA in
+# another order than the plain version; both round x to bf16 alike when
+# select_passes = 1, so the tolerance is that of the float sum either way.
+TOL_K6 = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+CARD = "cuda"  # the device of the general-mesh phases
+N_TET = 35  # the general-tet bench mesh: 35^3 boxes of 6 Kuhn tets
+N_QP_TET = 1_083_392  # its padded quadrature points (T = 1024 plan)
+TET_FIXED, TET_VERIFY = 3, (9, 18)
 
 
 def fail(msg: str) -> None:
@@ -85,21 +128,47 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def box(n: int):
-    from fenics_constitutive_tpu_torch.fem import DirichletBC, FunctionSpace, unit_cube_mesh
-
-    V = FunctionSpace(unit_cube_mesh(n, n, n, "hex"), 1, 3)
+def bench_bcs(V):
+    """The bench's Dirichlet set: x=0 fixed in x, x=1 pulled by 0.004 in x,
+    y=0 and z=0 fixed in y and z."""
+    from fenics_constitutive_tpu_torch.fem import DirichletBC
 
     def close(axis, v):
         return lambda x: np.isclose(x[:, axis], v)
 
-    bcs = [
+    return [
         DirichletBC(V.locate_dofs_geometrical(close(0, 0.0), component=0), 0.0),
         DirichletBC(V.locate_dofs_geometrical(close(0, 1.0), component=0), 0.004),
         DirichletBC(V.locate_dofs_geometrical(close(1, 0.0), component=1), 0.0),
         DirichletBC(V.locate_dofs_geometrical(close(2, 0.0), component=2), 0.0),
     ]
-    return V, bcs
+
+
+def box(n: int):
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace, unit_cube_mesh
+
+    V = FunctionSpace(unit_cube_mesh(n, n, n, "hex"), 1, 3)
+    return V, bench_bcs(V)
+
+
+def imported_mesh(n: int):
+    """A Kuhn tet box with its node numbering shuffled (seed 0) and no
+    structured metadata: it arrives like an imported mesh."""
+    from fenics_constitutive_tpu_torch.fem import Mesh, unit_cube_mesh
+
+    mesh = unit_cube_mesh(n, n, n, "tetra")
+    pi = np.random.default_rng(0).permutation(mesh.num_nodes)
+    nodes = np.empty_like(mesh.nodes)
+    nodes[pi] = mesh.nodes
+    return Mesh(nodes, pi[mesh.cells].astype(np.int32), "tetra")
+
+
+def free_mask(V, bcs) -> np.ndarray:
+    from fenics_constitutive_tpu_torch.fem import combine_bcs
+
+    free = np.ones(V.ndofs, bool)
+    free[combine_bcs(bcs)[0]] = False
+    return free
 
 
 # -- phases ----------------------------------------------------------------------
@@ -123,8 +192,12 @@ def phase_device() -> tuple[str, str]:
 def phase_build() -> None:
     from fenics_constitutive_tpu_torch.ops import _cuda_build
 
-    for lib in ("matvec", "eval"):
-        _cuda_build.load_library(lib)
+    libs = ("matvec", "eval", "window")
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for fut in [pool.submit(_cuda_build.load_library, lib) for lib in libs]:
+            fut.result()
+    for lib in libs:
         info = _cuda_build.build_log[lib]
         usage = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
         print(f"phase 2 build: {lib}.cu in {info['seconds']:.2f} s; " + " | ".join(usage))
@@ -379,33 +452,322 @@ def phase_simulation() -> None:
         fail("PackedSimulation did not launch both kernels")
 
 
+# -- the general-mesh path ---------------------------------------------------------
+
+
+def tet_setup(workdir: Path) -> dict:
+    """The imported 35^3 tet mesh through write_gmsh/read_gmsh, its windowed
+    geometry (float32, on the card) and its AMG hierarchy (V(3,3)), timed."""
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace, read_gmsh, write_gmsh
+    from fenics_constitutive_tpu_torch.models import VonMises3D
+    from fenics_constitutive_tpu_torch.solver import build_amg, build_packed_problem
+
+    t0 = time.perf_counter()
+    written = imported_mesh(N_TET)
+    path = workdir / "tet35.msh"
+    write_gmsh(path, written)
+    mesh = read_gmsh(path)
+    io_s = time.perf_counter() - t0
+    if not (np.array_equal(mesh.cells, written.cells) and np.array_equal(mesh.nodes, written.nodes)):
+        fail("read_gmsh did not give back the mesh write_gmsh wrote")
+    if mesh.structured_shape is not None:
+        fail("the imported mesh carries structured metadata")
+    V = FunctionSpace(mesh, 1, 3)
+    bcs = bench_bcs(V)
+    geos, models, state = build_packed_problem(
+        V, VonMises3D(MAT), 2, device=CARD, dtype=torch.float32, engine="windowed"
+    )
+    geo = geos[0]
+    if geo.N != N_QP_TET:
+        fail(f"the tet bench has {geo.N} quadrature points, expected {N_QP_TET}")
+    amg = build_amg(V, MU, KAPPA, free_mask(V, bcs), q_degree=2, nu=3,
+                    node_perm=geo.ex.perm, device=CARD, dtype=torch.float32)
+    return {"mesh": mesh, "V": V, "bcs": bcs, "geos": geos, "models": models,
+            "state": state, "amg": amg, "io_s": io_s}
+
+
+def phase_k4_k5(results: dict, tet: dict) -> None:
+    from fenics_constitutive_tpu_torch.ops import cuda_window
+
+    ex = tet["geos"][0].ex
+    line = [f"plan T={ex.T} B={ex.B} C_B={ex.C_B} P={ex.P} Rn={ex.Rn} M_pad={ex.M_pad}"]
+    for dtype in (torch.float64, torch.float32):
+        rng = np.random.default_rng(7)
+        u2 = torch.as_tensor(rng.normal(size=(3, ex.M_pad)), dtype=dtype, device=CARD)
+        f = torch.as_tensor(rng.normal(size=(ex.B, 3, ex.Rn)), dtype=dtype, device=CARD)
+        g_k = cuda_window.windowed_gather(ex, u2)
+        g_p = cuda_window.gather_plain(ex, u2)
+        y1 = cuda_window.windowed_scatter(ex, f)
+        y2 = cuda_window.windowed_scatter(ex, f)
+        y_p = cuda_window.scatter_plain(ex, f)
+        torch.cuda.synchronize()
+        if not torch.equal(g_k, g_p):
+            fail(f"K4 {dtype} is not bit-equal to its plain version")
+        if not torch.equal(y1, y2):
+            fail(f"K5 {dtype} differs between two launches")
+        if not torch.isfinite(y1).all():
+            fail("K5 returned non-finite values")
+        err, rel = normwise(y1, y_p)
+        tol = TOL_K5[dtype]
+        line.append(f"{str(dtype)[6:]}: K4 bit-equal, K5 repeatable, K5 max_abs_err {err:.3e} "
+                    f"rel {rel:.3e} (tol {tol:g})")
+        if rel > tol:
+            fail(f"K5 {dtype} disagrees with the plain version: rel {rel:.3e} > {tol:g}")
+        if dtype == torch.float32:
+            t = {
+                "K4": (cuda_ms(lambda: cuda_window.windowed_gather(ex, u2)),
+                       cuda_ms(lambda: cuda_window.gather_plain(ex, u2))),
+                "K5": (cuda_ms(lambda: cuda_window.windowed_scatter(ex, f)),
+                       cuda_ms(lambda: cuda_window.scatter_plain(ex, f))),
+            }
+            results["K4"] = {"max_abs_err": 0.0, "ms": t["K4"][0], "plain_ms": t["K4"][1]}
+            results["K5"] = {"max_abs_err": err, "ms": t["K5"][0], "plain_ms": t["K5"][1]}
+            line.append(f"f32 K4 {t['K4'][0]:.4f} ms vs plain {t['K4'][1]:.4f} ms, "
+                        f"K5 {t['K5'][0]:.4f} ms vs plain {t['K5'][1]:.4f} ms")
+    print("phase 7 K4/K5 vs plain on the 35^3 tet plan: " + "; ".join(line))
+
+
+def phase_k6(results: dict, tet: dict) -> None:
+    from fenics_constitutive_tpu_torch.ops import cuda_window
+
+    amg = tet["amg"]
+    ops = [(f"{name}{lvl}", getattr(amg, name + "_win")[lvl])
+           for lvl in range(amg.n_levels - 1) for name in ("A", "P", "R")]
+    worst, ms, plain_ms, parts = 0.0, 0.0, 0.0, []
+    for label, w32 in ops:
+        w64 = copy.deepcopy(w32).double()
+        rng = np.random.default_rng(11)
+        xh = rng.normal(size=w32.bc * w32.NC_pad)
+        errs = []
+        for w, dtype, passes in ((w32, torch.float32, 1), (w32, torch.float32, 3),
+                                 (w64, torch.float64, 3)):
+            x = torch.as_tensor(xh, dtype=dtype, device=CARD)
+            saved, w.select_passes = w.select_passes, passes
+            try:
+                y_k = cuda_window.windowed_bsr_matvec(w, x)
+                y_p = cuda_window.bsr_matvec_plain(w, x)
+                torch.cuda.synchronize()
+                if not torch.isfinite(y_k).all():
+                    fail(f"K6 {label} returned non-finite values")
+                err, rel = normwise(y_k, y_p)
+                if rel > TOL_K6[dtype]:
+                    fail(f"K6 {label} {dtype} select_passes={passes}: rel {rel:.3e} > "
+                         f"{TOL_K6[dtype]:g}")
+                errs.append(rel)
+                if dtype == torch.float32 and passes == 1:
+                    worst = max(worst, err)
+                    k_ms = cuda_ms(lambda w=w, x=x: cuda_window.windowed_bsr_matvec(w, x))
+                    p_ms = cuda_ms(lambda w=w, x=x: cuda_window.bsr_matvec_plain(w, x))
+                    ms, plain_ms = ms + k_ms, plain_ms + p_ms
+            finally:
+                w.select_passes = saved
+        parts.append(f"{label} ({w32.br}x{w32.bc} k {w32.k} B {w32.B} P {w32.P}) rel "
+                     f"{errs[0]:.1e}/{errs[1]:.1e}/{errs[2]:.1e} {k_ms:.4f} ms vs plain {p_ms:.4f}")
+    results["K6"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    print(f"phase 8 K6 vs plain on {len(ops)} AMG level operators (rel err f32 sel1/f32 sel3/f64; "
+          f"tol f32 {TOL_K6[torch.float32]:g}, f64 {TOL_K6[torch.float64]:g}); f32 sel1 times: "
+          + "; ".join(parts) + f"; one apply of every operator {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+
+
+def tet_step(geos, pc, fixed: int | None, **newton):
+    from fenics_constitutive_tpu_torch.solver import make_packed_step
+
+    opts = dict(max_newton=1, newton_rtol=0.0, newton_atol=0.0, cg_rtol=1e-5, cg_maxiter=500)
+    opts.update(newton)
+    return make_packed_step(geos, preconditioner=pc, cg_fixed_iters=fixed, **opts)
+
+
+def tet_args(geo, bcs, dtype, device):
+    from fenics_constitutive_tpu_torch.fem import combine_bcs
+
+    bc_dofs, bc_vals = combine_bcs(bcs)
+    return (
+        torch.as_tensor(bc_dofs, dtype=torch.int64, device=device),
+        torch.as_tensor(bc_vals, dtype=dtype, device=device),
+        torch.zeros(geo.ndofs_int, dtype=dtype, device=device),  # internal f_ext
+        1.0,
+    )
+
+
+def tet_reference() -> float:
+    """5^3 shuffled tets, float64, converged Newton: kernels vs plain."""
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace
+    from fenics_constitutive_tpu_torch.models import VonMises3D
+    from fenics_constitutive_tpu_torch.solver import build_amg, build_packed_problem
+
+    V = FunctionSpace(imported_mesh(5), 1, 3)
+    bcs = bench_bcs(V)
+    outs = {}
+    for device in (CARD, "cpu"):
+        geos, models, state = build_packed_problem(
+            V, VonMises3D(MAT), 2, device=device, dtype=torch.float64, engine="windowed"
+        )
+        amg = build_amg(V, MU, KAPPA, free_mask(V, bcs), nu=3, node_perm=geos[0].ex.perm,
+                        device=device, dtype=torch.float64)
+        step = tet_step(geos, amg.wrap_internal(geos[0].ex.M_pad), None, max_newton=8,
+                        newton_rtol=1e-10, newton_atol=1e-10, cg_rtol=1e-10, cg_maxiter=300)
+        args = tet_args(geos[0], bcs, torch.float64, device)
+        st = state
+        for k in (0.5, 1.0, 1.5, 2.0):
+            st, _ = step(models, st, args[0], args[1] * k, *args[2:])
+        outs[device] = st
+    u_rel = normwise(outs[CARD].u.cpu(), outs["cpu"].u)[1]
+    s_rel = normwise(outs[CARD].stress[0].cpu(), outs["cpu"].stress[0])[1]
+    if float(outs["cpu"].histories[0]["alpha"].max()) <= 0:
+        fail("the 5^3 tet reference never yields")
+    return max(u_rel, s_rel)
+
+
+def phase_tet_bench(tet: dict) -> dict:
+    from fenics_constitutive_tpu_torch.ops import cuda_window
+
+    ref_rel = tet_reference()
+    print(f"phase 9 small reference 5^3 tets f64, converged Newton, kernels (card) vs plain "
+          f"(CPU) after 4 load steps: max rel {ref_rel:.2e} (tol 1e-7)")
+    if ref_rel > 1e-7:
+        fail("the kernel tet step disagrees with the plain step at 5^3")
+
+    geos, models, amg = tet["geos"], tet["models"], tet["amg"]
+    geo = geos[0]
+    pc = amg.wrap_internal(geo.ex.M_pad)
+    args = tet_args(geo, tet["bcs"], torch.float32, CARD)
+    step = tet_step(geos, pc, TET_FIXED)
+    st = tet["state"]
+    for k in (0.5, 1.0, 1.5, 2.0):  # warm-up, driven past yield
+        st, _ = step(models, st, args[0], args[1] * k, *args[2:])
+    torch.cuda.synchronize()
+
+    K = 10
+    scales = [2.0 + 0.05 * (i + 1) for i in range(K)]
+    for key in cuda_window.launches:
+        cuda_window.launches[key] = 0
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    ev0.record()
+    out_state, probes = run_schedule(step, models, st.clone(), args, scales)
+    ev1.record()
+    ev1.synchronize()
+    host_s = time.perf_counter() - h0
+    counts = dict(cuda_window.launches)
+    ms_step = ev0.elapsed_time(ev1) / K
+    if not (torch.isfinite(probes).all() and torch.isfinite(out_state.u).all()):
+        fail("tet bench run produced non-finite values")
+    if out_state.stress[0].shape != (6, N_QP_TET):
+        fail(f"tet bench stress has shape {tuple(out_state.stress[0].shape)}")
+    r_settled = float(probes[-1])
+
+    r = torch.as_tensor(np.random.default_rng(2).normal(size=geo.ndofs_int),
+                        dtype=torch.float32, device=CARD)
+    vcycle_ms = cuda_ms(lambda: pc(r), iters=10)
+    refs = []
+    for fk in TET_VERIFY:
+        _, pr = run_schedule(tet_step(geos, pc, fk), models, st.clone(), args, scales)
+        refs.append(float(pr[-1]))
+    ok = r_settled <= R_NORM_ENVELOPE * refs[0] and refs[0] <= R_NORM_ENVELOPE * refs[1]
+    bs_g, bs_a = geo.build_seconds, amg.build_seconds
+    print(f"phase 9 tet bench 35^3 f32 ({N_QP_TET:,} QPs): {ms_step:.3f} ms/step over {K} steps "
+          f"(CUDA events; host clock {host_s / K * 1e3:.3f} ms/step), settled r_norm "
+          f"{r_settled:.4f} vs fixed-{TET_VERIFY[0]} {refs[0]:.4f} and fixed-{TET_VERIFY[1]} "
+          f"{refs[1]:.4f} (envelope {R_NORM_ENVELOPE} each); setup s: gmsh write+read "
+          f"{tet['io_s']:.2f}, RCM {bs_g['rcm']:.2f} + plan {bs_g['plan']:.2f}, geometry "
+          f"{bs_g['geometry']:.2f}, AMG host build {bs_a['hierarchy']:.2f} + freeze "
+          f"{bs_a['freeze']:.2f}, upload {bs_a['upload']:.2f}; AMG {amg.n_levels} levels; "
+          f"launches K4 {counts['gather']} K5 {counts['scatter']} K6 {counts['bsr_matvec']}; "
+          f"V-cycle {vcycle_ms:.3f} ms")
+    if not ok:
+        fail(f"settled r_norm {r_settled:.4f} is outside the {R_NORM_ENVELOPE} envelopes of "
+             f"the deep re-runs {refs}")
+    for name, c in counts.items():
+        if c <= 0:
+            fail(f"the tet bench run never launched {name}")
+    return counts
+
+
+def phase_tet_simulation(tet: dict) -> None:
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace
+    from fenics_constitutive_tpu_torch.models import VonMises3D
+    from fenics_constitutive_tpu_torch.ops import cuda_window
+    from fenics_constitutive_tpu_torch.solver import PackedSimulation
+
+    V = FunctionSpace(tet["mesh"], 1, 3)
+    bcs = bench_bcs(V)
+    t0 = time.perf_counter()
+    sim = PackedSimulation(
+        VonMises3D(MAT), V, bcs, 2, dtype=torch.float32, device=CARD,
+        newton_rtol=1e-6, newton_atol=1e-3, cg_rtol=1e-5, cg_maxiter=2000,
+    )
+    build_s = time.perf_counter() - t0
+    if (sim.engine, sim.preconditioner) != ("windowed", "amg"):
+        fail(f"PackedSimulation resolved to {sim.engine} + {sim.preconditioner}, "
+             "expected windowed + amg")
+    before = dict(cuda_window.launches)
+    report = []
+    for k in (1, 2, 3):
+        bcs[1].value = 0.0004 * k
+        t0 = time.perf_counter()
+        niter, converged = sim.solve()
+        torch.cuda.synchronize()
+        st = sim.last_stats
+        report.append(f"step {k}: newton {niter}, cg_last {int(st['cg_iters_last'])}, "
+                      f"converged {converged}, r {st['r_norm']:.3e} (r0 {st['r0_norm']:.3e}), "
+                      f"{time.perf_counter() - t0:.2f} s")
+        if not converged:
+            fail(f"PackedSimulation step {k} on the imported mesh did not converge: {st}")
+    stress = sim.stress
+    if stress.shape != (tet["mesh"].num_cells, 4, 6) or not np.isfinite(stress).all():
+        fail(f"PackedSimulation stress has shape {stress.shape} or non-finite values")
+    if sim.u.shape != (V.ndofs,) or not torch.isfinite(sim.u).all():
+        fail("PackedSimulation displacement has the wrong shape or non-finite values")
+    rise = {k: cuda_window.launches[k] - before[k] for k in before}
+    print(f"phase 10 PackedSimulation on the imported 35^3 mesh f32 ({sim.engine} + "
+          f"{sim.preconditioner}, build {build_s:.1f} s): " + "; ".join(report)
+          + f"; kernel launches K4 +{rise['gather']} K5 +{rise['scatter']} "
+          f"K6 +{rise['bsr_matvec']}")
+    if min(rise.values()) <= 0:
+        fail("PackedSimulation on the imported mesh did not launch K4, K5 and K6")
+
+
+def timed(label: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"{label} took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     import fenics_constitutive_tpu_torch  # noqa: F401  (fails outside the repo)
 
     name, _ = phase_device()
-    phase_build()
+    timed("phase 2", phase_build)
     results: dict = {}
-    phase_k1(results)
-    phase_k2(results)
-    counts = phase_bench(results)
-    phase_simulation()
+    timed("phase 3", phase_k1, results)
+    timed("phase 4", phase_k2, results)
+    counts = timed("phase 5", phase_bench, results)
+    timed("phase 6", phase_simulation)
+    with tempfile.TemporaryDirectory() as tmp:
+        tet = timed("tet setup", tet_setup, Path(tmp))
+    timed("phase 7", phase_k4_k5, results, tet)
+    timed("phase 8", phase_k6, results, tet)
+    tet_counts = timed("phase 9", phase_tet_bench, tet)
+    timed("phase 10", phase_tet_simulation, tet)
+    src = "fenics_constitutive_tpu_torch/csrc/"
     kernels = [
-        {
-            "name": "fused_matvec",
-            "route": "cuda",
-            "source": "fenics_constitutive_tpu_torch/csrc/matvec.cu",
-            "replaces": "fenics_constitutive_tpu/ops/pallas_matvec.py:42",
-            "launches": counts["K1"],
-            **results["K1"],
-        },
-        {
-            "name": "fused_eval",
-            "route": "cuda",
-            "source": "fenics_constitutive_tpu_torch/csrc/eval.cu",
-            "replaces": "fenics_constitutive_tpu/ops/pallas_eval.py:52",
-            "launches": counts["K2"],
-            **results["K2"],
-        },
+        {"name": "fused_matvec", "route": "cuda", "source": src + "matvec.cu",
+         "replaces": "fenics_constitutive_tpu/ops/pallas_matvec.py:42",
+         "launches": counts["K1"], **results["K1"]},
+        {"name": "fused_eval", "route": "cuda", "source": src + "eval.cu",
+         "replaces": "fenics_constitutive_tpu/ops/pallas_eval.py:52",
+         "launches": counts["K2"], **results["K2"]},
+        {"name": "windowed_gather", "route": "cuda", "source": src + "window.cu",
+         "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:89",
+         "launches": tet_counts["gather"], **results["K4"]},
+        {"name": "windowed_scatter", "route": "cuda", "source": src + "window.cu",
+         "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:153",
+         "launches": tet_counts["scatter"], **results["K5"]},
+        {"name": "windowed_bsr_matvec", "route": "cuda", "source": src + "window.cu",
+         "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:235",
+         "launches": tet_counts["bsr_matvec"], **results["K6"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -37,7 +37,8 @@ NVCC_FLAGS = (
 build_log: dict[str, dict] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -60,8 +61,13 @@ def _source_hash(src: Path) -> str:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its library is missing, then load it."""
-    with _lock:
+    """Compile ``csrc/<name>.cu`` if its library is missing, then load it.
+
+    Each library has its own lock, so threads may build several at once.
+    """
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         src = CSRC / f"{name}.cu"

@@ -1,5 +1,6 @@
-"""Mandel-notation constants: the stress-strain constraint and the host maps
-the structured engine folds into its element matrices.
+"""Mandel-notation constants: the stress-strain constraint, the host maps
+the engines fold into their element matrices, and the elastic tangent the
+AMG hierarchy is built from.
 
 Shear components carry a factor of sqrt(2); a strain computed from a
 displacement gradient therefore carries 1/sqrt(2) on the symmetrised shear.
@@ -17,6 +18,8 @@ import numpy as np
 
 __all__ = [
     "Constraint",
+    "get_elastic_tangent",
+    "lame_parameters",
     "projection_dev",
     "projection_vol",
     "sym_identity",
@@ -105,3 +108,34 @@ def projection_vol(sdim: int) -> np.ndarray:
 def projection_dev(sdim: int) -> np.ndarray:
     """P_dev = I4 - P_vol."""
     return np.eye(sdim) - projection_vol(sdim)
+
+
+def lame_parameters(E: float, nu: float) -> tuple[float, float]:
+    """(mu, lam) from Young's modulus and Poisson ratio."""
+    mu = E / (2.0 * (1.0 + nu))
+    lam = E * nu / ((1.0 + nu) * (1.0 - 2.0 * nu))
+    return mu, lam
+
+
+def get_elastic_tangent(E: float, nu: float, constraint: Constraint) -> np.ndarray:
+    """Linear-elastic tangent in Mandel notation per constraint (host numpy)."""
+    mu, lam = lame_parameters(E, nu)
+    if constraint == Constraint.FULL:
+        D = lam * np.outer(sym_identity(6), sym_identity(6)) + 2.0 * mu * np.eye(6)
+    elif constraint == Constraint.PLANE_STRAIN:
+        D = lam * np.outer(sym_identity(4), sym_identity(4)) + 2.0 * mu * np.eye(4)
+    elif constraint == Constraint.PLANE_STRESS:
+        # rank-deficient: the zz row and column are zero, so sigma_zz = 0
+        D = E / (1.0 - nu**2) * np.array(
+            [
+                [1.0, nu, 0.0, 0.0],
+                [nu, 1.0, 0.0, 0.0],
+                [0.0, 0.0, 0.0, 0.0],
+                [0.0, 0.0, 0.0, 1.0 - nu],
+            ]
+        )
+    elif constraint == Constraint.UNIAXIAL_STRAIN:
+        D = np.array([[E * (1.0 - nu) / ((1.0 + nu) * (1.0 - 2.0 * nu))]])
+    else:  # UNIAXIAL_STRESS
+        D = np.array([[E]])
+    return D

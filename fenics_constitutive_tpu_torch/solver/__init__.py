@@ -1,14 +1,23 @@
-"""Newton-Krylov stepping on the structured engine."""
+"""Newton-Krylov stepping on the structured and windowed engines."""
 
+from .amg import WindowedAmgPreconditioner, build_amg
 from .linear import cg_solve
 from .multigrid import MultigridPreconditioner, build_multigrid
-from .packed_step import PackedState, build_packed_problem, make_packed_step
+from .packed_step import (
+    WINDOWED_MIN_CELLS,
+    PackedState,
+    build_packed_problem,
+    make_packed_step,
+)
 from .simulation import PackedSimulation
 
 __all__ = [
+    "WINDOWED_MIN_CELLS",
     "MultigridPreconditioner",
     "PackedSimulation",
     "PackedState",
+    "WindowedAmgPreconditioner",
+    "build_amg",
     "build_multigrid",
     "build_packed_problem",
     "cg_solve",

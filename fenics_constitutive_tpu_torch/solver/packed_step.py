@@ -1,9 +1,14 @@
-"""Newton-Krylov load step on the structured engine (grid-major SoA fields).
+"""Newton-Krylov load step on the structured and windowed engines (SoA fields).
 
-``make_packed_step`` builds ``step(models, state, bc_dofs, bc_vals, f_ext,
-dt) -> (state', stats)`` for one law on a box mesh. The whole Newton loop
-runs on grid-major dof vectors; the node-major public layout is converted
-once at the step boundary.
+``build_packed_problem`` picks the engine for a mesh: the structured engine
+for a box of hexes or quads (grid-major dof vectors), the windowed exchange
+engine (ops/windowed.py) for a general imported mesh. ``make_packed_step``
+builds ``step(models, state, bc_dofs, bc_vals, f_ext, dt) -> (state', stats)``
+for one law on either. The whole Newton loop runs on the engine's working
+layout: grid-major vectors on the structured engine, converted from the
+node-major public layout once at the step boundary; on the windowed engine
+``state.u`` and ``f_ext`` already live in the internal layout (RCM-permuted,
+component-major, tile-padded), so the step pays no permutation at all.
 
 Host synchronisation: with ``max_newton=1`` and ``cg_fixed_iters`` set (the
 benchmark configuration) a step reads nothing back to the host, so the
@@ -21,16 +26,27 @@ import torch
 
 from ..ops.packed import IsotropicTangent
 from ..ops.structured import StructuredGeometry, build_structured_geometry
+from ..ops.windowed import WindowedGeometry, build_windowed_geometry
 from . import linear
 
-__all__ = ["PackedState", "build_packed_problem", "make_packed_step"]
+__all__ = [
+    "WINDOWED_MIN_CELLS",
+    "PackedState",
+    "build_packed_problem",
+    "make_packed_step",
+]
+
+#: general (non-box) meshes of at least this many cells default to the
+#: windowed engine, as in the JAX package; smaller ones would go to the
+#: gather engine, which is not ported
+WINDOWED_MIN_CELLS = 4096
 
 
 @dataclass(frozen=True)
 class PackedState:
-    u: torch.Tensor  # [ndofs] node-major
-    stress: tuple  # per-law [s, Q, M]
-    histories: tuple  # per-law dict of [h, Q, M] (or None)
+    u: torch.Tensor  # [ndofs] node-major (structured) or [vs * M_pad] internal (windowed)
+    stress: tuple  # per-law [s, Q, M] (structured) or [s, N] (windowed)
+    histories: tuple  # per-law dict of [h, ...] like stress (or None)
     t: torch.Tensor  # scalar
 
     def clone(self) -> PackedState:
@@ -46,12 +62,59 @@ class PackedState:
         )
 
 
-def build_packed_problem(space, law, q_degree: int, *, device, dtype: torch.dtype):
-    """Geometry and zero initial state for one law on a box mesh of P1 hexes
-    (or quads). Returns ``(geos, models, state0)`` with one-element tuples."""
-    geo = build_structured_geometry(
+def _build_geometry(space, law, q_degree: int, engine: str, *, device, dtype):
+    mesh = space.mesh
+    box = mesh.structured_shape is not None
+    if box and mesh.cell_type in ("hex", "quad"):
+        # box meshes of hexes/quads keep the structured engine whatever
+        # ``engine`` says, as in the JAX package
+        return build_structured_geometry(
+            space, q_degree, law.constraint, device=device, dtype=dtype
+        )
+    if box and space.degree == 1 and mesh.cell_type in ("tetra", "triangle"):
+        msg = (
+            "a Kuhn simplex box (mesh.structured_shape set) runs on the JAX "
+            "package's structured tet engine, which is not ported yet (ROADMAP.md "
+            "Queue 1); build the mesh without structured_shape to use the "
+            "windowed engine"
+        )
+        raise NotImplementedError(msg)
+    use_windowed = engine == "windowed" or (
+        engine == "auto"
+        and mesh.num_cells >= WINDOWED_MIN_CELLS
+        and mesh.cell_type != "interval"
+    )
+    if not use_windowed:
+        msg = (
+            f"this general mesh ({mesh.num_cells} {mesh.cell_type} cells, "
+            f"engine={engine!r}) would run on the JAX package's gather engine, "
+            "which is not ported yet (ROADMAP.md Queue 1); pass engine='windowed'"
+        )
+        raise NotImplementedError(msg)
+    return build_windowed_geometry(
         space, q_degree, law.constraint, device=device, dtype=dtype
     )
+
+
+def build_packed_problem(
+    space, law, q_degree: int, *, device, dtype: torch.dtype, engine: str = "auto"
+):
+    """Geometry and zero initial state for one law on a mesh.
+
+    ``engine``: "auto" takes the structured engine on a box of hexes or
+    quads and the windowed engine on a general mesh of at least
+    ``WINDOWED_MIN_CELLS`` cells; "windowed" forces the windowed engine on a
+    general mesh of any size. Box meshes of hexes or quads keep the
+    structured engine. The JAX package's other engines (gather, structured
+    tet, lattice) are not ported, and a mesh that would need one raises.
+
+    Returns ``(geos, models, state0)`` with one-element tuples; on the
+    windowed engine ``state0.u`` is in the internal layout.
+    """
+    if engine not in ("auto", "windowed", "gather"):
+        msg = f"engine must be 'auto', 'windowed' or 'gather', got {engine!r}"
+        raise ValueError(msg)
+    geo = _build_geometry(space, law, q_degree, engine, device=device, dtype=dtype)
     sdim = law.constraint.stress_strain_dim
 
     def zeros(k):
@@ -61,8 +124,9 @@ def build_packed_problem(space, law, q_degree: int, *, device, dtype: torch.dtyp
         None if law.history_dim is None
         else {k: zeros(d) for k, d in law.history_dim.items()}
     )
+    n_u = geo.ndofs_int if isinstance(geo, WindowedGeometry) else space.ndofs
     state = PackedState(
-        u=torch.zeros(space.ndofs, dtype=dtype, device=device),
+        u=torch.zeros(n_u, dtype=dtype, device=device),
         stress=(zeros(sdim),),
         histories=(history,),
         t=torch.zeros((), dtype=dtype, device=device),
@@ -89,7 +153,7 @@ def _select(cond: torch.Tensor, new, old):
     raise TypeError(msg)
 
 
-def _require_cuda(geo: StructuredGeometry) -> None:
+def _require_cuda(geo) -> None:
     if geo.device.type != "cuda":
         msg = (
             "matvec_impl/eval_impl='kernel' launch CUDA kernels; the geometry "
@@ -115,15 +179,25 @@ def make_packed_step(
 ):
     """Build ``step(models, state, bc_dofs, bc_vals, f_ext, dt) -> (state', stats)``.
 
-    ``geos``: a one-element tuple holding the law's StructuredGeometry.
-    ``preconditioner``: optional callable M^-1 on grid-major vectors (a
-    MultigridPreconditioner or its ``bpx``); None = Jacobi.
+    ``geos``: a one-element tuple holding the law's StructuredGeometry or
+    WindowedGeometry.
+    ``preconditioner``: optional callable M^-1 on the engine's working
+    vectors (structured: grid-major, a MultigridPreconditioner or its
+    ``bpx``; windowed: internal, e.g. ``WindowedAmgPreconditioner.
+    wrap_internal``); None = Jacobi.
     ``matvec_impl``: "plain" (StructuredGeometry.matvec_gm) or "kernel" (the
     CUDA operator of ops/cuda_matvec.py; the geometry must be on a CUDA
     device). ``eval_impl``: "plain" (strain -> model.evaluate_packed ->
     residual) or "kernel" (the fused VonMises3D kernel of ops/cuda_eval.py,
-    CUDA only). ``cg_flexible``/``cg_reduce_dtype``/``cg_fixed_iters``: see
+    CUDA only). Both kernels serve the structured engine; the windowed
+    engine takes "plain" and launches its own kernels (gather, scatter,
+    BSR SpMV) whenever its tensors are on a CUDA device.
+    ``cg_flexible``/``cg_reduce_dtype``/``cg_fixed_iters``: see
     solver.linear.cg_solve.
+
+    On the windowed engine ``state.u`` and ``f_ext`` are INTERNAL vectors
+    [vs * M_pad] (build_packed_problem initialises the state that way), and
+    the new state's ``u`` stays internal.
 
     ``stats``: newton_iters, r_norm (free-dof residual norm at the end),
     r0_norm (at the start) and cg_iters_last, as tensors.
@@ -132,13 +206,44 @@ def make_packed_step(
         if impl not in ("plain", "kernel"):
             msg = f"{name} must be 'plain' or 'kernel', got {impl!r}"
             raise ValueError(msg)
-    if len(geos) != 1 or not isinstance(geos[0], StructuredGeometry):
-        msg = "make_packed_step supports one law on a StructuredGeometry"
+    if len(geos) != 1 or not isinstance(geos[0], (StructuredGeometry, WindowedGeometry)):
+        msg = "make_packed_step supports one law on a StructuredGeometry or WindowedGeometry"
         raise ValueError(msg)
     geo = geos[0]
-    M, vs, ndofs = geo.M, geo.vs, geo.ndofs
+    windowed = isinstance(geo, WindowedGeometry)
     if "kernel" in (matvec_impl, eval_impl):
+        if windowed:
+            msg = (
+                "matvec_impl/eval_impl='kernel' are the structured engine's kernels; "
+                "the windowed engine launches its own kernels on CUDA tensors"
+            )
+            raise ValueError(msg)
         _require_cuda(geo)
+
+    if windowed:
+        # internal layout throughout: no conversion at the step boundary
+        def to_work(u):
+            return u
+
+        from_work = to_work
+
+        def boundary(bc_dofs):
+            return geo.bc_internal(bc_dofs), geo.free_internal(bc_dofs)
+
+        strain, residual = geo.strain, geo.residual
+        operator, jacobi_diag = geo.matvec, geo.jacobi_diag
+    else:
+        M, vs, ndofs = geo.M, geo.vs, geo.ndofs
+        to_work, from_work = geo.to_grid_major, geo.to_node_major
+
+        def boundary(bc_dofs):
+            bc_gm = (bc_dofs % vs) * M + bc_dofs // vs
+            free_gm = torch.ones(ndofs, dtype=torch.bool, device=geo.device)
+            free_gm[bc_gm] = False
+            return bc_gm, free_gm
+
+        strain, residual = geo.strain_gm, geo.residual_gm
+        operator, jacobi_diag = geo.matvec_gm, geo.jacobi_diag_gm
 
     cg_opts = dict(
         flexible=cg_flexible, reduce_dtype=cg_reduce_dtype, fixed_iters=cg_fixed_iters
@@ -152,66 +257,64 @@ def make_packed_step(
 
     kernel_evals: dict = {}
 
-    def eval_assemble(model, u_gm, u_prev_gm, stress, history, t, f_ext_gm, dt):
+    def eval_assemble(model, u_w, u_prev_w, stress, history, t, f_ext_w, dt):
         if eval_impl == "kernel":
             from ..ops.cuda_eval import build_cuda_eval
 
             if id(model) not in kernel_evals:
                 kernel_evals[id(model)] = (model, build_cuda_eval(geo, model))
             fused = kernel_evals[id(model)][1]
-            F, s_new, (beta, gmm, nf), h_new = fused(u_gm - u_prev_gm, stress, history)
+            F, s_new, (beta, gmm, nf), h_new = fused(u_w - u_prev_w, stress, history)
             tg = IsotropicTangent(
                 kappa=model.params["p_ka"], beta=beta, gamma=gmm, n=nf
             )
-            r = geo._scatter_corners(F).reshape(-1) - f_ext_gm
+            r = geo._scatter_corners(F).reshape(-1) - f_ext_w
             return r, s_new, tg, h_new
-        eps = geo.strain_gm(u_gm - u_prev_gm)
+        eps = strain(u_w - u_prev_w)
         s_new, tg, h_new = model.evaluate_packed(t, dt, eps, stress, history)
-        return geo.residual_gm(s_new) - f_ext_gm, s_new, tg, h_new
+        return residual(s_new) - f_ext_w, s_new, tg, h_new
 
-    def solve(tg, r_gm, free_gm):
-        zero = r_gm.new_zeros(())
-        r_gm = torch.where(free_gm, r_gm, zero)
+    def solve(tg, r_w, free):
+        zero = r_w.new_zeros(())
+        r_w = torch.where(free, r_w, zero)
 
         def apply_op(v):
-            return kernel_mv(v, tg) if kernel_mv is not None else geo.matvec_gm(v, tg)
+            return kernel_mv(v, tg) if kernel_mv is not None else operator(v, tg)
 
         def matvec(v):
-            vm = torch.where(free_gm, v, zero)
-            return torch.where(free_gm, apply_op(vm), v)
+            vm = torch.where(free, v, zero)
+            return torch.where(free, apply_op(vm), v)
 
         if preconditioner is not None:
             def precond(rr):
-                z = preconditioner(torch.where(free_gm, rr, zero))
-                return torch.where(free_gm, z, rr)
+                z = preconditioner(torch.where(free, rr, zero))
+                return torch.where(free, z, rr)
 
             return linear.cg_solve(
-                matvec, r_gm, rtol=cg_rtol, maxiter=cg_maxiter, precond=precond,
+                matvec, r_w, rtol=cg_rtol, maxiter=cg_maxiter, precond=precond,
                 **cg_opts,
             )
-        diag = torch.where(free_gm, geo.jacobi_diag_gm(tg), r_gm.new_ones(()))
+        diag = torch.where(free, jacobi_diag(tg), r_w.new_ones(()))
         return linear.cg_solve(
-            matvec, r_gm, diag, rtol=cg_rtol, maxiter=cg_maxiter, **cg_opts
+            matvec, r_w, diag, rtol=cg_rtol, maxiter=cg_maxiter, **cg_opts
         )
 
     def step(models, state: PackedState, bc_dofs, bc_vals, f_ext, dt):
         model = models[0]
         bc_dofs = torch.as_tensor(bc_dofs, dtype=torch.int64, device=geo.device)
-        bc_gm = (bc_dofs % vs) * M + bc_dofs // vs
-        free_gm = torch.ones(ndofs, dtype=torch.bool, device=geo.device)
-        free_gm[bc_gm] = False
-        u_prev_gm = geo.to_grid_major(state.u)
-        f_ext_gm = geo.to_grid_major(f_ext)
-        u = u_prev_gm.clone()
-        u[bc_gm] = torch.as_tensor(bc_vals, dtype=u.dtype, device=u.device)
+        bc_w, free = boundary(bc_dofs)
+        u_prev_w = to_work(state.u)
+        f_ext_w = to_work(f_ext)
+        u = u_prev_w.clone()
+        u[bc_w] = torch.as_tensor(bc_vals, dtype=u.dtype, device=u.device)
 
         def fnorm(r):
-            return torch.linalg.vector_norm(torch.where(free_gm, r, r.new_zeros(())))
+            return torch.linalg.vector_norm(torch.where(free, r, r.new_zeros(())))
 
-        def evaluate(u_gm):
+        def evaluate(u_w):
             return eval_assemble(
-                model, u_gm, u_prev_gm, state.stress[0], state.histories[0],
-                state.t, f_ext_gm, dt,
+                model, u_w, u_prev_w, state.stress[0], state.histories[0],
+                state.t, f_ext_w, dt,
             )
 
         r, s, tg, h = evaluate(u)
@@ -224,7 +327,7 @@ def make_packed_step(
             active = fnorm(r) > thresh
             if synced and not bool(active):
                 break
-            delta, cg_k = solve(tg, r, free_gm)
+            delta, cg_k = solve(tg, r, free)
             u_new = u - delta
             new = (u_new, *evaluate(u_new))
             if synced:
@@ -233,7 +336,7 @@ def make_packed_step(
                 u, r, s, tg, h = _select(active, new, (u, r, s, tg, h))
             niter = niter + active.to(torch.int32)
         new_state = PackedState(
-            u=geo.to_node_major(u), stress=(s,), histories=(h,), t=state.t + dt
+            u=from_work(u), stress=(s,), histories=(h,), t=state.t + dt
         )
         stats = {
             "newton_iters": niter,

@@ -1,10 +1,13 @@
 """Carry state and parameters across from the JAX package.
 
-Both packages lay the structured engine's fields out the same way (stress
-[6, Q, M], history {"eps_n": [6, Q, M], "alpha": [1, Q, M]}, node-major
-displacements), so a state is moved leaf by leaf as numpy arrays: a plastic
-state reached in JAX can be stepped by either package. The geometry is not
-carried: the port rebuilds it from the same mesh.
+Both packages lay the engines' fields out the same way, so a state is moved
+leaf by leaf as numpy arrays: a plastic state reached in JAX can be stepped
+by either package. On the structured engine that is stress [6, Q, M],
+history {"eps_n": [6, Q, M], "alpha": [1, Q, M]} and node-major
+displacements; on the windowed engine stress [6, N], history [h, N] in the
+plan's slot order and displacements in the internal layout [vs * M_pad].
+The geometry is not carried: the port rebuilds it from the same mesh, and
+both packages build identical plans (RCM order, blocks, slots) from it.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""Shared fixtures of the port's parity tests: the same box problem built by
-the JAX package (the reference) and by the PyTorch port.
+"""Shared fixtures of the port's parity tests: the same problem (a box of
+hexes, or a shuffled tet box that arrives like an imported mesh) built by the
+JAX package (the reference) and by the PyTorch port.
 
 The tests run on the CPU in float64 (tests/conftest.py puts JAX on the CPU
 with x64); data move between the packages as numpy arrays.
@@ -7,6 +8,17 @@ with x64); data move between the packages as numpy arrays.
 
 import numpy as np
 import pytest
+
+@pytest.fixture(scope="session", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port's CPU tests: the problems are small,
+    and the suite runs in several worker processes beside JAX's own thread
+    pools, where torch's default of one thread per core oversubscribes the
+    machine and small ops wait on descheduled threads."""
+    import torch
+
+    torch.set_num_threads(1)
+
 
 #: the benchmark's material (VonMises3D, exponential hardening)
 MAT = {"p_ka": 175000.0, "p_mu": 80769.0, "p_y0": 1200.0, "p_y00": 2500.0, "p_w": 200.0}
@@ -43,6 +55,35 @@ def box():
         out = {}
         for key, fem in (("jax", jfem), ("torch", tfem)):
             V = fem.FunctionSpace(fem.unit_cube_mesh(n, n, n, "hex"), 1, 3)
+            out[key] = (V, _bench_bcs(V, fem.DirichletBC, stretch))
+        return out
+
+    return make
+
+
+def _shuffle(mesh, Mesh, seed):
+    """The mesh with its node numbering shuffled and no structured metadata:
+    it arrives like an imported mesh."""
+    pi = np.random.default_rng(seed).permutation(mesh.num_nodes)  # old -> new
+    nodes = np.empty_like(mesh.nodes)
+    nodes[pi] = mesh.nodes
+    return Mesh(nodes, pi[mesh.cells].astype(np.int32), mesh.cell_type)
+
+
+@pytest.fixture(scope="session")
+def tets():
+    """tets(n, stretch, seed) -> {"jax": (V, bcs), "torch": (V, bcs)} on the same
+    shuffled n^3 Kuhn tet box (P1, vector-valued), with the benchmark's BCs."""
+
+    def make(n, stretch=0.004, seed=0):
+        from fenics_constitutive_tpu import fem as jfem
+        from fenics_constitutive_tpu.fem.mesh import Mesh as JMesh
+        from fenics_constitutive_tpu_torch import fem as tfem
+
+        out = {}
+        for key, fem, Mesh in (("jax", jfem, JMesh), ("torch", tfem, tfem.Mesh)):
+            mesh = _shuffle(fem.unit_cube_mesh(n, n, n, "tetra"), Mesh, seed)
+            V = fem.FunctionSpace(mesh, 1, 3)
             out[key] = (V, _bench_bcs(V, fem.DirichletBC, stretch))
         return out
 

@@ -2,10 +2,12 @@
 
 * No module of the port imports jax: a static AST scan (jax may be loaded
   in the test process anyway, so ``sys.modules`` proves nothing).
-* The CUDA kernel paths refuse CPU tensors at the step level instead of
+* The CUDA kernel paths refuse CPU tensors (at the step level for the
+  structured kernels, in the wrappers for the windowed ones) instead of
   quietly running the plain path.
-* Importing the kernel modules and building the wrappers compiles nothing:
-  nvcc runs only at a kernel's first launch on the card.
+* Importing the kernel modules, building a problem on either engine and
+  stepping it on the CPU compile nothing: nvcc runs only at a kernel's first
+  launch on the card.
 """
 
 import ast
@@ -33,6 +35,10 @@ def _imports(path):
 def test_port_never_imports_jax():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 15
+    scanned = {str(f.relative_to(PKG)) for f in files}
+    for module in ("fem/io.py", "fem/kinematics.py", "ops/windowed.py", "ops/windowed_bsr.py",
+                   "ops/cuda_window.py", "solver/amg.py"):
+        assert module in scanned, module
     bad = {
         str(f.relative_to(PKG)): name
         for f in files
@@ -44,7 +50,7 @@ def test_port_never_imports_jax():
 
 def test_kernel_sources_present():
     csrc = PKG / "csrc"
-    assert {p.name for p in csrc.glob("*.cu")} == {"matvec.cu", "eval.cu"}
+    assert {p.name for p in csrc.glob("*.cu")} == {"matvec.cu", "eval.cu", "window.cu"}
     for p in csrc.glob("*.cu"):
         assert "Replaces" in p.read_text()[:2000], p.name
 
@@ -72,15 +78,40 @@ def test_simulation_auto_is_plain_off_the_card(box, mat):
                          device="cpu", dtype=torch.float64)
 
 
-def test_import_and_build_never_call_nvcc(box, mat, monkeypatch):
+@pytest.mark.parametrize("kernel", ["gather", "scatter", "bsr_matvec"])
+def test_window_kernels_refuse_cpu_tensors(tets, kernel):
+    from fenics_constitutive_tpu_torch.ops import (
+        build_windowed_bsr,
+        build_windowed_exchange,
+        cuda_window,
+    )
+
+    V = tets(4)["torch"][0]
+    ex = build_windowed_exchange(V.mesh.cells, V.mesh.num_nodes, device="cpu", tile=128)
+    if kernel == "gather":
+        call = lambda: cuda_window.windowed_gather(ex, torch.zeros(3, ex.M_pad))
+    elif kernel == "scatter":
+        call = lambda: cuda_window.windowed_scatter(ex, torch.zeros(ex.B, 3, ex.Rn))
+    else:
+        import scipy.sparse as sp
+
+        w = build_windowed_bsr(sp.eye(6), 3, 3, device="cpu", dtype=torch.float64)
+        call = lambda: cuda_window.windowed_bsr_matvec(w, torch.zeros(3 * w.NC_pad,
+                                                                      dtype=torch.float64))
+    with pytest.raises(ValueError, match="CUDA"):
+        call()
+    assert cuda_window.launches[kernel] == 0
+
+
+def test_import_and_build_never_call_nvcc(box, tets, mat, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError(f"a subprocess was started: {args!r}")
 
     monkeypatch.setattr(subprocess, "run", refuse)
     monkeypatch.setattr(subprocess, "Popen", refuse)
-    from fenics_constitutive_tpu_torch.ops import _cuda_build, cuda_eval, cuda_matvec
+    from fenics_constitutive_tpu_torch.ops import _cuda_build, cuda_eval, cuda_matvec, cuda_window
 
-    for mod in (_cuda_build, cuda_matvec, cuda_eval):
+    for mod in (_cuda_build, cuda_matvec, cuda_eval, cuda_window):
         importlib.reload(mod)
     from fenics_constitutive_tpu_torch.models import VonMises3D
     from fenics_constitutive_tpu_torch.solver import build_packed_problem
@@ -94,5 +125,14 @@ def test_import_and_build_never_call_nvcc(box, mat, monkeypatch):
     from fenics_constitutive_tpu_torch.ops import IsotropicTangent
 
     mv(u, IsotropicTangent(mat["p_ka"], beta, gamma, n))
+
+    # the general-mesh path: windowed problem, AMG and one step on the CPU
+    from fenics_constitutive_tpu_torch.solver import PackedSimulation
+
+    V, bcs = tets(4)["torch"]
+    sim = PackedSimulation(VonMises3D(mat), V, bcs, 2, engine="windowed", device="cpu",
+                           dtype=torch.float64)
+    assert sim.solve()[1]
     assert cuda_matvec.launches == 0 and cuda_eval.launches == 0
+    assert set(cuda_window.launches.values()) == {0}
     assert not _cuda_build.build_log
