@@ -7,8 +7,9 @@ exits non-zero before the last line:
 
   1. device: the card (nvidia-smi name and power limit), torch and CUDA;
      there is no CPU path.
-  2. build: compiles the two kernels of ``fenics_constitutive_tpu_torch/csrc``
-     with nvcc (first use) and prints the build seconds and register use.
+  2. build: compiles the four sources of ``fenics_constitutive_tpu_torch/csrc``
+     (matvec, eval, window, smoother), one nvcc each, started together, and
+     prints the build seconds and register use.
   3. K1, the fused CG operator, against its plain PyTorch version at the
      benchmark size (50^3 hexes, M = 51^3 flat nodes) with a plastic
      tangent, in float64 and float32, and both times.
@@ -54,7 +55,32 @@ padded quadrature points):
      reason phase 6 gives: the JAX package on the CPU at 30^3 ends its first
      step at r_norm 79289 after 25 Newton iterations, the port at 76181.)
 
-Then one JSON line of per-kernel results and, last, the device JSON line.
+The fused multigrid smoothing chains (K3) and the box-mesh entry point
+around them:
+
+ 11. K3 against its plain version on every level of the 50^3 hierarchy
+     (levels 0-3: the pre chain, nu sweeps and the residual, and the post
+     chain, nu = 3 on level 0 and 2 below; level 4: the coarse chain of 20
+     sweeps, from a hierarchy without the direct coarse solve), float64 and
+     float32: per-chain errors, bit-equality of two launches, kernel and
+     plain times; then the whole fused V-cycle against the unfused one.
+ 12. phase 5's workload with fused_smoothing=True: the same warm-up and 48
+     steps, the deep fixed-40 re-run with the same preconditioner, ms/step
+     beside phase 5's, the V-cycle fused against unfused, K3 launches.
+ 13. PackedSimulation on scripts/ab_multimat.py's two-law 50^3 box (linear
+     elasticity below z = 0.5, VonMises3D above; float64, V-cycle with the
+     K3 chains): solve_schedule over 3 steps of 0.0004 k, a checkpoint round
+     trip into a second simulation (one more step on both, bit-equal), and a
+     traction on the x = 1 face with symmetry planes and max_subdivisions=2.
+
+Then one JSON line of per-kernel results (launches on the path's run,
+times, plain and library times, the bound) and, last, the device JSON line.
+
+    python3 chip_smoke.py --profile
+
+instead profiles 3 steps of the bench workload with the unfused and the
+fused V-cycle (torch.profiler: device time per step, busy share, the
+costliest kernels) and prints no JSON.
 """
 
 from __future__ import annotations
@@ -97,6 +123,9 @@ TOL_K5 = {torch.float64: 1e-13, torch.float32: 1e-6}
 # select_passes = 1, so the tolerance is that of the float sum either way.
 TOL_K6 = {torch.float64: 1e-12, torch.float32: 1e-5}
 
+N_MULTIMAT = 50  # the two-law box of phase 13
+TRACTION = 600.0  # phase 13's x = 1 face load: elastic in both laws
+
 CARD = "cuda"  # the device of the general-mesh phases
 N_TET = 35  # the general-tet bench mesh: 35^3 boxes of 6 Kuhn tets
 N_QP_TET = 1_083_392  # its padded quadrature points (T = 1024 plan)
@@ -111,6 +140,20 @@ def normwise(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     """(max abs error, max abs error / max|b|)."""
     err = float((a.double() - b.double()).abs().max())
     return err, err / max(float(b.double().abs().max()), 1e-300)
+
+
+# published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, and
+# operations/s outside the tensor cores per working type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -192,7 +235,7 @@ def phase_device() -> tuple[str, str]:
 def phase_build() -> None:
     from fenics_constitutive_tpu_torch.ops import _cuda_build
 
-    libs = ("matvec", "eval", "window")
+    libs = ("matvec", "eval", "window", "smoother")
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(_cuda_build.load_library, lib) for lib in libs]:
@@ -242,8 +285,16 @@ def phase_k1(results: dict) -> None:
         if dtype == torch.float32:
             ms = cuda_ms(lambda: mv(v, tg))
             plain_ms = cuda_ms(lambda: cuda_matvec.matvec_plain(geo, v, tg))
-            results["K1"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-            line.append(f"f32 {ms:.4f} ms/apply vs plain {plain_ms:.4f} ms")
+            # u -> r: u, beta, gamma [8, M], n [48, M], mask in; r out. Per
+            # valid cell the strain and divergence products (2 x 1152
+            # multiply-adds) and ~40 operations per Gauss point for the tangent
+            M, cells = geo.M, float(geo.mask.sum())
+            bound, by = bound_ms(4 * (3 + 8 + 8 + 48 + 1 + 3) * M,
+                                 cells * (4 * 1152 + 8 * 40) + 21 * M, dtype)
+            results["K1"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound, "bound_by": by, "library_ms": None}
+            line.append(f"f32 {ms:.4f} ms/apply vs plain {plain_ms:.4f} ms "
+                        f"(bound {bound:.4f} ms, {by})")
     print("phase 3 K1 vs plain at 50^3: " + "; ".join(line))
 
 
@@ -290,11 +341,19 @@ def phase_k2(results: dict) -> None:
             ms = cuda_ms(lambda: fused(du, sig1, hist1))
             plain_ms = cuda_ms(lambda: cuda_eval.eval_plain(geo, law, du, sig1, hist1))
             err_f, _ = normwise(out_k[0], out_p[0])
-            results["K2"] = {"max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms}
-            print(f"phase 4 K2 f32 time: {ms:.4f} ms/call vs plain {plain_ms:.4f} ms")
+            # du, stress, eps_n, alpha, mask in (108 M values); F, stress,
+            # beta, gamma, n, eps_n, alpha out (192 M). Operations: the strain
+            # and divergence products and ~100 per Gauss point for the trial
+            # state, not counting the local Newton trips (a lower bound)
+            M, cells = geo.M, float(geo.mask.sum())
+            bound, by = bound_ms(4 * 300 * M, cells * (4 * 1152 + 8 * 100), dtype)
+            results["K2"] = {"max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound, "bound_by": by, "library_ms": None}
+            print(f"phase 4 K2 f32 time: {ms:.4f} ms/call vs plain {plain_ms:.4f} ms "
+                  f"(bound {bound:.4f} ms, {by})")
 
 
-def bench_setup(n: int, dtype, device):
+def bench_setup(n: int, dtype, device, fused: bool = False):
     from fenics_constitutive_tpu_torch.fem import combine_bcs
     from fenics_constitutive_tpu_torch.models import VonMises3D
     from fenics_constitutive_tpu_torch.solver import build_multigrid, build_packed_problem
@@ -307,7 +366,7 @@ def bench_setup(n: int, dtype, device):
     free0[torch.as_tensor(bc_dofs, dtype=torch.int64)] = False
     mg = build_multigrid(
         geos[0], MU, KAPPA, free0, device=device, dtype=dtype,
-        nu=3, nu_coarse=2, coarse_direct=True,
+        nu=3, nu_coarse=2, coarse_direct=True, fused_smoothing=fused,
     )
     args = (
         torch.as_tensor(bc_dofs, dtype=torch.int64, device=device),
@@ -338,7 +397,6 @@ def run_schedule(step, models, state, args, scales):
 
 
 def phase_bench(results: dict) -> dict:
-    from fenics_constitutive_tpu_torch.ops import cuda_eval, cuda_matvec
     from fenics_constitutive_tpu_torch.solver import make_packed_step
 
     # small reference: the same load path with kernels and with plain
@@ -379,8 +437,7 @@ def phase_bench(results: dict) -> dict:
 
     K, j = 48, 1
     scales = [2.0 + 1e-4 * j + 0.05 * i for i in range(K)]
-    cuda_matvec.launches = 0
-    cuda_eval.launches = 0
+    reset_counts()
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
     h0 = time.perf_counter()
@@ -389,7 +446,8 @@ def phase_bench(results: dict) -> dict:
     ev1.record()
     ev1.synchronize()
     host_s = time.perf_counter() - h0
-    counts = {"K1": cuda_matvec.launches, "K2": cuda_eval.launches}
+    counts = read_counts()
+    del counts["K3"]  # the unfused V-cycle launches no K3
     ms_step = ev0.elapsed_time(ev1) / K
     if not (torch.isfinite(probes).all() and torch.isfinite(out_state.u).all()):
         fail("bench run produced non-finite values")
@@ -402,6 +460,7 @@ def phase_bench(results: dict) -> dict:
     vcycle_ms = cuda_ms(lambda: mg(r), iters=10)
     elastic_ms = cuda_ms(lambda: geos[0].elastic_matvec_gm(r, KAPPA, 2 * MU))
 
+    box_mg = mg
     step_ref = bench_step(geos, mg, 40, "kernel")
     _, probes_ref = run_schedule(step_ref, models, st.clone(), args, scales)
     r_ref = float(probes_ref[-1])
@@ -418,6 +477,163 @@ def phase_bench(results: dict) -> dict:
     for name, c in counts.items():
         if c <= 0:
             fail(f"the bench run never launched {name}")
+    return {"counts": counts, "ms_step": ms_step, "vcycle_ms": vcycle_ms, "mg": box_mg}
+
+
+def reset_counts() -> None:
+    from fenics_constitutive_tpu_torch.ops import cuda_eval, cuda_matvec, cuda_smoother
+
+    cuda_matvec.launches = cuda_eval.launches = cuda_smoother.launches = 0
+
+
+def read_counts() -> dict:
+    from fenics_constitutive_tpu_torch.ops import cuda_eval, cuda_matvec, cuda_smoother
+
+    return {"K1": cuda_matvec.launches, "K2": cuda_eval.launches, "K3": cuda_smoother.launches}
+
+
+def phase_bench_fused(box_bench: dict) -> dict:
+    """Phase 5's workload with the K3 chains on every level of the V-cycle."""
+    geos, models, state, mg, args = bench_setup(N_BENCH, torch.float32, "cuda", fused=True)
+    step = bench_step(geos, mg, 9, "kernel")
+    st = state
+    for k in (0.5, 1.0, 1.5):  # warm-up, driven past yield
+        st, _ = step(models, st, args[0], args[1] * k, *args[2:])
+    torch.cuda.synchronize()
+
+    K, j = 48, 1
+    scales = [2.0 + 1e-4 * j + 0.05 * i for i in range(K)]
+    reset_counts()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    out_state, probes = run_schedule(step, models, st.clone(), args, scales)
+    ev1.record()
+    ev1.synchronize()
+    counts = read_counts()
+    ms_step = ev0.elapsed_time(ev1) / K
+    if not (torch.isfinite(probes).all() and torch.isfinite(out_state.u).all()):
+        fail("fused bench run produced non-finite values")
+    r_settled = float(probes[-1])
+
+    # V-cycle alone, fused and unfused in turns (A B B A)
+    mg_plain = box_bench["mg"]
+    r = torch.as_tensor(np.random.default_rng(2).normal(size=geos[0].ndofs),
+                        dtype=torch.float32, device="cuda")
+    t_f1, t_p1 = cuda_ms(lambda: mg(r), iters=10), cuda_ms(lambda: mg_plain(r), iters=10)
+    t_p2, t_f2 = cuda_ms(lambda: mg_plain(r), iters=10), cuda_ms(lambda: mg(r), iters=10)
+    _, probes_ref = run_schedule(bench_step(geos, mg, 40, "kernel"), models, st.clone(),
+                                 args, scales)
+    r_ref = float(probes_ref[-1])
+    print(f"phase 12 bench 50^3 f32 with the fused V-cycle: {ms_step:.3f} ms/step over {K} "
+          f"steps (phase 5, unfused, same call: {box_bench['ms_step']:.3f} ms/step), r_norm "
+          f"{r_settled:.4f} vs deep fixed-40 {r_ref:.4f} (envelope {R_NORM_ENVELOPE}); V-cycle "
+          f"fused {t_f1:.3f}/{t_f2:.3f} ms vs unfused {t_p1:.3f}/{t_p2:.3f} ms; launches "
+          f"K1 {counts['K1']} K2 {counts['K2']} K3 {counts['K3']}")
+    if r_settled > R_NORM_ENVELOPE * r_ref:
+        fail(f"fused settled r_norm {r_settled:.4f} exceeds {R_NORM_ENVELOPE} x {r_ref:.4f}")
+    for name, c in counts.items():
+        if c <= 0:
+            fail(f"the fused bench run never launched {name}")
+    return {"counts": counts, "ms_step": ms_step}
+
+
+def multimat_sim(V, bcs, **kw):
+    """scripts/ab_multimat.py's split of the box: linear elasticity below
+    z = 0.5, VonMises3D above; float64, the V-cycle with the K3 chains."""
+    from fenics_constitutive_tpu_torch.models import (
+        Constraint,
+        LinearElasticityModel,
+        VonMises3D,
+    )
+    from fenics_constitutive_tpu_torch.solver import PackedSimulation
+
+    mid = V.mesh.cell_midpoints()
+    laws = [
+        (LinearElasticityModel({"E": 150000.0, "nu": 0.3}, Constraint.FULL),
+         np.flatnonzero(mid[:, 2] < 0.5)),
+        (VonMises3D(MAT), np.flatnonzero(mid[:, 2] >= 0.5)),
+    ]
+    return PackedSimulation(laws, V, bcs, 2, preconditioner="vcycle",
+                            mg_options={"fused_smoothing": True}, device="cuda",
+                            dtype=torch.float64, **kw)
+
+
+def phase_multimat(workdir: Path) -> dict:
+    """The entry point on the two-law box: a schedule, a checkpoint round
+    trip, and a Neumann load with substepping."""
+    from fenics_constitutive_tpu_torch.fem import (
+        DirichletBC,
+        assemble_facet_traction,
+        combine_bcs,
+        locate_boundary_facets,
+    )
+    from fenics_constitutive_tpu_torch.utils import load_checkpoint, save_checkpoint
+
+    V, bcs = box(N_MULTIMAT)
+    t0 = time.perf_counter()
+    sim = multimat_sim(V, bcs)
+    build_s = time.perf_counter() - t0
+    vals = []
+    for k in (1, 2, 3):
+        bcs[1].value = 0.0004 * k
+        vals.append(combine_bcs(bcs)[1])
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = sim.solve_schedule(np.stack(vals))
+    torch.cuda.synchronize()
+    sched_s = time.perf_counter() - t0
+    if not stats["converged"].all():
+        fail(f"multi-material solve_schedule did not converge: {stats}")
+    if sim.histories[0] is not None or float(sim.histories[1]["alpha"].max()) < 0:
+        fail("multi-material histories have the wrong structure")
+
+    # checkpoint round trip into a second simulation, then one more step on both
+    path = workdir / "multimat.npz"
+    save_checkpoint(path, sim.state_dict())
+    sim2 = multimat_sim(V, bcs)
+    sim2.load_state_dict(load_checkpoint(path))
+    bcs[1].value = 0.0016
+    res = [s.solve() for s in (sim, sim2)]
+    torch.cuda.synchronize()
+    if not (res[0][1] and res[1][1]) or res[0][0] != res[1][0]:
+        fail(f"the step after the checkpoint round trip: {res}")
+    bit_equal = torch.equal(sim.state.u, sim2.state.u) and all(
+        torch.equal(a, b) for a, b in zip(sim.state.stress, sim2.state.stress))
+    rel = max(normwise(a, b)[1] for a, b in
+              zip((sim.state.u, *sim.state.stress), (sim2.state.u, *sim2.state.stress)))
+    if rel > 1e-14:
+        fail(f"restored simulation differs from the original by {rel:.2e}")
+    stress = sim.stress
+    if stress.shape != (N_MULTIMAT**3, 8, 6) or not np.isfinite(stress).all():
+        fail(f"multi-material stress has shape {stress.shape} or non-finite values")
+
+    # symmetry planes only, a traction on the x = 1 face, substepping allowed
+    def close(axis, v):
+        return lambda x: np.isclose(x[:, axis], v)
+
+    sym = [DirichletBC(V.locate_dofs_geometrical(close(a, 0.0), component=a), 0.0)
+           for a in range(3)]
+    traction = assemble_facet_traction(V, locate_boundary_facets(V.mesh, close(0, 1.0)),
+                                       np.array([TRACTION, 0.0, 0.0]))
+    sim3 = multimat_sim(V, sym, f_ext=traction, max_subdivisions=2)
+    niter3, conv3 = sim3.solve()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    ux = sim3.u.reshape(-1, 3)[:, 0].cpu().numpy()[np.isclose(V.dof_coords[:, 0], 1.0)]
+    print(f"phase 13 PackedSimulation on the two-law {N_MULTIMAT}^3 box f64 (vcycle, fused "
+          f"smoothing; build {build_s:.1f} s): solve_schedule 3 steps of 0.0004 k in "
+          f"{sched_s:.2f} s, newton {stats['newton_iters'].tolist()}, r "
+          + ", ".join(f"{r:.2e}" for r in stats["r_norm"])
+          + f"; checkpoint round trip then one step on both: newton {res[0][0]}, "
+          f"{'bit-equal' if bit_equal else f'max rel {rel:.2e}'}; traction {TRACTION:g} on "
+          f"x = 1 with max_subdivisions=2: newton {niter3}, converged {conv3}, mean u_x "
+          f"there {ux.mean():.4e}; launches K1 {counts['K1']} K2 {counts['K2']} K3 "
+          f"{counts['K3']}")
+    if not conv3 or not ux.mean() > 0:
+        fail("the traction step did not converge to a stretched box")
+    if counts["K3"] <= 0:
+        fail("the multi-material simulation never launched K3")
     return counts
 
 
@@ -520,10 +736,30 @@ def phase_k4_k5(results: dict, tet: dict) -> None:
                 "K5": (cuda_ms(lambda: cuda_window.windowed_scatter(ex, f)),
                        cuda_ms(lambda: cuda_window.scatter_plain(ex, f))),
             }
-            results["K4"] = {"max_abs_err": 0.0, "ms": t["K4"][0], "plain_ms": t["K4"][1]}
-            results["K5"] = {"max_abs_err": err, "ms": t["K5"][0], "plain_ms": t["K5"][1]}
-            line.append(f"f32 K4 {t['K4'][0]:.4f} ms vs plain {t['K4'][1]:.4f} ms, "
-                        f"K5 {t['K5'][0]:.4f} ms vs plain {t['K5'][1]:.4f} ms")
+            # the library yardsticks: one indexing of the zero-padded node
+            # rows (K4) and one index_add_ (K5), index vectors made beforehand
+            gi = ex._global_idx()
+            gi_flat = gi.reshape(-1)
+            u_ext = torch.cat([u2, u2.new_zeros((3, 1))], dim=1)
+            f_rows = f.permute(1, 0, 2).reshape(3, -1).contiguous()
+            acc = f.new_zeros((3, ex.M_pad + 1))
+            lib4 = cuda_ms(lambda: u_ext[:, gi])
+            lib5 = cuda_ms(lambda: acc.index_add_(1, gi_flat, f_rows))
+            # bytes only: u2 (or f) and the plan's indices read, the rows written
+            rows = ex.B * 3 * ex.Rn * 4
+            b4, by4 = bound_ms(u2.numel() * 4 + ex.loc.numel() * ex.loc.element_size()
+                               + rows, 0.0, dtype)
+            idx5 = (ex.node_ptr.numel() * ex.node_ptr.element_size()
+                    + ex.node_rows.numel() * ex.node_rows.element_size())
+            b5, by5 = bound_ms(rows + idx5 + 3 * ex.M_pad * 4,
+                               3.0 * ex.node_rows.numel(), dtype)
+            results["K4"] = {"max_abs_err": 0.0, "ms": t["K4"][0], "plain_ms": t["K4"][1],
+                             "bound_ms": b4, "bound_by": by4, "library_ms": lib4}
+            results["K5"] = {"max_abs_err": err, "ms": t["K5"][0], "plain_ms": t["K5"][1],
+                             "bound_ms": b5, "bound_by": by5, "library_ms": lib5}
+            line.append(f"f32 K4 {t['K4'][0]:.4f} ms vs plain {t['K4'][1]:.4f} ms, library "
+                        f"{lib4:.4f}, bound {b4:.4f} ({by4}); K5 {t['K5'][0]:.4f} ms vs "
+                        f"plain {t['K5'][1]:.4f} ms, library {lib5:.4f}, bound {b5:.4f} ({by5})")
     print("phase 7 K4/K5 vs plain on the 35^3 tet plan: " + "; ".join(line))
 
 
@@ -533,7 +769,8 @@ def phase_k6(results: dict, tet: dict) -> None:
     amg = tet["amg"]
     ops = [(f"{name}{lvl}", getattr(amg, name + "_win")[lvl])
            for lvl in range(amg.n_levels - 1) for name in ("A", "P", "R")]
-    worst, ms, plain_ms, parts = 0.0, 0.0, 0.0, []
+    worst, ms, plain_ms, lib_ms, parts = 0.0, 0.0, 0.0, 0.0, []
+    bnd_bytes = bnd_flops = 0.0
     for label, w32 in ops:
         w64 = copy.deepcopy(w32).double()
         rng = np.random.default_rng(11)
@@ -558,15 +795,49 @@ def phase_k6(results: dict, tet: dict) -> None:
                     worst = max(worst, err)
                     k_ms = cuda_ms(lambda w=w, x=x: cuda_window.windowed_bsr_matvec(w, x))
                     p_ms = cuda_ms(lambda w=w, x=x: cuda_window.bsr_matvec_plain(w, x))
-                    ms, plain_ms = ms + k_ms, plain_ms + p_ms
+                    A, xr = bsr_as_csr(w), x.to(torch.bfloat16).to(torch.float32)
+                    y_l = (A @ xr[:, None]).reshape(-1)
+                    if normwise(y_l, y_p)[1] > TOL_K6[dtype]:
+                        fail(f"the CSR yardstick of K6 {label} computes another function")
+                    l_ms = cuda_ms(lambda A=A, xr=xr: A @ xr[:, None])
+                    nnz = int((w.loc >= 0).sum())
+                    n_b = (nnz * (w.br * w.bc + 1) + w.jb.numel() + x.numel()
+                           + w.br * w.NR_pad) * 4
+                    b_ms, _ = bound_ms(n_b, 2.0 * nnz * w.br * w.bc, dtype)
+                    ms, plain_ms, lib_ms = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
+                    bnd_bytes, bnd_flops = bnd_bytes + n_b, bnd_flops + 2.0 * nnz * w.br * w.bc
             finally:
                 w.select_passes = saved
         parts.append(f"{label} ({w32.br}x{w32.bc} k {w32.k} B {w32.B} P {w32.P}) rel "
-                     f"{errs[0]:.1e}/{errs[1]:.1e}/{errs[2]:.1e} {k_ms:.4f} ms vs plain {p_ms:.4f}")
-    results["K6"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+                     f"{errs[0]:.1e}/{errs[1]:.1e}/{errs[2]:.1e} {k_ms:.4f} ms vs plain {p_ms:.4f}"
+                     f", CSR {l_ms:.4f}, bound {b_ms:.4f}")
+    bound, by = bound_ms(bnd_bytes, bnd_flops, torch.float32)
+    results["K6"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
     print(f"phase 8 K6 vs plain on {len(ops)} AMG level operators (rel err f32 sel1/f32 sel3/f64; "
           f"tol f32 {TOL_K6[torch.float32]:g}, f64 {TOL_K6[torch.float64]:g}); f32 sel1 times: "
-          + "; ".join(parts) + f"; one apply of every operator {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+          + "; ".join(parts) + f"; one apply of every operator {ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms, CSR library {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+
+
+def bsr_as_csr(w) -> torch.Tensor:
+    """The operator of a windowed BSR plan as a torch CSR matrix on the same
+    component-major vectors (y[jr * NR_pad + row], x[jc * NC_pad + col]):
+    the yardstick of K6, timed beside it and never used by the port."""
+    b, a, t = torch.nonzero(w.loc >= 0, as_tuple=True)
+    rnode = b * w.T_r + t
+    cnode = w.jb.long()[b] * 1024 + w.loc[b, a, t].long()
+    v5 = w.vals.reshape(w.B, w.k, w.br, w.bc, w.T_r)
+    rows, cols, vals = [], [], []
+    for jr in range(w.br):
+        for jc in range(w.bc):
+            rows.append(jr * w.NR_pad + rnode)
+            cols.append(jc * w.NC_pad + cnode)
+            vals.append(v5[b, a, jr, jc, t])
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]),
+                                  torch.cat(vals), (w.br * w.NR_pad, w.bc * w.NC_pad),
+                                  check_invariants=True)
+    return coo.coalesce().to_sparse_csr()
 
 
 def tet_step(geos, pc, fixed: int | None, **newton):
@@ -728,6 +999,108 @@ def phase_tet_simulation(tet: dict) -> None:
         fail("PackedSimulation on the imported mesh did not launch K4, K5 and K6")
 
 
+# -- K3: the fused multigrid smoothing chains ---------------------------------------
+
+
+def chain_cost(chain) -> tuple[float, float]:
+    """(bytes, flops) one call of a K3 chain needs: b, inv_d, mask (and x)
+    read once, x (and r) written once; per operator apply 24 x 24
+    multiply-adds on each valid cell, per sweep 3 operations per dof."""
+    geo, nu = chain.geo, chain.nu
+    M, size = geo.M, chain.inv_d.element_size()
+    vecs_in = 2 + (0 if chain.zero_start else 1)
+    vecs_out = 1 + int(chain.emit_residual)
+    nbytes = ((vecs_in + vecs_out) * 3 * M + M + 576) * size
+    applies = nu if not chain.zero_start else max(nu - 1, 0) + int(chain.emit_residual)
+    sweeps = nu - int(chain.zero_start)
+    cells = float(chain.mask.sum())
+    return nbytes, applies * cells * 576 * 2 + sweeps * 3 * M * 3
+
+
+def k3_chains(mg, mg_coarse):
+    """Every chain of one fused V-cycle (levels above the coarsest: pre and
+    post) and the coarsest level's chain of a hierarchy without coarse_direct."""
+    out = []
+    for lvl in range(mg.n_levels - 1):
+        out += [(f"L{lvl} pre", mg.fused[lvl]["pre"]), (f"L{lvl} post", mg.fused[lvl]["post"])]
+    out.append((f"L{mg.n_levels - 1} coarse", mg_coarse.fused[-1]["coarse"]))
+    return out
+
+
+def phase_k3(results: dict) -> None:
+    """K3 against its plain version on every level of the 50^3 hierarchy, and
+    the fused V-cycle against the unfused one."""
+    from fenics_constitutive_tpu_torch.models import Constraint
+    from fenics_constitutive_tpu_torch.ops.structured import build_structured_geometry
+    from fenics_constitutive_tpu_torch.solver import build_multigrid
+
+    V, bcs = box(N_BENCH)
+    free = torch.as_tensor(free_mask(V, bcs))
+    mg_opts = dict(nu=3, nu_coarse=2)
+    for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32_K1)):
+        geo = build_structured_geometry(V, 2, Constraint.FULL, device="cuda", dtype=dtype)
+
+        def mg_of(**kw):
+            return build_multigrid(geo, MU, KAPPA, free, device="cuda", dtype=dtype,
+                                   **mg_opts, **kw)
+
+        mg = mg_of(coarse_direct=True, fused_smoothing=True)
+        mg_coarse = mg_of(coarse_direct=False, fused_smoothing=True)
+        mg_plain = mg_of(coarse_direct=True)
+        rng = np.random.default_rng(3)
+        parts, worst_abs = [], 0.0
+        k_ms = p_ms = b_ms = 0.0
+        b_flops = b_bytes = 0.0
+        for label, chain in k3_chains(mg, mg_coarse):
+            n = chain.inv_d.numel()
+            fr = (chain.inv_d != 0).to(dtype)
+            b = torch.as_tensor(rng.normal(size=n), dtype=dtype, device="cuda") * fr
+            x = torch.as_tensor(rng.normal(size=n) * 1e-5, dtype=dtype, device="cuda") * fr
+            args = (b,) if chain.zero_start else (x, b)
+            out1, out2 = chain(*args), chain(*args)
+            ref = chain.plain(*args)
+            torch.cuda.synchronize()
+            if not chain.emit_residual:
+                out1, out2, ref = (out1,), (out2,), (ref,)
+            rels = []
+            for got, again, want in zip(out1, out2, ref):
+                if not torch.isfinite(got).all():
+                    fail(f"K3 {label} {dtype} returned non-finite values")
+                if not torch.equal(got, again):
+                    fail(f"K3 {label} {dtype} differs between two launches")
+                err, rel = normwise(got, want)
+                rels.append(rel)
+                if rel > tol:
+                    fail(f"K3 {label} {dtype}: rel {rel:.3e} > {tol:g}")
+                if dtype == torch.float32:
+                    worst_abs = max(worst_abs, err)
+            ms = cuda_ms(lambda: chain(*args))
+            pms = cuda_ms(lambda: chain.plain(*args))
+            nbytes, flops = chain_cost(chain)
+            bound, by = bound_ms(nbytes, flops, dtype)
+            parts.append(f"{label} (nu {chain.nu}, M {chain.geo.M}) rel "
+                         + "/".join(f"{r:.1e}" for r in rels)
+                         + f" {ms:.4f} ms vs plain {pms:.4f} (bound {bound:.4f} {by})")
+            if "coarse" not in label:  # the chains one V-cycle with coarse_direct runs
+                k_ms, p_ms = k_ms + ms, p_ms + pms
+                b_bytes, b_flops = b_bytes + nbytes, b_flops + flops
+        r = torch.as_tensor(np.random.default_rng(2).normal(size=V.ndofs), dtype=dtype,
+                            device="cuda")
+        z_f, z_p = mg(r), mg_plain(r)
+        _, rel_v = normwise(z_f, z_p)
+        vf_ms = cuda_ms(lambda: mg(r), iters=10)
+        vp_ms = cuda_ms(lambda: mg_plain(r), iters=10)
+        print(f"phase 11 K3 vs plain at {N_BENCH}^3 {str(dtype)[6:]} (tol {tol:g}; bit-equal across "
+              f"two launches): " + "; ".join(parts)
+              + f"; V-cycle fused vs unfused rel {rel_v:.2e}, {vf_ms:.3f} ms vs {vp_ms:.3f} ms")
+        if rel_v > tol:
+            fail(f"the fused V-cycle {dtype} disagrees with the unfused one: {rel_v:.3e}")
+        if dtype == torch.float32:
+            bound, by = bound_ms(b_bytes, b_flops, dtype)
+            results["K3"] = {"max_abs_err": worst_abs, "ms": k_ms, "plain_ms": p_ms,
+                             "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -743,7 +1116,7 @@ def main() -> None:
     results: dict = {}
     timed("phase 3", phase_k1, results)
     timed("phase 4", phase_k2, results)
-    counts = timed("phase 5", phase_bench, results)
+    box_bench = timed("phase 5", phase_bench, results)
     timed("phase 6", phase_simulation)
     with tempfile.TemporaryDirectory() as tmp:
         tet = timed("tet setup", tet_setup, Path(tmp))
@@ -751,6 +1124,11 @@ def main() -> None:
     timed("phase 8", phase_k6, results, tet)
     tet_counts = timed("phase 9", phase_tet_bench, tet)
     timed("phase 10", phase_tet_simulation, tet)
+    timed("phase 11", phase_k3, results)
+    fused_bench = timed("phase 12", phase_bench_fused, box_bench)
+    with tempfile.TemporaryDirectory() as tmp:
+        timed("phase 13", phase_multimat, Path(tmp))
+    counts = box_bench["counts"]
     src = "fenics_constitutive_tpu_torch/csrc/"
     kernels = [
         {"name": "fused_matvec", "route": "cuda", "source": src + "matvec.cu",
@@ -759,6 +1137,9 @@ def main() -> None:
         {"name": "fused_eval", "route": "cuda", "source": src + "eval.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_eval.py:52",
          "launches": counts["K2"], **results["K2"]},
+        {"name": "fused_smoother", "route": "cuda", "source": src + "smoother.cu",
+         "replaces": "fenics_constitutive_tpu/ops/pallas_smoother.py:38",
+         "launches": fused_bench["counts"]["K3"], **results["K3"]},
         {"name": "windowed_gather", "route": "cuda", "source": src + "window.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:89",
          "launches": tet_counts["gather"], **results["K4"]},
@@ -776,5 +1157,54 @@ def main() -> None:
     }))
 
 
+def profile_box() -> None:
+    """``--profile``: torch.profiler over 3 steps of the bench workload, with
+    the unfused and the fused V-cycle: device time per step against the
+    same call's CUDA-event ms/step (unprofiled), and the costliest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    K = 3
+    for fused in (False, True):
+        geos, models, state, mg, args = bench_setup(N_BENCH, torch.float32, "cuda",
+                                                    fused=fused)
+        step = bench_step(geos, mg, 9, "kernel")
+        st = state
+        for k in (0.5, 1.0, 1.5):
+            st, _ = step(models, st, args[0], args[1] * k, *args[2:])
+        scales = [2.0 + 0.05 * i for i in range(K)]
+        run_schedule(step, models, st.clone(), args, scales)  # warm
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        run_schedule(step, models, st.clone(), args, scales)
+        ev1.record()
+        ev1.synchronize()
+        ms_step = ev0.elapsed_time(ev1) / K
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run_schedule(step, models, st.clone(), args, scales)
+            torch.cuda.synchronize()
+        # device-side events only (kernels, copies): the aten rows that
+        # launched them carry the same device time again
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        dev_ms = sum(e.self_device_time_total for e in evs) / 1e3 / K
+        launches = sum(e.count for e in evs) / K
+        top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+        print(f"profile box 50^3 f32 {'fused' if fused else 'unfused'} V-cycle: "
+              f"{ms_step:.3f} ms/step (CUDA events), device time {dev_ms:.3f} ms/step "
+              f"(busy {dev_ms / ms_step:.1%}), {launches:.0f} device ops/step; top: "
+              + "; ".join(f"{e.key[:60]} x{e.count // K} "
+                          f"{e.self_device_time_total / 1e3 / K:.3f} ms" for e in top))
+
+
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if sys.argv[1:] == ["--profile"]:
+        phase_device()
+        phase_build()
+        profile_box()
+    else:
+        main()

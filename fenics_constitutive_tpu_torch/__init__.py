@@ -4,9 +4,12 @@ The same layout and names as the JAX package (``fem``, ``models``, ``ops``,
 ``solver``, ``utils``). This package imports ``torch`` and numpy and never
 ``jax``; the JAX package is the reference it is tested against. Its main
 path is the structured-hex Newton step (``solver.make_packed_step``,
-``solver.PackedSimulation``) with two hand-written CUDA kernels:
-``ops.cuda_matvec`` (the fused CG operator) and ``ops.cuda_eval`` (the fused
-VonMises3D eval and assembly), built from ``csrc/`` by nvcc at first use.
+``solver.PackedSimulation``); general meshes run on the windowed engine.
+The hand-written CUDA kernels, built from ``csrc/`` by nvcc at first use:
+``ops.cuda_matvec`` (the fused CG operator), ``ops.cuda_eval`` (the fused
+VonMises3D eval and assembly), ``ops.cuda_smoother`` (the multigrid
+smoothing chains) and ``ops.cuda_window`` (the windowed gather, scatter and
+BSR SpMV).
 """
 
 from . import fem, models, ops, solver, utils

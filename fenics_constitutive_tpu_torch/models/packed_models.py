@@ -10,7 +10,11 @@ import torch
 
 from ..ops.packed import IsotropicTangent
 
-__all__ = ["_vonmises_evaluate_packed", "newton_controls"]
+__all__ = [
+    "_linear_elasticity_evaluate_packed",
+    "_vonmises_evaluate_packed",
+    "newton_controls",
+]
 
 _SQ23 = math.sqrt(2.0 / 3.0)
 
@@ -102,3 +106,22 @@ def _vonmises_evaluate_packed(self, t, dt, eps, stress, history):
         n=xn,
     )
     return stress_new, tangent, history_new
+
+
+def _linear_elasticity_evaluate_packed(self, t, dt, eps, stress, history):
+    """Hooke's law (FULL constraint): stress += kappa tr(eps) I2 + 2 mu
+    dev(eps); the tangent is the constant elastic one, with no history."""
+    del t, dt
+    E, nu = self.params["E"], self.params["nu"]
+    mu = E / (2.0 * (1.0 + nu))
+    ka = E / (3.0 * (1.0 - 2.0 * nu))
+    tr_e, e_dev = _dev_soa(eps)
+    vol = torch.cat([(ka * tr_e).expand(3, *tr_e.shape), torch.zeros_like(eps[3:])])
+    stress_new = stress + vol + 2.0 * mu * e_dev
+    tangent = IsotropicTangent(
+        kappa=ka,
+        beta=2.0 * mu * torch.ones_like(tr_e),
+        gamma=torch.zeros_like(tr_e),
+        n=torch.zeros_like(eps),
+    )
+    return stress_new, tangent, history

@@ -20,7 +20,7 @@ from ._cuda_build import entry_point, launch_check
 from .packed import IsotropicTangent
 from .structured import StructuredGeometry
 
-__all__ = ["build_cuda_matvec", "launches", "matvec_plain"]
+__all__ = ["build_cuda_matvec", "hex_corner_layout", "launches", "matvec_plain"]
 
 #: number of kernel launches made by the wrappers of this module
 launches = 0
@@ -37,15 +37,23 @@ def _entry(dtype: torch.dtype):
     return _entries[dtype]
 
 
-def hot_path_geometry(geo: StructuredGeometry) -> bool:
-    """True for the geometry the structured-hex kernels are written for."""
-    if (geo.gdim, geo.n_qp, geo.vs, geo.sdim, geo.n_nodes) != (3, 8, 3, 6, 8):
+def hex_corner_layout(geo: StructuredGeometry) -> bool:
+    """True for the 3D P1 hex corner layout: 3 components, corner a = dx +
+    2 dy + 4 dz at the flat node n + dx*s0 + dy*s1 + dz."""
+    if (geo.gdim, geo.vs, geo.n_nodes) != (3, 3, 8):
         return False
     s0, s1 = geo.offsets[1], geo.offsets[2]
     expected = tuple(
         (a & 1) * s0 + ((a >> 1) & 1) * s1 + ((a >> 2) & 1) for a in range(8)
     )
-    return geo.offsets == expected and 48 * geo.M < 2**31
+    return geo.offsets == expected
+
+
+def hot_path_geometry(geo: StructuredGeometry) -> bool:
+    """True for the geometry the structured-hex kernels are written for."""
+    return (
+        hex_corner_layout(geo) and (geo.n_qp, geo.sdim) == (8, 6) and 48 * geo.M < 2**31
+    )
 
 
 def check_cuda_args(geo: StructuredGeometry, *tensors: torch.Tensor) -> None:

@@ -33,7 +33,11 @@ from torch import nn
 from . import mandel
 from .mandel import Constraint
 
-__all__ = ["StructuredGeometry", "build_structured_geometry"]
+__all__ = [
+    "StructuredGeometry",
+    "build_structured_geometry",
+    "restrict_structured_geometry",
+]
 
 
 def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -226,6 +230,39 @@ class StructuredGeometry(nn.Module):
     def extract_cells(self, field: torch.Tensor) -> torch.Tensor:
         """[k, Q, M] cell-at-origin field -> dense [k, Q, C] in mesh cell order."""
         return field[:, :, self.cell_index]
+
+
+def restrict_structured_geometry(geo: StructuredGeometry, cells) -> StructuredGeometry:
+    """The masked view of a law on a subset of the mesh's cells.
+
+    Every engine op multiplies by the valid-origin ``mask`` and observes
+    through ``cell_index``, so a law on a cell subset is the same dense sweep
+    over the whole grid with the mask zeroed at the other cells' origins: its
+    strain is zero there and its history stays zero. The view shares every
+    other buffer with ``geo``.
+    """
+    cells = np.asarray(cells, np.int64)
+    own = geo.cell_index.cpu().numpy()[cells]
+    mask = np.zeros(geo.M)
+    mask[own] = 1.0
+    return StructuredGeometry(
+        KEPS_c=geo.KEPS_c,
+        KDIV_c=geo.KDIV_c,
+        KE_I=geo.KE_I,
+        KE_V=geo.KE_V,
+        mask=torch.as_tensor(mask, dtype=geo.dtype, device=geo.device),
+        cell_index=torch.as_tensor(own, dtype=torch.int64, device=geo.device),
+        grid=geo.grid,
+        vs=geo.vs,
+        ndofs=geo.ndofs,
+        constraint=geo.constraint,
+        n_nodes=geo.n_nodes,
+        n_qp=geo.n_qp,
+        n_cells=len(cells),
+        offsets=geo.offsets,
+        dN_host=geo.dN_host,
+        w_host=geo.w_host,
+    )
 
 
 def _corner_offsets(gdim: int):

@@ -9,15 +9,20 @@ A matrix-free V-cycle on the node grid:
   * transfer: trilinear prolongation (weights [1/2, 1, 1/2] per axis) and
     its adjoint R = P^T as restriction, written as strided and shifted
     slices per axis: no convolution, so no cuDNN and no TF32;
-  * smoother: damped Jacobi with the level's constant elastic diagonal;
+  * smoother: damped Jacobi with the level's constant elastic diagonal, or
+    Chebyshev on the Jacobi-preconditioned operator (``smoother=
+    "chebyshev"``); with ``fused_smoothing`` each level's Jacobi chain runs
+    as the K3 kernel (ops/cuda_smoother.py) on a CUDA device;
   * Dirichlet dofs are carried to the coarse levels by injection;
   * coarsest level: damped Jacobi sweeps, or a dense inverse
-    (``coarse_direct``).
+    (``coarse_direct``) rescaled by kappa0/kappa under ``with_moduli``.
 
 Every vector is grid-major ([vs, *node_grid] flattened).
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -64,7 +69,12 @@ class MultigridPreconditioner(nn.Module):
     """V-cycle / BPX preconditioner. Level data are registered buffers:
     ``diag_kappa_<l>``/``diag_beta_<l>`` (the Jacobi diagonal is kappa *
     diag_kappa + 2 mu * diag_beta), ``free_<l>`` (bool free-dof masks) and
-    ``coarse_inv`` (or None); the level geometries are submodules."""
+    ``coarse_inv`` (or None); the level geometries are submodules.
+
+    ``mu``/``kappa`` are floats or 0-d tensors (``with_moduli``); ``fused``
+    holds the per-level K3 chains ({"pre", "post"} or {"coarse"}), baked at
+    the build-time moduli, dtype and device, or None.
+    """
 
     def __init__(
         self,
@@ -73,8 +83,8 @@ class MultigridPreconditioner(nn.Module):
         diag_kappa,
         diag_beta,
         frees,
-        mu: float,
-        kappa: float,
+        mu,
+        kappa,
         node_grids,
         omega: float,
         nu: int,
@@ -82,6 +92,9 @@ class MultigridPreconditioner(nn.Module):
         coarse_iters: int,
         coarse_inv: torch.Tensor | None,
         fine_matvec=None,
+        smoother: str = "jacobi",
+        lmax: tuple = (),
+        fused: tuple | None = None,
     ):
         super().__init__()
         self.geos = nn.ModuleList(geos)
@@ -90,8 +103,10 @@ class MultigridPreconditioner(nn.Module):
             self.register_buffer(f"diag_beta_{lvl}", db)
             self.register_buffer(f"free_{lvl}", fr)
         self.register_buffer("coarse_inv", coarse_inv)
-        self.mu = float(mu)
-        self.kappa = float(kappa)
+        self.mu = mu
+        self.kappa = kappa
+        #: build-time kappa, the reference of coarse_inv's kappa0/kappa rescale
+        self.kappa0 = float(kappa)
         self.node_grids = tuple(node_grids)
         self.vs = geos[0].vs
         self.n_levels = len(geos)
@@ -102,6 +117,19 @@ class MultigridPreconditioner(nn.Module):
         #: optional fused fine-level operator apply (e.g. the CUDA matvec),
         #: signature (v_gm, IsotropicTangent) -> r_gm; None = elastic_matvec_gm
         self.fine_matvec = fine_matvec
+        #: "jacobi" or "chebyshev" (degree-nu polynomial over [lmax/4, lmax])
+        self.smoother = smoother
+        #: per-level upper bounds on lambda_max(D^-1 A) from the build
+        self.lmax = tuple(lmax)
+        self.fused = fused
+
+    def with_moduli(self, mu, kappa) -> MultigridPreconditioner:
+        """A preconditioner with new moduli (floats or 0-d tensors, never read
+        back to the host), sharing the level data. The fused chains are
+        dropped: their element matrices are baked at the build-time moduli."""
+        new = copy.copy(self)
+        new.mu, new.kappa, new.fused = mu, kappa, None
+        return new
 
     def free(self, lvl: int) -> torch.Tensor:
         return getattr(self, f"free_{lvl}")
@@ -139,19 +167,40 @@ class MultigridPreconditioner(nn.Module):
 
     # -- cycles ---------------------------------------------------------------------
 
-    def vcycle(self, lvl: int, b: torch.Tensor) -> torch.Tensor:
+    def vcycle(self, lvl: int, b: torch.Tensor, fine_tangent=None, fine_diag=None):
+        """One V-cycle from level ``lvl``. With ``fine_tangent`` (and its
+        grid-major Jacobi diagonal ``fine_diag``) level 0 smooths the given
+        consistent tangent with damped Jacobi (see ``prepared``)."""
         geo = self.geos[lvl]
         free = self.free(lvl)
-        zero = b.new_zeros(())
-        diag = torch.where(free, self._diag(lvl).to(b.dtype), b.new_ones(()))
+        zero, one = b.new_zeros(()), b.new_ones(())
+        true_tangent = lvl == 0 and fine_tangent is not None
+        if true_tangent:
+            diag = torch.where(free, fine_diag, one)
+        else:
+            diag = torch.where(free, self._diag(lvl).to(b.dtype), one)
         inv_d = self.omega / diag
         b = torch.where(free, b, zero)
 
+        # K3 chains on the constant-coefficient levels
+        fused = self.fused[lvl] if self.fused is not None and not true_tangent else None
+        if fused is not None:
+            if lvl < self.n_levels - 1:
+                x, r = fused["pre"](b)
+                xc = self.vcycle(lvl + 1, self.restrict(r, lvl))
+                x = x + torch.where(free, self.prolong(xc, lvl), zero)
+                return fused["post"](x, b)
+            if self.coarse_inv is None:
+                return fused["coarse"](b)
+
         if lvl == 0 and self.fine_matvec is not None:
-            tg = self._tangent(b.dtype, b.device)
+            tg = fine_tangent if true_tangent else self._tangent(b.dtype, b.device)
 
             def apply_op(v):
                 return self.fine_matvec(v, tg)
+        elif true_tangent:
+            def apply_op(v):
+                return geo.matvec_gm(v, fine_tangent)
         else:
             def apply_op(v):
                 return geo.elastic_matvec_gm(v, self.kappa, 2.0 * self.mu)
@@ -161,20 +210,59 @@ class MultigridPreconditioner(nn.Module):
             vm = torch.where(free, v, zero)
             return torch.where(free, apply_op(vm), v)
 
-        def smooth(x, b_, iters):
-            # x=None starts from zero: the first sweep is omega D^-1 b
-            if iters <= 0:
-                return torch.zeros_like(b_) if x is None else x
-            if x is None:
-                x = torch.where(free, inv_d * b_, zero)
-                iters -= 1
-            for _ in range(iters):
-                x = x + torch.where(free, inv_d * (b_ - A(x)), zero)
-            return x
+        # Chebyshev smooths only the constant-coefficient operator its lmax
+        # bound was estimated for; the prepared() true-tangent fine level
+        # keeps damped Jacobi
+        if self.smoother == "chebyshev" and lvl < self.n_levels - 1 and not true_tangent:
+            inv_d_raw = 1.0 / diag
+            lmax_s = 1.1 * self.lmax[lvl]
+            lmin_s = lmax_s / 4.0
+            theta = 0.5 * (lmax_s + lmin_s)
+            delta = 0.5 * (lmax_s - lmin_s)
+            sigma = theta / delta
+
+            def smooth(x, b_, iters):
+                # degree-`iters` Chebyshev on D^-1 A over [lmax/4, lmax];
+                # x=None starts from zero (initial residual b_)
+                if iters <= 0:
+                    return torch.zeros_like(b_) if x is None else x
+                rho = 1.0 / sigma
+                if x is None:
+                    x = torch.zeros_like(b_)
+                    r = torch.where(free, b_, zero)
+                else:
+                    r = torch.where(free, b_ - A(x), zero)
+                d = torch.where(free, inv_d_raw * r / theta, zero)
+                for _ in range(iters - 1):
+                    x = x + d
+                    r = r - torch.where(free, A(d), zero)
+                    rho_new = 1.0 / (2.0 * sigma - rho)
+                    d = (rho_new * rho) * d + torch.where(
+                        free, (2.0 * rho_new / delta) * inv_d_raw * r, zero
+                    )
+                    rho = rho_new
+                return x + d
+        else:
+            def smooth(x, b_, iters):
+                # x=None starts from zero: the first sweep is omega D^-1 b
+                if iters <= 0:
+                    return torch.zeros_like(b_) if x is None else x
+                if x is None:
+                    x = torch.where(free, inv_d * b_, zero)
+                    iters -= 1
+                for _ in range(iters):
+                    x = x + torch.where(free, inv_d * (b_ - A(x)), zero)
+                return x
 
         if lvl == self.n_levels - 1:
             if self.coarse_inv is not None:
-                return torch.where(free, _matmul(self.coarse_inv.to(b.dtype), b), zero)
+                # the inverse was built at kappa0; a common rescale of the
+                # moduli scales the operator by kappa/kappa0
+                scale = self.kappa0 / self.kappa
+                if isinstance(scale, torch.Tensor):
+                    scale = scale.to(b.dtype)
+                z = _matmul(self.coarse_inv.to(b.dtype), b) * scale
+                return torch.where(free, z, zero)
             return smooth(None, b, self.coarse_iters)
 
         nu = self.nu if lvl == 0 or self.nu_coarse is None else self.nu_coarse
@@ -203,6 +291,13 @@ class MultigridPreconditioner(nn.Module):
             z = contribs[lvl] + torch.where(self.free(lvl), self.prolong(z, lvl), zero)
         return z
 
+    def prepared(self, fine_tangent, fine_diag_gm: torch.Tensor):
+        """V-cycle closure that smooths level 0 with the given consistent
+        tangent and its grid-major Jacobi diagonal. A softening tangent can
+        make that diagonal indefinite and break CG's SPD assumption; this is
+        for SPD heterogeneous tangents."""
+        return lambda r_gm: self.vcycle(0, r_gm, fine_tangent, fine_diag_gm)
+
     def forward(self, r_gm: torch.Tensor) -> torch.Tensor:
         """V-cycle apply M^-1 r at the fine level (grid-major vectors)."""
         return self.vcycle(0, r_gm)
@@ -221,18 +316,36 @@ def build_multigrid(
     coarse_iters: int = 20,
     min_size: int = 4,
     fine_matvec=None,
+    smoother: str = "jacobi",
     nu_coarse: int | None = None,
     coarse_direct: bool = False,
+    fused_smoothing: bool = False,
 ) -> MultigridPreconditioner:
     """Build the elastic V-cycle hierarchy below a fine StructuredGeometry.
 
     ``free_mask``: bool [ndofs] (node-major) with False at Dirichlet dofs.
     Constraints reach the coarse levels by injection (every other node), which
     keeps each level's operator nonsingular.
+    ``smoother``: "jacobi" or "chebyshev" (per-level lmax by 50 power
+    iterations at the build-time moduli).
+    ``fused_smoothing``: run each level's Jacobi chain (pre: sweeps and
+    residual; post: sweeps; coarsest without ``coarse_direct``: sweeps) as
+    one K3 chain (ops/cuda_smoother.py), with the element matrix baked at the
+    build-time moduli. It takes the Jacobi smoother and no ``fine_matvec``.
     """
     from ..fem.mesh import unit_cube_mesh, unit_square_mesh
     from ..fem.spaces import FunctionSpace
     from ..ops.structured import build_structured_geometry
+
+    if smoother not in ("jacobi", "chebyshev"):
+        msg = f"smoother must be 'jacobi' or 'chebyshev', got {smoother!r}"
+        raise ValueError(msg)
+    if fused_smoothing and smoother != "jacobi":
+        msg = "fused smoothing implements the Jacobi chain (smoother='jacobi')"
+        raise ValueError(msg)
+    if fused_smoothing and fine_matvec is not None:
+        msg = "fused smoothing replaces the fine apply: pass no fine_matvec"
+        raise ValueError(msg)
 
     vs, gdim = geo.vs, geo.gdim
     node_grids = [tuple(g + 1 for g in geo.grid)]
@@ -264,29 +377,76 @@ def build_multigrid(
 
     diag_kappa = [g.jacobi_diag_gm(unit(1.0, 0.0)) for g in geos]
     diag_beta = [g.jacobi_diag_gm(unit(0.0, 1.0)) for g in geos]
+    ka0, beta0 = float(kappa), 2.0 * float(mu)
+    zero = torch.zeros((), dtype=dtype, device=device)
+    one = torch.ones((), dtype=dtype, device=device)
+
+    lmax = ()
+    if smoother == "chebyshev":
+        # lambda_max(D^-1 A) per level by power iteration at the build-time
+        # moduli; D^-1 A is invariant under a common scaling of (mu, kappa),
+        # so the bound survives with_moduli. 50 iterations approach it from
+        # below; the smoother's 1.1 margin covers the rest.
+        tangent0 = unit(ka0, beta0)
+        ests = []
+        for lvl, g in enumerate(geos):
+            free = frees[lvl]
+            d = torch.where(free, ka0 * diag_kappa[lvl] + beta0 * diag_beta[lvl], one)
+            v = torch.sin(torch.arange(d.shape[0], dtype=dtype, device=device) * 0.7) + 0.01
+            v = v / torch.linalg.vector_norm(v)
+            nrm = one
+            for _ in range(50):
+                w = torch.where(free, g.matvec_gm(torch.where(free, v, zero), tangent0), v) / d
+                nrm = torch.linalg.vector_norm(w)
+                v = w / nrm
+            ests.append(float(nrm))
+        lmax = tuple(ests)
 
     coarse_inv = None
     if coarse_direct:
         # dense inverse of the coarsest constrained elastic operator (tiny:
         # vs * prod(coarsest grid) dofs), one operator apply per column
         gC, freeC = geos[-1], frees[-1]
-        tangC = unit(float(kappa), 2.0 * float(mu))
+        tangC = unit(ka0, beta0)
         cols = []
         for i in range(gC.ndofs):
             e = torch.zeros(gC.ndofs, dtype=dtype, device=device)
             e[i] = 1.0
-            vm = torch.where(freeC, e, torch.zeros((), dtype=dtype, device=device))
-            cols.append(torch.where(freeC, gC.matvec_gm(vm, tangC), e))
+            cols.append(torch.where(freeC, gC.matvec_gm(torch.where(freeC, e, zero), tangC), e))
         A = torch.stack(cols, dim=1).cpu().numpy().astype(np.float64)
         coarse_inv = torch.as_tensor(np.linalg.inv(A), dtype=dtype, device=device)
+
+    fused = None
+    if fused_smoothing:
+        from ..ops.cuda_smoother import build_fused_smoother
+
+        entries = []
+        for lvl, g in enumerate(geos):
+            # Ke = beta0 KE_I + (kappa0 - beta0/3) KE_V, from float64 on the host
+            ke = beta0 * g.KE_I.double().cpu().numpy() + (ka0 - beta0 / 3.0) * (
+                g.KE_V.double().cpu().numpy()
+            )
+            d = ka0 * diag_kappa[lvl] + beta0 * diag_beta[lvl]
+            inv_d = torch.where(frees[lvl], omega / d, zero).to(dtype)
+            lvl_nu = nu if lvl == 0 or nu_coarse is None else nu_coarse
+
+            def mk(n, zs, res, g=g, ke=ke, inv_d=inv_d):
+                return build_fused_smoother(g, ke, inv_d, g.mask, nu=n, zero_start=zs,
+                                            emit_residual=res)
+
+            if lvl == len(geos) - 1:
+                entries.append({"coarse": mk(coarse_iters, True, False)})
+            else:
+                entries.append({"pre": mk(lvl_nu, True, True), "post": mk(lvl_nu, False, False)})
+        fused = tuple(entries)
 
     return MultigridPreconditioner(
         geos=geos,
         diag_kappa=diag_kappa,
         diag_beta=diag_beta,
         frees=frees,
-        mu=mu,
-        kappa=kappa,
+        mu=float(mu),
+        kappa=float(kappa),
         node_grids=node_grids,
         omega=omega,
         nu=nu,
@@ -294,4 +454,7 @@ def build_multigrid(
         coarse_iters=coarse_iters,
         coarse_inv=coarse_inv,
         fine_matvec=fine_matvec,
+        smoother=smoother,
+        lmax=lmax,
+        fused=fused,
     )

@@ -4,7 +4,8 @@
 for a box of hexes or quads (grid-major dof vectors), the windowed exchange
 engine (ops/windowed.py) for a general imported mesh. ``make_packed_step``
 builds ``step(models, state, bc_dofs, bc_vals, f_ext, dt) -> (state', stats)``
-for one law on either. The whole Newton loop runs on the engine's working
+for one law on either, or several laws on cell subsets of a box (masked
+views of one grid). The whole Newton loop runs on the engine's working
 layout: grid-major vectors on the structured engine, converted from the
 node-major public layout once at the step boundary; on the windowed engine
 ``state.u`` and ``f_ext`` already live in the internal layout (RCM-permuted,
@@ -22,10 +23,16 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from ..models.interfaces import IncrSmallStrainModel
 from ..ops.packed import IsotropicTangent
-from ..ops.structured import StructuredGeometry, build_structured_geometry
+from ..ops.structured import (
+    StructuredGeometry,
+    build_structured_geometry,
+    restrict_structured_geometry,
+)
 from ..ops.windowed import WindowedGeometry, build_windowed_geometry
 from . import linear
 
@@ -62,16 +69,21 @@ class PackedState:
         )
 
 
+def _is_box(mesh) -> bool:
+    return mesh.structured_shape is not None and mesh.cell_type in ("hex", "quad")
+
+
 def _build_geometry(space, law, q_degree: int, engine: str, *, device, dtype):
     mesh = space.mesh
-    box = mesh.structured_shape is not None
-    if box and mesh.cell_type in ("hex", "quad"):
+    if _is_box(mesh):
         # box meshes of hexes/quads keep the structured engine whatever
         # ``engine`` says, as in the JAX package
         return build_structured_geometry(
             space, q_degree, law.constraint, device=device, dtype=dtype
         )
-    if box and space.degree == 1 and mesh.cell_type in ("tetra", "triangle"):
+    if mesh.structured_shape is not None and space.degree == 1 and mesh.cell_type in (
+        "tetra", "triangle"
+    ):
         msg = (
             "a Kuhn simplex box (mesh.structured_shape set) runs on the JAX "
             "package's structured tet engine, which is not ported yet (ROADMAP.md "
@@ -97,9 +109,16 @@ def _build_geometry(space, law, q_degree: int, engine: str, *, device, dtype):
 
 
 def build_packed_problem(
-    space, law, q_degree: int, *, device, dtype: torch.dtype, engine: str = "auto"
+    space, laws, q_degree: int, *, device, dtype: torch.dtype, engine: str = "auto"
 ):
-    """Geometry and zero initial state for one law on a mesh.
+    """Geometry and zero initial state for one law, or several on cell subsets.
+
+    ``laws``: a model (on every cell) or a list of ``(model, cells)``. On a
+    box of hexes or quads every law gets a masked view of ONE shared
+    StructuredGeometry (``ops.structured.restrict_structured_geometry``), so
+    all laws run on the same grid-major vectors; on a general mesh one law
+    only (several laws on the windowed engine are not ported, ROADMAP.md
+    Queue 1).
 
     ``engine``: "auto" takes the structured engine on a box of hexes or
     quads and the windowed engine on a general mesh of at least
@@ -108,30 +127,49 @@ def build_packed_problem(
     structured engine. The JAX package's other engines (gather, structured
     tet, lattice) are not ported, and a mesh that would need one raises.
 
-    Returns ``(geos, models, state0)`` with one-element tuples; on the
-    windowed engine ``state0.u`` is in the internal layout.
+    Returns ``(geos, models, state0)``, one entry per law; on the windowed
+    engine ``state0.u`` is in the internal layout.
     """
     if engine not in ("auto", "windowed", "gather"):
         msg = f"engine must be 'auto', 'windowed' or 'gather', got {engine!r}"
         raise ValueError(msg)
-    geo = _build_geometry(space, law, q_degree, engine, device=device, dtype=dtype)
-    sdim = law.constraint.stress_strain_dim
+    if isinstance(laws, IncrSmallStrainModel):
+        laws = [(laws, np.arange(space.mesh.num_cells))]
+    if not laws:
+        msg = "build_packed_problem needs at least one law"
+        raise ValueError(msg)
+    whole = len(laws) == 1 and len(laws[0][1]) == space.mesh.num_cells
+    if not whole and not _is_box(space.mesh):
+        msg = (
+            "laws on cell subsets need a box of hexes or quads (structured "
+            "engine); several laws on the windowed engine are not ported yet "
+            "(ROADMAP.md Queue 1)"
+        )
+        raise NotImplementedError(msg)
+    models = tuple(m for m, _ in laws)
+    full = _build_geometry(space, models[0], q_degree, engine, device=device, dtype=dtype)
+    geos = tuple(
+        full if len(cells) == space.mesh.num_cells
+        else restrict_structured_geometry(full, cells)
+        for _, cells in laws
+    )
+    sdim = models[0].constraint.stress_strain_dim
 
     def zeros(k):
-        return torch.zeros(geo.qp_shape(k), dtype=dtype, device=device)
+        return torch.zeros(full.qp_shape(k), dtype=dtype, device=device)
 
-    history = (
-        None if law.history_dim is None
-        else {k: zeros(d) for k, d in law.history_dim.items()}
+    histories = tuple(
+        None if m.history_dim is None else {k: zeros(d) for k, d in m.history_dim.items()}
+        for m in models
     )
-    n_u = geo.ndofs_int if isinstance(geo, WindowedGeometry) else space.ndofs
+    n_u = full.ndofs_int if isinstance(full, WindowedGeometry) else space.ndofs
     state = PackedState(
         u=torch.zeros(n_u, dtype=dtype, device=device),
-        stress=(zeros(sdim),),
-        histories=(history,),
+        stress=tuple(zeros(sdim) for _ in models),
+        histories=histories,
         t=torch.zeros((), dtype=dtype, device=device),
     )
-    return (geo,), (law,), state
+    return geos, models, state
 
 
 def _select(cond: torch.Tensor, new, old):
@@ -179,19 +217,21 @@ def make_packed_step(
 ):
     """Build ``step(models, state, bc_dofs, bc_vals, f_ext, dt) -> (state', stats)``.
 
-    ``geos``: a one-element tuple holding the law's StructuredGeometry or
-    WindowedGeometry.
+    ``geos``: one geometry per law, as ``build_packed_problem`` returns them:
+    StructuredGeometry views of one grid (one or several laws), or one
+    WindowedGeometry. Several laws run the grid-major loop with per-law
+    strain -> evaluate -> residual sweeps, summed, and a per-law operator sum.
     ``preconditioner``: optional callable M^-1 on the engine's working
     vectors (structured: grid-major, a MultigridPreconditioner or its
     ``bpx``; windowed: internal, e.g. ``WindowedAmgPreconditioner.
-    wrap_internal``); None = Jacobi.
+    wrap_internal``); None = Jacobi (the per-law diagonals summed).
     ``matvec_impl``: "plain" (StructuredGeometry.matvec_gm) or "kernel" (the
     CUDA operator of ops/cuda_matvec.py; the geometry must be on a CUDA
     device). ``eval_impl``: "plain" (strain -> model.evaluate_packed ->
     residual) or "kernel" (the fused VonMises3D kernel of ops/cuda_eval.py,
-    CUDA only). Both kernels serve the structured engine; the windowed
-    engine takes "plain" and launches its own kernels (gather, scatter,
-    BSR SpMV) whenever its tensors are on a CUDA device.
+    CUDA only). Both kernels serve one law on the structured engine; the
+    windowed engine takes "plain" and launches its own kernels (gather,
+    scatter, BSR SpMV) whenever its tensors are on a CUDA device.
     ``cg_flexible``/``cg_reduce_dtype``/``cg_fixed_iters``: see
     solver.linear.cg_solve.
 
@@ -206,17 +246,26 @@ def make_packed_step(
         if impl not in ("plain", "kernel"):
             msg = f"{name} must be 'plain' or 'kernel', got {impl!r}"
             raise ValueError(msg)
-    if len(geos) != 1 or not isinstance(geos[0], (StructuredGeometry, WindowedGeometry)):
-        msg = "make_packed_step supports one law on a StructuredGeometry or WindowedGeometry"
-        raise ValueError(msg)
-    geo = geos[0]
+    geo = geos[0] if geos else None
     windowed = isinstance(geo, WindowedGeometry)
+    structured = all(isinstance(g, StructuredGeometry) for g in geos) and (
+        len({(g.M, g.vs) for g in geos}) == 1
+    )
+    if not geos or not (structured or (windowed and len(geos) == 1)):
+        msg = (
+            "make_packed_step supports StructuredGeometry views of one grid or one "
+            "WindowedGeometry"
+        )
+        raise ValueError(msg)
     if "kernel" in (matvec_impl, eval_impl):
         if windowed:
             msg = (
                 "matvec_impl/eval_impl='kernel' are the structured engine's kernels; "
                 "the windowed engine launches its own kernels on CUDA tensors"
             )
+            raise ValueError(msg)
+        if len(geos) > 1:
+            msg = "matvec_impl/eval_impl='kernel' take one law; several laws run 'plain'"
             raise ValueError(msg)
         _require_cuda(geo)
 
@@ -230,8 +279,7 @@ def make_packed_step(
         def boundary(bc_dofs):
             return geo.bc_internal(bc_dofs), geo.free_internal(bc_dofs)
 
-        strain, residual = geo.strain, geo.residual
-        operator, jacobi_diag = geo.matvec, geo.jacobi_diag
+        ops = [(geo.strain, geo.residual, geo.matvec, geo.jacobi_diag)]
     else:
         M, vs, ndofs = geo.M, geo.vs, geo.ndofs
         to_work, from_work = geo.to_grid_major, geo.to_node_major
@@ -242,8 +290,7 @@ def make_packed_step(
             free_gm[bc_gm] = False
             return bc_gm, free_gm
 
-        strain, residual = geo.strain_gm, geo.residual_gm
-        operator, jacobi_diag = geo.matvec_gm, geo.jacobi_diag_gm
+        ops = [(g.strain_gm, g.residual_gm, g.matvec_gm, g.jacobi_diag_gm) for g in geos]
 
     cg_opts = dict(
         flexible=cg_flexible, reduce_dtype=cg_reduce_dtype, fixed_iters=cg_fixed_iters
@@ -257,29 +304,44 @@ def make_packed_step(
 
     kernel_evals: dict = {}
 
-    def eval_assemble(model, u_w, u_prev_w, stress, history, t, f_ext_w, dt):
-        if eval_impl == "kernel":
-            from ..ops.cuda_eval import build_cuda_eval
+    def eval_kernel(model, du, stress, history):
+        from ..ops.cuda_eval import build_cuda_eval
 
-            if id(model) not in kernel_evals:
-                kernel_evals[id(model)] = (model, build_cuda_eval(geo, model))
-            fused = kernel_evals[id(model)][1]
-            F, s_new, (beta, gmm, nf), h_new = fused(u_w - u_prev_w, stress, history)
-            tg = IsotropicTangent(
-                kappa=model.params["p_ka"], beta=beta, gamma=gmm, n=nf
-            )
-            r = geo._scatter_corners(F).reshape(-1) - f_ext_w
-            return r, s_new, tg, h_new
-        eps = strain(u_w - u_prev_w)
-        s_new, tg, h_new = model.evaluate_packed(t, dt, eps, stress, history)
-        return residual(s_new) - f_ext_w, s_new, tg, h_new
+        if id(model) not in kernel_evals:
+            kernel_evals[id(model)] = (model, build_cuda_eval(geo, model))
+        fused = kernel_evals[id(model)][1]
+        F, s_new, (beta, gmm, nf), h_new = fused(du, stress, history)
+        tg = IsotropicTangent(kappa=model.params["p_ka"], beta=beta, gamma=gmm, n=nf)
+        return geo._scatter_corners(F).reshape(-1), s_new, tg, h_new
 
-    def solve(tg, r_w, free):
+    def eval_assemble(models, u_w, u_prev_w, stresses, hists, t, f_ext_w, dt):
+        """Per-law strain -> evaluate -> residual, summed with -f_ext."""
+        du = u_w - u_prev_w
+        r, ss, tgs, hh = None, [], [], []
+        for model, (strain, residual, _, _), sig0, h0 in zip(models, ops, stresses, hists):
+            if eval_impl == "kernel":
+                rl, s_new, tg, h_new = eval_kernel(model, du, sig0, h0)
+            else:
+                s_new, tg, h_new = model.evaluate_packed(t, dt, strain(du), sig0, h0)
+                rl = residual(s_new)
+            r = rl if r is None else r + rl
+            ss.append(s_new)
+            tgs.append(tg)
+            hh.append(h_new)
+        return r - f_ext_w, tuple(ss), tuple(tgs), tuple(hh)
+
+    def solve(tgs, r_w, free):
         zero = r_w.new_zeros(())
         r_w = torch.where(free, r_w, zero)
 
         def apply_op(v):
-            return kernel_mv(v, tg) if kernel_mv is not None else operator(v, tg)
+            if kernel_mv is not None:
+                return kernel_mv(v, tgs[0])
+            out = None
+            for (_, _, operator, _), tg in zip(ops, tgs):
+                mv = operator(v, tg)
+                out = mv if out is None else out + mv
+            return out
 
         def matvec(v):
             vm = torch.where(free, v, zero)
@@ -294,13 +356,16 @@ def make_packed_step(
                 matvec, r_w, rtol=cg_rtol, maxiter=cg_maxiter, precond=precond,
                 **cg_opts,
             )
-        diag = torch.where(free, jacobi_diag(tg), r_w.new_ones(()))
+        diag = None
+        for (_, _, _, jacobi_diag), tg in zip(ops, tgs):
+            d = jacobi_diag(tg)
+            diag = d if diag is None else diag + d
+        diag = torch.where(free, diag, r_w.new_ones(()))
         return linear.cg_solve(
             matvec, r_w, diag, rtol=cg_rtol, maxiter=cg_maxiter, **cg_opts
         )
 
     def step(models, state: PackedState, bc_dofs, bc_vals, f_ext, dt):
-        model = models[0]
         bc_dofs = torch.as_tensor(bc_dofs, dtype=torch.int64, device=geo.device)
         bc_w, free = boundary(bc_dofs)
         u_prev_w = to_work(state.u)
@@ -313,8 +378,7 @@ def make_packed_step(
 
         def evaluate(u_w):
             return eval_assemble(
-                model, u_w, u_prev_w, state.stress[0], state.histories[0],
-                state.t, f_ext_w, dt,
+                models, u_w, u_prev_w, state.stress, state.histories, state.t, f_ext_w, dt
             )
 
         r, s, tg, h = evaluate(u)
@@ -335,9 +399,7 @@ def make_packed_step(
             else:
                 u, r, s, tg, h = _select(active, new, (u, r, s, tg, h))
             niter = niter + active.to(torch.int32)
-        new_state = PackedState(
-            u=from_work(u), stress=(s,), histories=(h,), t=state.t + dt
-        )
+        new_state = PackedState(u=from_work(u), stress=s, histories=h, t=state.t + dt)
         stats = {
             "newton_iters": niter,
             "r_norm": fnorm(r),

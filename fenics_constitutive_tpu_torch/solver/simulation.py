@@ -1,20 +1,26 @@
 """PackedSimulation: the user-facing time stepper.
 
-Mutable BC values, ``solve() -> (niter, converged)`` per load step, and
-observation properties; each step runs ``make_packed_step``. On a box of
-hexes it runs the structured engine with an optional multigrid or BPX
-preconditioner and, on a CUDA device, the fused CUDA operator; on a general
-(imported) mesh the windowed engine with the smoothed-aggregation AMG.
+Mutable BC values and external load, ``solve() -> (niter, converged)`` per
+load step (with optional adaptive substepping), ``solve_schedule`` for a
+whole load path, checkpoints of the committed state and observation
+properties; each step runs ``make_packed_step``. On a box of hexes it runs
+the structured engine (one law, or several on cell subsets) with an optional
+multigrid or BPX preconditioner and, on a CUDA device, the fused CUDA
+kernels; on a general (imported) mesh the windowed engine with the
+smoothed-aggregation AMG.
 
 Example::
 
-    mesh = read_gmsh("part.msh")
-    V = FunctionSpace(mesh, 1, 3)
-    sim = PackedSimulation(law, V, bcs, 2, device="cuda", dtype=torch.float32)
-    for disp in np.linspace(0.0005, 0.05, 100):
+    laws = [(LinearElasticityModel({"E": 150e3, "nu": 0.3}, Constraint.FULL), soft),
+            (VonMises3D(mat), hard)]
+    sim = PackedSimulation(laws, V, bcs, 2, preconditioner="vcycle",
+                           mg_options={"fused_smoothing": True},
+                           device="cuda", dtype=torch.float64)
+    for disp in np.linspace(0.0004, 0.004, 10):
         bc_move.value = disp
         niter, converged = sim.solve()
     sigma = sim.stress  # [C, Q, s] numpy, mesh cell order
+    save_checkpoint("state.npz", sim.state_dict())
 """
 
 from __future__ import annotations
@@ -23,7 +29,9 @@ import numpy as np
 import torch
 
 from ..fem.bcs import combine_bcs
+from ..models.interfaces import IncrSmallStrainModel
 from ..ops.cuda_matvec import build_cuda_matvec, hot_path_geometry
+from ..ops.structured import build_structured_geometry
 from ..ops.windowed import WindowedGeometry
 from .amg import build_amg
 from .multigrid import build_multigrid
@@ -33,11 +41,13 @@ __all__ = ["PackedSimulation"]
 
 
 class PackedSimulation:
-    """Time stepper for one law on a box mesh (structured engine) or a
-    general mesh (windowed engine).
+    """Time stepper on a box mesh (structured engine) or a general mesh
+    (windowed engine).
 
     Args:
-        law: the constitutive model.
+        laws: a model, or a list of ``(model, cells)`` on a box mesh (every
+            law a masked view of one grid; the preconditioner is one
+            whole-grid hierarchy with the first law's moduli).
         space: displacement FunctionSpace.
         bcs: Dirichlet BCs (values may be mutated between steps).
         q_degree: quadrature degree.
@@ -47,14 +57,24 @@ class PackedSimulation:
             only) or "amg" (the smoothed-aggregation hierarchy of
             solver/amg.py; windowed engine only). "auto" resolves to "amg"
             on the windowed engine and to None on the structured engine.
-            Elastic moduli come from ``elastic_moduli`` or the law's
-            parameters.
+            Elastic moduli come from ``elastic_moduli`` or the (first)
+            law's parameters.
         matvec_impl: "plain", "kernel" or "auto": the CUDA operator on a
-            CUDA device for the 3D hex hot path, the plain one elsewhere. With
-            the kernel, the V-cycle's fine level applies it too.
-        eval_impl: "plain" or "kernel" (the fused VonMises3D kernel, CUDA).
+            CUDA device for one law on the 3D hex hot path, the plain one
+            elsewhere. With the kernel, the V-cycle's fine level applies it
+            too, unless ``mg_options["fused_smoothing"]`` is set: then every
+            level smooths with the K3 chains and the CG operator alone
+            follows ``matvec_impl``.
+        eval_impl: "plain" or "kernel" (the fused VonMises3D kernel, CUDA,
+            one law).
         engine: "auto" or "windowed", the general-mesh engine choice of
             ``build_packed_problem`` (box meshes keep the structured engine).
+        max_subdivisions: retry a failed load step as 2, 4, ..., 2^k
+            substeps with BC values, external load and dt interpolated from
+            the committed state (0 = off).
+        f_ext: optional [ndofs] node-major external (Neumann) load vector,
+            e.g. from ``fem.assemble_facet_traction``; the ``f_ext``
+            attribute may be reassigned between steps.
         device, dtype: where and in what type the state lives.
         newton/cg options are forwarded to make_packed_step. By default a
             float32 state uses flexible CG with float64 dot products.
@@ -63,7 +83,7 @@ class PackedSimulation:
 
     def __init__(
         self,
-        law,
+        laws,
         space,
         bcs,
         q_degree: int,
@@ -83,15 +103,21 @@ class PackedSimulation:
         cg_flexible: bool | None = None,
         cg_reduce_dtype: torch.dtype | None = None,
         cg_fixed_iters: int | None = None,
+        max_subdivisions: int = 0,
         mg_options: dict | None = None,
+        f_ext=None,
         engine: str = "auto",
     ):
         self.space = space
         self.bcs = bcs
         self.del_t = del_t
         self.device = torch.device(device)
+        if isinstance(laws, IncrSmallStrainModel):
+            self._law_cells = (np.arange(space.mesh.num_cells),)
+        else:
+            self._law_cells = tuple(np.asarray(c, np.int64) for _, c in laws)
         geos, models, state = build_packed_problem(
-            space, law, q_degree, device=self.device, dtype=dtype, engine=engine
+            space, laws, q_degree, device=self.device, dtype=dtype, engine=engine
         )
         self._geos, self._models = geos, models
         self.state: PackedState = state
@@ -99,6 +125,14 @@ class PackedSimulation:
         windowed = isinstance(geo, WindowedGeometry)
         #: the engine the mesh resolved to: "structured" or "windowed"
         self.engine = "windowed" if windowed else "structured"
+        zeros = torch.zeros(space.ndofs, dtype=dtype, device=self.device)
+        #: external load, node-major [ndofs] (reassign between steps)
+        self.f_ext = zeros if f_ext is None else torch.as_tensor(
+            f_ext, dtype=dtype, device=self.device
+        )
+        # the load of the committed state, where a substepped retry ramps
+        # from: zero until a step commits, whatever the constructor's f_ext
+        self._f_ext_committed = zeros
 
         if preconditioner == "auto":
             preconditioner = "amg" if windowed else None
@@ -119,14 +153,13 @@ class PackedSimulation:
         self.preconditioner = preconditioner
         if matvec_impl == "auto":
             on_card = self.device.type == "cuda"
-            matvec_impl = (
-                "kernel" if on_card and not windowed and hot_path_geometry(geo) else "plain"
-            )
+            single = len(geos) == 1 and not windowed
+            matvec_impl = "kernel" if on_card and single and hot_path_geometry(geo) else "plain"
 
         pc = mg = None
         if preconditioner is not None:
             mu, kappa = (
-                elastic_moduli if elastic_moduli is not None else _estimate_moduli(law)
+                elastic_moduli if elastic_moduli is not None else _estimate_moduli(models[0])
             )
             bc_dofs, _ = combine_bcs(bcs)
             free = torch.ones(space.ndofs, dtype=torch.bool)
@@ -145,9 +178,16 @@ class PackedSimulation:
                     # V(3,3) with lighter coarse smoothing and a direct
                     # coarsest solve: the configuration of the benchmark
                     opts = {"nu": 3, "nu_coarse": 2, "coarse_direct": True, **opts}
-                fine_mv = build_cuda_matvec(geo) if matvec_impl == "kernel" else None
+                # several laws: one whole-grid hierarchy (an elastic
+                # surrogate either way); the K3 chains replace the fine apply
+                geo_mg = geo if len(geos) == 1 else build_structured_geometry(
+                    space, q_degree, geo.constraint, device=self.device, dtype=dtype
+                )
+                fine_mv = None
+                if matvec_impl == "kernel" and not opts.get("fused_smoothing", False):
+                    fine_mv = build_cuda_matvec(geo)
                 mg = build_multigrid(
-                    geo, mu, kappa, free, device=self.device, dtype=dtype,
+                    geo_mg, mu, kappa, free, device=self.device, dtype=dtype,
                     fine_matvec=fine_mv, **opts,
                 )
                 pc = {"bpx": mg.bpx, "vcycle": mg}[preconditioner]
@@ -160,6 +200,7 @@ class PackedSimulation:
 
         self._newton_rtol = newton_rtol
         self._newton_atol = newton_atol
+        self._max_subdivisions = max_subdivisions
         self._step = make_packed_step(
             geos,
             newton_rtol=newton_rtol,
@@ -176,33 +217,216 @@ class PackedSimulation:
         )
         self.last_stats: dict | None = None
 
+    # -- stepping -------------------------------------------------------------------
+
+    def _load(self, f) -> torch.Tensor:
+        """A node-major load as a tensor of the state's dtype and device."""
+        return torch.as_tensor(f, dtype=self.state.u.dtype, device=self.device)
+
+    def _to_engine(self, f: torch.Tensor) -> torch.Tensor:
+        """Node-major load -> the step's layout (internal on the windowed engine)."""
+        geo = self._geos[0]
+        return geo.to_internal(f) if isinstance(geo, WindowedGeometry) else f
+
+    def _converged(self, r_norm, r0_norm):
+        return r_norm <= np.maximum(self._newton_atol, self._newton_rtol * r0_norm)
+
+    def _attempt(self, bc_dofs, bc_vals, f_ext, dt) -> tuple[int, bool]:
+        """One step from the committed state; commits it if it converged to a
+        finite state. Returns (niter, ok)."""
+        new_state, stats = self._step(
+            self._models, self.state, bc_dofs,
+            torch.as_tensor(bc_vals, dtype=self.state.u.dtype, device=self.device),
+            self._to_engine(f_ext), dt,
+        )
+        self.last_stats = {k: v.item() for k, v in stats.items()}
+        r_norm = self.last_stats["r_norm"]
+        ok = bool(self._converged(r_norm, self.last_stats["r0_norm"]))
+        ok = ok and bool(np.isfinite(r_norm)) and bool(torch.isfinite(new_state.u).all())
+        if ok:
+            self.state = new_state
+        return int(self.last_stats["newton_iters"]), ok
+
     def solve(self) -> tuple[int, bool]:
         """One load/time step: solve and commit. Returns (niter, converged).
 
         Converged means the residual tolerance held and the state is finite;
-        an unconverged step leaves the committed state unchanged.
+        an unconverged step leaves the committed state unchanged. With
+        ``max_subdivisions > 0`` a failed step is retried as 2, 4, ...,
+        2^k substeps whose BC values and external load ramp linearly from
+        the committed state's and whose dt is ``del_t / n``; niter is then
+        the sum over the substeps.
         """
-        bc_dofs, bc_vals = combine_bcs(self.bcs)
+        bc_dofs_np, bc_vals = combine_bcs(self.bcs)
+        bc_dofs = torch.as_tensor(bc_dofs_np, dtype=torch.int64, device=self.device)
+        f_ext = self._load(self.f_ext)
+        niter, ok = self._attempt(bc_dofs, bc_vals, f_ext, self.del_t)
+        if ok or self._max_subdivisions == 0:
+            if ok:
+                self._f_ext_committed = f_ext
+            return niter, ok
+
+        state0 = self.state
+        geo = self._geos[0]
+        idx = geo.bc_internal(bc_dofs) if isinstance(geo, WindowedGeometry) else bc_dofs
+        start_vals = state0.u[idx].cpu().numpy().astype(np.float64)
+        f_start = self._f_ext_committed
+        for level in range(1, self._max_subdivisions + 1):
+            n_sub = 2**level
+            self.state = state0
+            total = 0
+            for k in range(1, n_sub + 1):
+                frac = k / n_sub
+                niter, ok = self._attempt(
+                    bc_dofs, start_vals + frac * (bc_vals - start_vals),
+                    f_start + frac * (f_ext - f_start), self.del_t / n_sub,
+                )
+                total += niter
+                if not ok:
+                    break
+            if ok:
+                self._f_ext_committed = f_ext
+                return total, True
+        self.state = state0
+        return niter, False
+
+    def solve_schedule(self, bc_values, dts=None, f_ext_scales=None) -> dict:
+        """Run a whole load path and commit its final state.
+
+        Args:
+            bc_values: [K, n_bc] Dirichlet values per step, in the
+                ``combine_bcs(self.bcs)`` dof order, or a callable
+                ``f(step_index) -> [n_bc]`` (K is then ``len(dts)``).
+            dts: optional [K] time increments (default ``del_t`` each).
+            f_ext_scales: optional [K] scalars multiplying ``self.f_ext``, or
+                [K, ndofs] per-step load vectors; default ``self.f_ext`` at
+                every step.
+
+        Every step starts from the one before, converged or not (no
+        substepping; use ``solve()`` for that). No value is read back until
+        the last step, so a configuration without host syncs
+        (``max_newton=1``, fixed CG) runs ahead of Python for the whole path.
+
+        Returns per-step numpy arrays ``newton_iters``, ``r_norm``,
+        ``r0_norm``, ``cg_iters_last`` and ``converged`` (the residual
+        tolerance of ``solve()``, and a finite residual).
+        """
+        if callable(bc_values):
+            if dts is None:
+                msg = "a callable bc_values needs dts for the number of steps"
+                raise ValueError(msg)
+            bc_values = np.stack([np.asarray(bc_values(i)) for i in range(len(dts))])
+        bc_dofs_np, _ = combine_bcs(self.bcs)
         dtype = self.state.u.dtype
-        new_state, stats = self._step(
-            self._models,
-            self.state,
-            torch.as_tensor(bc_dofs, dtype=torch.int64, device=self.device),
-            torch.as_tensor(bc_vals, dtype=dtype, device=self.device),
-            torch.zeros_like(self.state.u),  # no external load (internal layout if windowed)
-            self.del_t,
+        vals = torch.as_tensor(np.asarray(bc_values), dtype=dtype, device=self.device)
+        K = vals.shape[0]
+        if K == 0:
+            return {
+                "newton_iters": np.zeros(0, np.int32), "r_norm": np.zeros(0),
+                "r0_norm": np.zeros(0), "cg_iters_last": np.zeros(0, np.int32),
+                "converged": np.zeros(0, bool),
+            }
+        dts = [self.del_t] * K if dts is None else [float(d) for d in np.asarray(dts)]
+        if len(dts) != K:
+            msg = f"{len(dts)} time increments for {K} steps"
+            raise ValueError(msg)
+        f_base = self._load(self.f_ext)
+        if f_ext_scales is None:
+            loads = [f_base] * K
+        else:
+            scales = self._load(np.asarray(f_ext_scales))
+            if scales.shape[0] != K or scales.dim() not in (1, 2):
+                msg = f"f_ext_scales must be [K] or [K, ndofs] with K={K}, got {tuple(scales.shape)}"
+                raise ValueError(msg)
+            if scales.dim() == 2 and scales.shape[1] != self.space.ndofs:
+                msg = f"f_ext_scales rows have {scales.shape[1]} values, not {self.space.ndofs}"
+                raise ValueError(msg)
+            loads = [f_base * s if scales.dim() == 1 else s for s in scales]
+        bc_dofs = torch.as_tensor(bc_dofs_np, dtype=torch.int64, device=self.device)
+        st, rows = self.state, []
+        for i in range(K):
+            st, stats = self._step(
+                self._models, st, bc_dofs, vals[i], self._to_engine(loads[i]), dts[i]
+            )
+            rows.append(stats)
+        self.state = st
+        self._f_ext_committed = loads[-1]
+        out = {k: torch.stack([r[k].reshape(()).cpu() for r in rows]).numpy() for k in rows[0]}
+        out["converged"] = self._converged(out["r_norm"], out["r0_norm"]) & np.isfinite(
+            out["r_norm"]
         )
-        self.last_stats = {k: v.item() for k, v in stats.items()}
-        niter = int(self.last_stats["newton_iters"])
-        r_norm = self.last_stats["r_norm"]
-        converged = r_norm <= max(
-            self._newton_atol, self._newton_rtol * self.last_stats["r0_norm"]
+        self.last_stats = {k: v[-1] for k, v in out.items()}
+        return out
+
+    # -- checkpoints ----------------------------------------------------------------
+    # The committed PackedState determines the next step. state_dict() is a
+    # plain tree for utils.save_checkpoint / load_checkpoint, with an engine
+    # marker; restore needs the same engine and mesh (the windowed engine's
+    # u is its internal vector and its QP fields are in plan-slot order).
+
+    def state_dict(self) -> dict:
+        return {
+            "engine": self.engine,
+            "u": self.state.u,
+            "stress": tuple(self.state.stress),
+            "histories": tuple(self.state.histories),
+            "t": self.state.t,
+        }
+
+    def load_state_dict(self, st: dict) -> None:
+        """Restore a ``state_dict`` (or ``load_checkpoint`` of one) against
+        this simulation's own state: the tree's structure, every leaf's shape
+        and the engine marker must match, or it raises ValueError. A tree
+        without a marker (a JAX package checkpoint) is held to the shapes
+        alone."""
+        marker = st.get("engine")
+        if marker is not None and str(np.asarray(marker)) != self.engine:
+            msg = f"checkpoint of the {np.asarray(marker)} engine, simulation on {self.engine}"
+            raise ValueError(msg)
+
+        def restore(node, like, where):
+            if like is None:
+                if node is not None:
+                    msg = f"checkpoint {where}: values where the state has none"
+                    raise ValueError(msg)
+                return None
+            if isinstance(like, torch.Tensor):
+                if node is None:
+                    msg = f"checkpoint {where}: missing"
+                    raise ValueError(msg)
+                if not isinstance(node, torch.Tensor):
+                    node = torch.as_tensor(np.asarray(node))
+                if tuple(node.shape) != tuple(like.shape):
+                    msg = (f"checkpoint {where}: shape {tuple(node.shape)}, the engine's "
+                           f"state has {tuple(like.shape)}")
+                    raise ValueError(msg)
+                return node.detach().to(dtype=like.dtype, device=like.device).clone()
+            if isinstance(like, tuple):
+                if isinstance(node, dict):
+                    keys = [str(i) for i in range(len(like))]
+                    if set(node) != set(keys):
+                        msg = f"checkpoint {where}: entries {sorted(node)}, expected {keys}"
+                        raise ValueError(msg)
+                    node = [node[k] for k in keys]
+                if not isinstance(node, (tuple, list)) or len(node) != len(like):
+                    msg = f"checkpoint {where}: expected {len(like)} entries"
+                    raise ValueError(msg)
+                return tuple(restore(n, li, f"{where}[{i}]")
+                             for i, (n, li) in enumerate(zip(node, like)))
+            if not isinstance(node, dict) or set(node) != set(like):
+                msg = f"checkpoint {where}: expected the entries {sorted(like)}"
+                raise ValueError(msg)
+            return {k: restore(node[k], like[k], f"{where}.{k}") for k in like}
+
+        cur = self.state
+        self.state = PackedState(
+            u=restore(st["u"], cur.u, "u"),
+            stress=restore(st["stress"], cur.stress, "stress"),
+            histories=restore(st["histories"], cur.histories, "histories"),
+            t=restore(st["t"], cur.t, "t"),
         )
-        finite = bool(np.isfinite(r_norm)) and bool(torch.isfinite(new_state.u).all())
-        ok = converged and finite
-        if ok:
-            self.state = new_state
-        return niter, ok
+
+    # -- observation ----------------------------------------------------------------
 
     @property
     def u(self) -> torch.Tensor:
@@ -215,13 +439,21 @@ class PackedSimulation:
 
     @property
     def stress(self) -> np.ndarray:
-        """Committed Mandel stress in [C, Q, s] order (mesh cell order)."""
-        geo = self._geos[0]
-        return geo.extract_cells(self.state.stress[0]).permute(2, 1, 0).cpu().numpy()
+        """Committed Mandel stress in [C, Q, s] order (mesh cell order), every
+        law's cells filled from its own field."""
+        g0 = self._geos[0]
+        out = np.zeros((self.space.mesh.num_cells, g0.n_qp, g0.constraint.stress_strain_dim))
+        for geo, cells, s in zip(self._geos, self._law_cells, self.state.stress):
+            out[cells] = geo.extract_cells(s).permute(2, 1, 0).cpu().numpy()
+        return out
 
     @property
     def histories(self):
         return self.state.histories
+
+    @property
+    def time(self) -> float:
+        return float(self.state.t)
 
 
 def _estimate_moduli(model) -> tuple[float, float]:

@@ -5,9 +5,10 @@
 * The CUDA kernel paths refuse CPU tensors (at the step level for the
   structured kernels, in the wrappers for the windowed ones) instead of
   quietly running the plain path.
-* Importing the kernel modules, building a problem on either engine and
-  stepping it on the CPU compile nothing: nvcc runs only at a kernel's first
-  launch on the card.
+* Importing the kernel modules, building a problem on either engine (with
+  several laws, and with the fused K3 smoothing chains) and stepping it on
+  the CPU compile nothing: nvcc runs only at a kernel's first launch on the
+  card.
 """
 
 import ast
@@ -15,6 +16,7 @@ import importlib
 import pathlib
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -37,7 +39,8 @@ def test_port_never_imports_jax():
     assert len(files) > 15
     scanned = {str(f.relative_to(PKG)) for f in files}
     for module in ("fem/io.py", "fem/kinematics.py", "ops/windowed.py", "ops/windowed_bsr.py",
-                   "ops/cuda_window.py", "solver/amg.py"):
+                   "ops/cuda_window.py", "solver/amg.py", "ops/cuda_smoother.py",
+                   "fem/facets.py", "models/linear_elasticity.py", "utils/checkpoint.py"):
         assert module in scanned, module
     bad = {
         str(f.relative_to(PKG)): name
@@ -50,7 +53,8 @@ def test_port_never_imports_jax():
 
 def test_kernel_sources_present():
     csrc = PKG / "csrc"
-    assert {p.name for p in csrc.glob("*.cu")} == {"matvec.cu", "eval.cu", "window.cu"}
+    names = {p.name for p in csrc.glob("*.cu")}
+    assert names == {"matvec.cu", "eval.cu", "window.cu", "smoother.cu"}
     for p in csrc.glob("*.cu"):
         assert "Replaces" in p.read_text()[:2000], p.name
 
@@ -109,9 +113,15 @@ def test_import_and_build_never_call_nvcc(box, tets, mat, monkeypatch):
 
     monkeypatch.setattr(subprocess, "run", refuse)
     monkeypatch.setattr(subprocess, "Popen", refuse)
-    from fenics_constitutive_tpu_torch.ops import _cuda_build, cuda_eval, cuda_matvec, cuda_window
+    from fenics_constitutive_tpu_torch.ops import (
+        _cuda_build,
+        cuda_eval,
+        cuda_matvec,
+        cuda_smoother,
+        cuda_window,
+    )
 
-    for mod in (_cuda_build, cuda_matvec, cuda_eval, cuda_window):
+    for mod in (_cuda_build, cuda_matvec, cuda_eval, cuda_window, cuda_smoother):
         importlib.reload(mod)
     from fenics_constitutive_tpu_torch.models import VonMises3D
     from fenics_constitutive_tpu_torch.solver import build_packed_problem
@@ -135,4 +145,46 @@ def test_import_and_build_never_call_nvcc(box, tets, mat, monkeypatch):
     assert sim.solve()[1]
     assert cuda_matvec.launches == 0 and cuda_eval.launches == 0
     assert set(cuda_window.launches.values()) == {0}
+    assert not _cuda_build.build_log
+
+
+@pytest.mark.parametrize("case", ["fused_hierarchy", "multi_law_simulation"])
+def test_fused_and_multi_law_builds_never_call_nvcc(box, mat, monkeypatch, case):
+    """A hierarchy with the K3 chains, and a two-law simulation with them,
+    build and run on the CPU without starting a compiler."""
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"a subprocess was started: {args!r}")
+
+    monkeypatch.setattr(subprocess, "run", refuse)
+    monkeypatch.setattr(subprocess, "Popen", refuse)
+    from fenics_constitutive_tpu_torch.models import (
+        Constraint,
+        LinearElasticityModel,
+        VonMises3D,
+    )
+    from fenics_constitutive_tpu_torch.ops import _cuda_build, cuda_smoother
+    from fenics_constitutive_tpu_torch.ops.structured import build_structured_geometry
+    from fenics_constitutive_tpu_torch.solver import PackedSimulation, build_multigrid
+
+    importlib.reload(_cuda_build)
+    importlib.reload(cuda_smoother)
+    V, bcs = box(6)["torch"]
+    if case == "fused_hierarchy":
+        geo = build_structured_geometry(V, 2, Constraint.FULL, device="cpu",
+                                        dtype=torch.float64)
+        mg = build_multigrid(geo, mat["p_mu"], mat["p_ka"], device="cpu",
+                             dtype=torch.float64, fused_smoothing=True)
+        assert mg.fused is not None
+        mg(torch.ones(geo.ndofs, dtype=torch.float64))
+    else:
+        mid = V.mesh.cell_midpoints()
+        laws = [(LinearElasticityModel({"E": 150000.0, "nu": 0.3}, Constraint.FULL),
+                 np.flatnonzero(mid[:, 2] < 0.5)),
+                (VonMises3D(mat), np.flatnonzero(mid[:, 2] >= 0.5))]
+        bcs[1].value = 0.002
+        sim = PackedSimulation(laws, V, bcs, 2, preconditioner="vcycle",
+                               mg_options={"fused_smoothing": True}, device="cpu",
+                               dtype=torch.float64)
+        assert sim.solve()[1]
+    assert cuda_smoother.launches == 0
     assert not _cuda_build.build_log

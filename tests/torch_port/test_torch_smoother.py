@@ -1,0 +1,151 @@
+"""K3, the fused multigrid smoothing chain, against the JAX package on a 6^3
+box (float64). The port's chains run their plain PyTorch version here (CPU
+tensors); the JAX chains run the Pallas kernel in interpret mode, as the JAX
+package's own tests do.
+
+* One level, each kind of chain (pre: zero start and residual; post; coarse:
+  zero start, sweeps only), on the same b, x, inv_d and mask: normwise rtol
+  1e-12 (the element product sums in another order).
+* The fused V-cycle (nu=3, nu_coarse=1, direct or iterative coarse solve)
+  against JAX's fused V-cycle and against the port's unfused one: rtol
+  1e-10, the bar of the JAX package's test.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fenics_constitutive_tpu.fem.bcs import combine_bcs as jax_combine
+from fenics_constitutive_tpu.ops.mandel import Constraint as JConstraint
+from fenics_constitutive_tpu.ops.pallas_smoother import (
+    build_fused_smoother as jax_build_fused_smoother,
+)
+from fenics_constitutive_tpu.ops.structured import (
+    build_structured_geometry as jax_build_geometry,
+)
+from fenics_constitutive_tpu.solver.multigrid import build_multigrid as jax_build_mg
+from fenics_constitutive_tpu_torch.fem import FunctionSpace, unit_square_mesh
+from fenics_constitutive_tpu_torch.ops import cuda_smoother
+from fenics_constitutive_tpu_torch.ops.mandel import Constraint
+from fenics_constitutive_tpu_torch.ops.structured import build_structured_geometry
+from fenics_constitutive_tpu_torch.solver.multigrid import build_multigrid
+
+F64 = torch.float64
+
+
+def close(got, ref, rtol):
+    got, ref = got.numpy(), np.asarray(ref)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=rtol, atol=rtol * np.abs(ref).max())
+
+
+@pytest.fixture(scope="module")
+def level(box, mat):
+    pair = box(6)
+    (Vj, bcs_j), (Vt, _) = pair["jax"], pair["torch"]
+    gj = jax_build_geometry(Vj, 2, JConstraint.FULL, jnp.float64)
+    gt = build_structured_geometry(Vt, 2, Constraint.FULL, device="cpu", dtype=F64)
+    bc_dofs, _ = jax_combine(bcs_j)
+    free = np.ones(Vj.ndofs, bool)
+    free[bc_dofs] = False
+    beta0, ka = 2.0 * mat["p_mu"], mat["p_ka"]
+    ke = beta0 * np.asarray(gj.KE_I) + (ka - beta0 / 3.0) * np.asarray(gj.KE_V)
+    rng = np.random.default_rng(5)
+    free_gm = free.reshape(-1, 3).T.reshape(-1)
+    inv_d = np.where(free_gm, 0.6 / (1e5 * (1.0 + rng.random(Vj.ndofs))), 0.0)
+    b = np.where(free_gm, rng.normal(size=Vj.ndofs), 0.0)
+    x = np.where(free_gm, rng.normal(size=Vj.ndofs) * 1e-5, 0.0)
+    return gj, gt, ke, inv_d, b, x, free
+
+
+CHAINS = {
+    "pre": dict(nu=3, zero_start=True, emit_residual=True),
+    "pre_nu1": dict(nu=1, zero_start=True, emit_residual=True),
+    "post": dict(nu=3, zero_start=False, emit_residual=False),
+    "coarse": dict(nu=5, zero_start=True, emit_residual=False),
+}
+
+
+@pytest.mark.parametrize("chain", list(CHAINS))
+def test_chain_matches_jax(level, chain):
+    gj, gt, ke, inv_d, b, x, _ = level
+    opts = CHAINS[chain]
+    fn_j = jax_build_fused_smoother(gj, ke, jnp.asarray(inv_d), np.asarray(gj.mask), **opts)
+    fn_t = cuda_smoother.build_fused_smoother(gt, ke, torch.tensor(inv_d), gt.mask, **opts)
+    before = cuda_smoother.launches
+    if opts["zero_start"]:
+        out_j, out_t = fn_j(jnp.asarray(b)), fn_t(torch.tensor(b))
+    else:
+        out_j, out_t = fn_j(jnp.asarray(x), jnp.asarray(b)), fn_t(torch.tensor(x), torch.tensor(b))
+    assert cuda_smoother.launches == before  # CPU tensors: the plain version
+    if not opts["emit_residual"]:
+        out_j, out_t = (out_j,), (out_t,)
+    assert len(out_t) == len(out_j)
+    for got, ref in zip(out_t, out_j):
+        close(got, ref, 1e-12)
+    # x stays zero where inv_d is zero
+    assert not out_t[0][torch.tensor(inv_d) == 0].any()
+
+
+def test_plain_is_the_unfused_jacobi_chain(level):
+    """smoother_plain's pre chain equals nu damped-Jacobi sweeps written out
+    with the geometry's own elastic operator."""
+    _, gt, ke, inv_d, b, _, _ = level
+    inv_d, b = torch.tensor(inv_d), torch.tensor(b)
+    ke_t = torch.tensor(ke)
+    x, r = cuda_smoother.smoother_plain(gt, ke_t, inv_d, gt.mask, None, b, nu=2,
+                                        zero_start=True, emit_residual=True)
+
+    def A(v):
+        U = gt._corner_dofs(v.reshape(3, gt.M)) * gt.mask
+        return gt._scatter_corners(ke_t @ U).reshape(-1)
+
+    x_ref = inv_d * b
+    x_ref = x_ref + inv_d * (b - A(x_ref))
+    torch.testing.assert_close(x, x_ref, rtol=0, atol=0)
+    torch.testing.assert_close(r, torch.where(inv_d != 0, b - A(x_ref), 0.0), rtol=0, atol=0)
+
+
+@pytest.fixture(scope="module")
+def hierarchies(box, mat):
+    pair = box(6)
+    (Vj, bcs_j), (Vt, _) = pair["jax"], pair["torch"]
+    gj = jax_build_geometry(Vj, 2, JConstraint.FULL, jnp.float64)
+    gt = build_structured_geometry(Vt, 2, Constraint.FULL, device="cpu", dtype=F64)
+    bc_dofs, _ = jax_combine(bcs_j)
+    free = np.ones(Vj.ndofs, bool)
+    free[bc_dofs] = False
+    mu, ka = mat["p_mu"], mat["p_ka"]
+    r = np.random.default_rng(7).normal(size=Vj.ndofs)
+    out = {}
+    for direct in (True, False):
+        kw = dict(nu=3, nu_coarse=1, coarse_direct=direct)
+        mg_j = jax_build_mg(gj, mu, ka, jnp.asarray(free), fused_smoothing=True, **kw)
+        mg_t = build_multigrid(gt, mu, ka, torch.tensor(free), device="cpu", dtype=F64,
+                               fused_smoothing=True, **kw)
+        mg_u = build_multigrid(gt, mu, ka, torch.tensor(free), device="cpu", dtype=F64, **kw)
+        r_gm = gt.to_grid_major(torch.tensor(r))
+        out[direct] = (mg_t, mg_t(r_gm), mg_u(r_gm), mg_j(gj.to_grid_major(jnp.asarray(r))))
+    return out
+
+
+@pytest.mark.parametrize("direct", [True, False], ids=["coarse_direct", "coarse_chain"])
+def test_fused_vcycle_matches_jax_and_unfused(hierarchies, direct):
+    mg_t, z_fused, z_unfused, z_jax = hierarchies[direct]
+    assert mg_t.fused is not None and mg_t.n_levels == 2
+    assert set(mg_t.fused[-1]) == {"coarse"} and set(mg_t.fused[0]) == {"pre", "post"}
+    close(z_fused, z_jax, 1e-10)
+    close(z_fused, z_unfused.numpy(), 1e-10)
+
+
+def test_quad_level_on_the_card_is_not_ported():
+    """The kernel path refuses a 2D quad level before touching the card."""
+    V = FunctionSpace(unit_square_mesh(4, 4, "quad"), 1, 2)
+    g = build_structured_geometry(V, 2, Constraint.PLANE_STRAIN, device="cpu", dtype=F64)
+    ke = np.eye(8)
+    z = torch.zeros(V.ndofs, dtype=F64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cuda_smoother._chain_kernel(g, torch.tensor(ke), z, g.mask, None, z, nu=2,
+                                    zero_start=True, emit_residual=False)
+    assert not cuda_smoother.smoother_geometry_ok(g)
