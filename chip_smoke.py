@@ -37,10 +37,14 @@ padded quadrature points):
   7. K4 (windowed gather) and K5 (windowed scatter) against their plain
      versions on that mesh's exchange plan (T = 1024, K = 3), float64 and
      float32: K4 bit-equal, K5 within a normwise tolerance and bit-equal
-     across two launches; both times.
-  8. K6 (windowed BSR SpMV) against its plain version on every A, P and R
-     level of the mesh's AMG hierarchy: float32 with select_passes 1 and 3,
-     and float64; per-level errors and times.
+     across two launches; each call's time (CUDA events, back to back), its
+     kernel's time on the card (torch.profiler) and the library call's, and
+     the host's part of one K4 call beside the indexing call's.
+  8. K6 (BSR SpMV on the plan's row layout) against its plain version on
+     every A, P and R level of the mesh's AMG hierarchy: float32 with
+     select_passes 1 and 3, and float64, two launches bit-equal; per-level
+     errors, threads per row, times beside the plain version, a torch CSR
+     product and the bound; then the sweep of 1-32 threads per row.
   9. the general-tet bench (the JAX package's scripts/bench_unstructured.py
      protocol): float32, max_newton=1, fixed-3 plain PCG with the windowed
      AMG V(3,3); warm-up load scales 0.5-2.0, 10 timed steps at
@@ -79,8 +83,15 @@ times, plain and library times, the bound) and, last, the device JSON line.
     python3 chip_smoke.py --profile
 
 instead profiles 3 steps of the bench workload with the unfused and the
-fused V-cycle (torch.profiler: device time per step, busy share, the
-costliest kernels) and prints no JSON.
+fused V-cycle, and 3 steps of the general-tet bench (torch.profiler: device
+time per step, busy share, device ops per step, the costliest kernels), and
+prints no JSON.
+
+    python3 chip_smoke.py --ab PARENT CHANGE
+
+runs phases 7-9 from two checkouts of the repository (e.g. `git archive`s
+of the parent commit and of the change) in turns, parent, change, change,
+parent, each in its own process on the same card, and prints no JSON.
 """
 
 from __future__ import annotations
@@ -169,6 +180,50 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def host_us(fn, iters: int = 500) -> float:
+    """Mean host time of fn() in us: what the host spends issuing one call
+    (the loop does not wait for the card, whose queue takes the launches)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / iters * 1e6
+
+
+def device_events(prof) -> list:
+    """The device-side rows of a profile (kernels, copies): the aten rows
+    that launched them carry the same device time again."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms: the kernels it ran on the card, by
+    torch.profiler (the launch path on the host is not in it). A profile
+    that holds no device event at all (CUPTI delivered none, seen once in
+    some hundred short profiles on the H100) is taken again, twice at most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in device_events(prof))
+        if total > 0:
+            return total / 1e3 / iters
+    fail("torch.profiler saw no device time in three profiles")
 
 
 def bench_bcs(V):
@@ -730,12 +785,6 @@ def phase_k4_k5(results: dict, tet: dict) -> None:
         if rel > tol:
             fail(f"K5 {dtype} disagrees with the plain version: rel {rel:.3e} > {tol:g}")
         if dtype == torch.float32:
-            t = {
-                "K4": (cuda_ms(lambda: cuda_window.windowed_gather(ex, u2)),
-                       cuda_ms(lambda: cuda_window.gather_plain(ex, u2))),
-                "K5": (cuda_ms(lambda: cuda_window.windowed_scatter(ex, f)),
-                       cuda_ms(lambda: cuda_window.scatter_plain(ex, f))),
-            }
             # the library yardsticks: one indexing of the zero-padded node
             # rows (K4) and one index_add_ (K5), index vectors made beforehand
             gi = ex._global_idx()
@@ -743,33 +792,79 @@ def phase_k4_k5(results: dict, tet: dict) -> None:
             u_ext = torch.cat([u2, u2.new_zeros((3, 1))], dim=1)
             f_rows = f.permute(1, 0, 2).reshape(3, -1).contiguous()
             acc = f.new_zeros((3, ex.M_pad + 1))
-            lib4 = cuda_ms(lambda: u_ext[:, gi])
-            lib5 = cuda_ms(lambda: acc.index_add_(1, gi_flat, f_rows))
+            calls = {
+                "K4": (lambda: cuda_window.windowed_gather(ex, u2),
+                       lambda: cuda_window.gather_plain(ex, u2), lambda: u_ext[:, gi]),
+                "K5": (lambda: cuda_window.windowed_scatter(ex, f),
+                       lambda: cuda_window.scatter_plain(ex, f),
+                       lambda: acc.index_add_(1, gi_flat, f_rows)),
+            }
             # bytes only: u2 (or f) and the plan's indices read, the rows written
             rows = ex.B * 3 * ex.Rn * 4
-            b4, by4 = bound_ms(u2.numel() * 4 + ex.loc.numel() * ex.loc.element_size()
-                               + rows, 0.0, dtype)
             idx5 = (ex.node_ptr.numel() * ex.node_ptr.element_size()
                     + ex.node_rows.numel() * ex.node_rows.element_size())
-            b5, by5 = bound_ms(rows + idx5 + 3 * ex.M_pad * 4,
-                               3.0 * ex.node_rows.numel(), dtype)
-            results["K4"] = {"max_abs_err": 0.0, "ms": t["K4"][0], "plain_ms": t["K4"][1],
-                             "bound_ms": b4, "bound_by": by4, "library_ms": lib4}
-            results["K5"] = {"max_abs_err": err, "ms": t["K5"][0], "plain_ms": t["K5"][1],
-                             "bound_ms": b5, "bound_by": by5, "library_ms": lib5}
-            line.append(f"f32 K4 {t['K4'][0]:.4f} ms vs plain {t['K4'][1]:.4f} ms, library "
-                        f"{lib4:.4f}, bound {b4:.4f} ({by4}); K5 {t['K5'][0]:.4f} ms vs "
-                        f"plain {t['K5'][1]:.4f} ms, library {lib5:.4f}, bound {b5:.4f} ({by5})")
+            bounds = {
+                "K4": bound_ms(u2.numel() * 4 + ex.loc.numel() * ex.loc.element_size() + rows,
+                               0.0, dtype),
+                "K5": bound_ms(rows + idx5 + 3 * ex.M_pad * 4, 3.0 * ex.node_rows.numel(),
+                               dtype),
+            }
+            errs = {"K4": 0.0, "K5": err}
+            for key, (kernel, plain, lib) in calls.items():
+                # CUDA events time the calls back to back (host launch path
+                # included); the profiler times the kernels alone
+                ms, dev = cuda_ms(kernel), device_ms(kernel)
+                lib_ms, lib_dev = cuda_ms(lib), device_ms(lib)
+                plain_ms = cuda_ms(plain)
+                b, by = bounds[key]
+                results[key] = {"max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
+                                "device_ms": dev}
+                line.append(f"f32 {key} {ms:.4f} ms/call (kernel on the card {dev:.4f}) vs "
+                            f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} (on the card "
+                            f"{lib_dev:.4f}), bound {b:.4f} ({by})")
+            # the host's part of one K4 call, against the indexing call's
+            entry = cuda_window._entry("gather", dtype)
+            out = cuda_window.windowed_gather(ex, u2)
+            stream = torch._C._cuda_getCurrentRawStream(u2.get_device())
+            args = (u2.data_ptr(), ex.loc.data_ptr(), out.data_ptr(), 3, ex.B, ex.Rn, ex.T,
+                    ex.M_pad, stream)
+            h = {"call": host_us(lambda: cuda_window.windowed_gather(ex, u2)),
+                 "alloc": host_us(lambda: u2.new_empty((ex.B, 3, ex.Rn))),
+                 "launch": host_us(lambda: entry(*args)),
+                 "index": host_us(lambda: u_ext[:, gi])}
+            line.append(f"K4 host us per call: {h['call']:.2f} (output allocation "
+                        f"{h['alloc']:.2f}, bare ctypes launch {h['launch']:.2f}, checks and "
+                        f"the rest {h['call'] - h['alloc'] - h['launch']:.2f}); indexing call "
+                        f"{h['index']:.2f}")
     print("phase 7 K4/K5 vs plain on the 35^3 tet plan: " + "; ".join(line))
 
 
+LANES = (1, 2, 4, 8, 16, 32)
+
+
+def k6_cost(w) -> tuple[float, float]:
+    """(bytes, flops) of one K6 apply: the row layout (row_ptr, col, blk) and
+    x read once, y written once; two operations per block entry."""
+    size = w.blk.element_size()
+    nnzb = w.col.numel()
+    nbytes = ((w.NR_pad + 1 + nnzb) * 4
+              + (nnzb * w.br * w.bc + w.bc * w.NC_pad + w.br * w.NR_pad) * size)
+    return nbytes, 2.0 * nnzb * w.br * w.bc
+
+
 def phase_k6(results: dict, tet: dict) -> None:
+    """K6 against its plain version on every A, P and R operator of the AMG
+    hierarchy (f32 with select_passes 1 and 3, f64; two launches bit-equal),
+    its time beside the plain version, the CSR product and the bound, and
+    the sweep of threads per row."""
     from fenics_constitutive_tpu_torch.ops import cuda_window
 
     amg = tet["amg"]
     ops = [(f"{name}{lvl}", getattr(amg, name + "_win")[lvl])
            for lvl in range(amg.n_levels - 1) for name in ("A", "P", "R")]
-    worst, ms, plain_ms, lib_ms, parts = 0.0, 0.0, 0.0, 0.0, []
+    tot = dict.fromkeys(("ms", "device_ms", "plain_ms", "library_ms"), 0.0)
+    worst, parts, sweeps = 0.0, [], []
     bnd_bytes = bnd_flops = 0.0
     for label, w32 in ops:
         w64 = copy.deepcopy(w32).double()
@@ -782,10 +877,14 @@ def phase_k6(results: dict, tet: dict) -> None:
             saved, w.select_passes = w.select_passes, passes
             try:
                 y_k = cuda_window.windowed_bsr_matvec(w, x)
+                y_k2 = cuda_window.windowed_bsr_matvec(w, x)
                 y_p = cuda_window.bsr_matvec_plain(w, x)
                 torch.cuda.synchronize()
                 if not torch.isfinite(y_k).all():
                     fail(f"K6 {label} returned non-finite values")
+                if not torch.equal(y_k, y_k2):
+                    fail(f"K6 {label} {dtype} select_passes={passes} differs between two "
+                         "launches")
                 err, rel = normwise(y_k, y_p)
                 if rel > TOL_K6[dtype]:
                     fail(f"K6 {label} {dtype} select_passes={passes}: rel {rel:.3e} > "
@@ -793,31 +892,55 @@ def phase_k6(results: dict, tet: dict) -> None:
                 errs.append(rel)
                 if dtype == torch.float32 and passes == 1:
                     worst = max(worst, err)
-                    k_ms = cuda_ms(lambda w=w, x=x: cuda_window.windowed_bsr_matvec(w, x))
-                    p_ms = cuda_ms(lambda w=w, x=x: cuda_window.bsr_matvec_plain(w, x))
+                    t = {
+                        "ms": cuda_ms(lambda w=w, x=x: cuda_window.windowed_bsr_matvec(w, x)),
+                        "device_ms": device_ms(
+                            lambda w=w, x=x: cuda_window.windowed_bsr_matvec(w, x)),
+                        "plain_ms": cuda_ms(
+                            lambda w=w, x=x: cuda_window.bsr_matvec_plain(w, x)),
+                    }
                     A, xr = bsr_as_csr(w), x.to(torch.bfloat16).to(torch.float32)
                     y_l = (A @ xr[:, None]).reshape(-1)
                     if normwise(y_l, y_p)[1] > TOL_K6[dtype]:
                         fail(f"the CSR yardstick of K6 {label} computes another function")
-                    l_ms = cuda_ms(lambda A=A, xr=xr: A @ xr[:, None])
-                    nnz = int((w.loc >= 0).sum())
-                    n_b = (nnz * (w.br * w.bc + 1) + w.jb.numel() + x.numel()
-                           + w.br * w.NR_pad) * 4
-                    b_ms, _ = bound_ms(n_b, 2.0 * nnz * w.br * w.bc, dtype)
-                    ms, plain_ms, lib_ms = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
-                    bnd_bytes, bnd_flops = bnd_bytes + n_b, bnd_flops + 2.0 * nnz * w.br * w.bc
+                    t["library_ms"] = cuda_ms(lambda A=A, xr=xr: A @ xr[:, None])
+                    for key in tot:
+                        tot[key] += t[key]
+                    nbytes, flops = k6_cost(w)
+                    b_ms, _ = bound_ms(nbytes, flops, dtype)
+                    bnd_bytes, bnd_flops = bnd_bytes + nbytes, bnd_flops + flops
+                    # threads per row: every power of two, each checked
+                    sweep = {}
+                    for lanes in LANES:
+                        y_s = cuda_window.windowed_bsr_matvec(w, x, lanes=lanes)
+                        if normwise(y_s, y_p)[1] > TOL_K6[dtype]:
+                            fail(f"K6 {label} with {lanes} lanes disagrees with plain")
+                        sweep[lanes] = device_ms(
+                            lambda w=w, x=x, n=lanes: cuda_window.windowed_bsr_matvec(
+                                w, x, lanes=n), iters=10)
+                    sweeps.append((label, w32.lanes, sweep))
             finally:
                 w.select_passes = saved
-        parts.append(f"{label} ({w32.br}x{w32.bc} k {w32.k} B {w32.B} P {w32.P}) rel "
-                     f"{errs[0]:.1e}/{errs[1]:.1e}/{errs[2]:.1e} {k_ms:.4f} ms vs plain {p_ms:.4f}"
-                     f", CSR {l_ms:.4f}, bound {b_ms:.4f}")
+        nnzb = w32.col.numel()
+        parts.append(f"{label} ({w32.br}x{w32.bc} rows {w32.n_rnodes} blocks {nnzb} "
+                     f"mean {nnzb / w32.n_rnodes:.1f} lanes {w32.lanes}) rel "
+                     f"{errs[0]:.1e}/{errs[1]:.1e}/{errs[2]:.1e} {t['ms']:.4f} ms (on the card "
+                     f"{t['device_ms']:.4f}) vs plain {t['plain_ms']:.4f}, CSR "
+                     f"{t['library_ms']:.4f}, bound {b_ms:.4f}")
     bound, by = bound_ms(bnd_bytes, bnd_flops, torch.float32)
-    results["K6"] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+    results["K6"] = {"max_abs_err": worst, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                     "bound_ms": bound, "bound_by": by, "library_ms": tot["library_ms"],
+                     "device_ms": tot["device_ms"]}
     print(f"phase 8 K6 vs plain on {len(ops)} AMG level operators (rel err f32 sel1/f32 sel3/f64; "
-          f"tol f32 {TOL_K6[torch.float32]:g}, f64 {TOL_K6[torch.float64]:g}); f32 sel1 times: "
-          + "; ".join(parts) + f"; one apply of every operator {ms:.4f} ms vs plain "
-          f"{plain_ms:.4f} ms, CSR library {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+          f"tol f32 {TOL_K6[torch.float32]:g}, f64 {TOL_K6[torch.float64]:g}; two launches "
+          f"bit-equal); f32 sel1 times: " + "; ".join(parts) + f"; one apply of every operator "
+          f"{tot['ms']:.4f} ms (on the card {tot['device_ms']:.4f}) vs plain "
+          f"{tot['plain_ms']:.4f} ms, CSR library {tot['library_ms']:.4f} ms, bound "
+          f"{bound:.4f} ms ({by})")
+    print("phase 8 K6 lanes sweep, f32 sel1 kernel ms on the card per apply at lanes " + "/".join(map(str, LANES))
+          + ": " + "; ".join(
+              f"{label} (rule {rule}, best {min(sw, key=sw.get)}) "
+              + "/".join(f"{sw[n]:.4f}" for n in LANES) for label, rule, sw in sweeps))
 
 
 def bsr_as_csr(w) -> torch.Tensor:
@@ -1157,13 +1280,43 @@ def main() -> None:
     }))
 
 
-def profile_box() -> None:
-    """``--profile``: torch.profiler over 3 steps of the bench workload, with
-    the unfused and the fused V-cycle: device time per step against the
-    same call's CUDA-event ms/step (unprofiled), and the costliest kernels."""
-    from torch.autograd import DeviceType
+def short_name(key: str) -> str:
+    """A kernel's name without its return type, namespace and arguments."""
+    key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return key.split("(")[0][:70]
+
+
+def profile_steps(label: str, run, K: int) -> None:
+    """torch.profiler over run(), which takes K load steps: device time per
+    step against the same call's CUDA-event ms/step (unprofiled), device ops
+    per step and the costliest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
+    run()  # warm
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    run()
+    ev1.record()
+    ev1.synchronize()
+    ms_step = ev0.elapsed_time(ev1) / K
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    evs = device_events(prof)
+    dev_ms = sum(e.self_device_time_total for e in evs) / 1e3 / K
+    launches = sum(e.count for e in evs) / K
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"profile {label}: {ms_step:.3f} ms/step (CUDA events), device time {dev_ms:.3f} "
+          f"ms/step (busy {dev_ms / ms_step:.1%}), {launches:.0f} device ops/step; top: "
+          + "; ".join(f"{short_name(e.key)} x{e.count // K} "
+                      f"{e.self_device_time_total / 1e3 / K:.3f} ms" for e in top))
+
+
+def profile_box() -> None:
+    """``--profile``: 3 steps of the bench workload with the unfused and the
+    fused V-cycle."""
     K = 3
     for fused in (False, True):
         geos, models, state, mg, args = bench_setup(N_BENCH, torch.float32, "cuda",
@@ -1173,30 +1326,54 @@ def profile_box() -> None:
         for k in (0.5, 1.0, 1.5):
             st, _ = step(models, st, args[0], args[1] * k, *args[2:])
         scales = [2.0 + 0.05 * i for i in range(K)]
-        run_schedule(step, models, st.clone(), args, scales)  # warm
-        torch.cuda.synchronize()
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
-        run_schedule(step, models, st.clone(), args, scales)
-        ev1.record()
-        ev1.synchronize()
-        ms_step = ev0.elapsed_time(ev1) / K
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run_schedule(step, models, st.clone(), args, scales)
-            torch.cuda.synchronize()
-        # device-side events only (kernels, copies): the aten rows that
-        # launched them carry the same device time again
-        evs = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        dev_ms = sum(e.self_device_time_total for e in evs) / 1e3 / K
-        launches = sum(e.count for e in evs) / K
-        top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
-        print(f"profile box 50^3 f32 {'fused' if fused else 'unfused'} V-cycle: "
-              f"{ms_step:.3f} ms/step (CUDA events), device time {dev_ms:.3f} ms/step "
-              f"(busy {dev_ms / ms_step:.1%}), {launches:.0f} device ops/step; top: "
-              + "; ".join(f"{e.key[:60]} x{e.count // K} "
-                          f"{e.self_device_time_total / 1e3 / K:.3f} ms" for e in top))
+        profile_steps(f"box 50^3 f32 {'fused' if fused else 'unfused'} V-cycle",
+                      lambda: run_schedule(step, models, st.clone(), args, scales), K)
+
+
+def profile_tet() -> None:
+    """``--profile``: 3 steps of the general-tet bench (phase 9's workload)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tet = tet_setup(Path(tmp))
+    geos, models, amg = tet["geos"], tet["models"], tet["amg"]
+    step = tet_step(geos, amg.wrap_internal(geos[0].ex.M_pad), TET_FIXED)
+    args = tet_args(geos[0], tet["bcs"], torch.float32, CARD)
+    st = tet["state"]
+    for k in (0.5, 1.0, 1.5, 2.0):
+        st, _ = step(models, st, args[0], args[1] * k, *args[2:])
+    K = 3
+    scales = [2.0 + 0.05 * (i + 1) for i in range(K)]
+    profile_steps(f"tet {N_TET}^3 f32 AMG V(3,3), fixed-{TET_FIXED} PCG",
+                  lambda: run_schedule(step, models, st.clone(), args, scales), K)
+
+
+#: phases 7-9 as both the parent commit's and this script's checkouts have them
+AB_PHASES = """
+import pathlib, tempfile, chip_smoke as c
+c.phase_device()
+c.phase_build()
+with tempfile.TemporaryDirectory() as tmp:
+    tet = c.timed("tet setup", c.tet_setup, pathlib.Path(tmp))
+results = {}
+c.timed("phase 7", c.phase_k4_k5, results, tet)
+c.timed("phase 8", c.phase_k6, results, tet)
+c.timed("phase 9", c.phase_tet_bench, tet)
+"""
+
+
+def ab(parent: str, change: str) -> None:
+    """``--ab PARENT CHANGE``: phases 7-9 from two checkouts in turns (parent,
+    change, change, parent), each in its own process on the same card."""
+    import sys
+
+    for label, where in (("parent", parent), ("change", change), ("change", change),
+                         ("parent", parent)):
+        proc = subprocess.run([sys.executable, "-c", AB_PHASES], cwd=where,
+                              capture_output=True, text=True, timeout=900, check=False)
+        for ln in proc.stdout.splitlines():
+            print(f"ab {label}: {ln}", flush=True)
+        if proc.returncode != 0:
+            fail(f"phases 7-9 of the {label} ({where}) exited {proc.returncode}:\n"
+                 + proc.stderr[-3000:])
 
 
 if __name__ == "__main__":
@@ -1206,5 +1383,9 @@ if __name__ == "__main__":
         phase_device()
         phase_build()
         profile_box()
+        profile_tet()
+    elif sys.argv[1:2] == ["--ab"] and len(sys.argv) == 4:
+        phase_device()
+        ab(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -8,6 +8,13 @@ version. ``WindowedExchange.gather``/``scatter`` and ``WindowedBsr.matvec``
 call them for CUDA tensors and the plain versions (``gather_plain``,
 ``scatter_plain``, ``bsr_matvec_plain``) for CPU tensors. Nothing is
 compiled until the first launch.
+
+The launch path is lean, since K6 runs 96 times in a general-tet load step:
+a plan's own invariants (index types, contiguity, alignment, 32-bit sizes,
+block shape) are checked at its first launch; each call checks only what
+the caller hands in (device, dtype, shape, contiguity), switches the
+current device only when it differs, and passes PyTorch's current raw
+stream handle.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from ._cuda_build import entry_point, launch_check
 
 __all__ = [
     "bsr_matvec_plain",
+    "bsr_rows_plain",
     "gather_plain",
     "launches",
     "scatter_plain",
@@ -36,10 +44,12 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "gather": [_P] * 3 + [_I] * 5 + [_P],
     "scatter": [_P] * 4 + [_I] * 3 + [_P],
-    "bsr": [_P] * 5 + [_I] * 8 + [_P],
+    "bsr": [_P] * 5 + [_I] * 6 + [_P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _BSR_SHAPES = ((3, 3), (3, 6), (6, 3), (6, 6))
+_LANES = (1, 2, 4, 8, 16, 32)
+_I32 = 2**31
 _entries: dict = {}
 
 
@@ -52,30 +62,82 @@ def _entry(kind: str, dtype: torch.dtype):
     return _entries[key]
 
 
-def _check(name: str, t: torch.Tensor, plan: torch.Tensor, shape: tuple) -> None:
-    """Raise unless the kernel can take ``t`` beside a plan on ``plan.device``."""
+def _launch(fn, index: int, *args) -> None:
+    """Call entry point ``fn`` with PyTorch's current stream on device
+    ``index`` (switching the current device only if it differs), and raise
+    on its error."""
+    if torch._C._cuda_getDevice() == index:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    launch_check("window", rc)
+
+
+def _check_call(name: str, t: torch.Tensor, plan: torch.Tensor, shape) -> int:
+    """Raise unless the kernel can take ``t`` beside a plan whose buffers lie
+    like ``plan``; return the device index."""
     if not t.is_cuda:
         msg = f"{name}: the CUDA kernel takes CUDA tensors, got one on {t.device}"
         raise ValueError(msg)
-    if t.device != plan.device:
+    index = t.get_device()
+    if index != plan.get_device():
         msg = f"{name}: tensor on {t.device}, plan on {plan.device}"
         raise ValueError(msg)
     if t.dtype not in _SUFFIX:
         msg = f"{name}: the CUDA kernel takes float32 or float64, got {t.dtype}"
         raise TypeError(msg)
-    if tuple(t.shape) != shape:
-        msg = f"{name}: expected shape {shape}, got {tuple(t.shape)}"
+    if t.shape != shape:
+        msg = f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}"
         raise ValueError(msg)
     if not t.is_contiguous():
         msg = f"{name}: the CUDA kernel takes contiguous tensors"
         raise ValueError(msg)
-    if t.numel() >= 2**31:
-        msg = f"{name}: {t.numel()} values overflow the kernel's 32-bit indices"
+    return index
+
+
+def _check_plan_once(plan, key: int, check, *args):
+    """``check(*args)``, run at a plan's first launch and again once the plan
+    has moved or been cast (``key``, a buffer's address, changed); returns
+    what the check returned then."""
+    done = plan.__dict__.get("_launch_key")
+    if done is None or done[0] != key:
+        done = (key, check(*args))
+        plan._launch_key = done
+    return done[1]
+
+
+def _require(name: str, ok: bool, what: str) -> None:
+    if not ok:
+        msg = f"{name}: {what}"
         raise ValueError(msg)
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _int32(*tensors) -> bool:
+    return all(t.dtype == torch.int32 and t.is_contiguous() for t in tensors)
+
+
+def _exchange_invariants(name: str, ex) -> int:
+    """Raise unless K4/K5 can take the exchange plan; return the most
+    components K its 32-bit indices allow."""
+    _require(name, _int32(ex.loc, ex.node_ptr, ex.node_rows),
+             "the plan's loc, node_ptr and node_rows must be contiguous int32")
+    _require(name, ex.Rn % 4 == 0 and ex.loc.data_ptr() % 16 == 0,
+             f"K4 reads loc as int4: Rn ({ex.Rn}) must be a multiple of 4, loc aligned")
+    _require(name, max(ex.loc.numel(), ex.node_rows.numel()) < _I32,
+             "the plan overflows the kernel's 32-bit indices")
+    return (_I32 - 1) // max(ex.B * ex.Rn, ex.M_pad)
+
+
+def _bsr_invariants(w) -> None:
+    name = "windowed_bsr_matvec"
+    _require(name, (w.br, w.bc) in _BSR_SHAPES, f"blocks {w.br}x{w.bc} not in {_BSR_SHAPES}")
+    _require(name, _int32(w.row_ptr, w.col) and w.blk.is_contiguous()
+             and w.row_ptr.numel() == w.NR_pad + 1,
+             "the row layout must be contiguous, int32 indices, NR_pad + 1 row pointers")
+    _require(name, w.lanes in _LANES, f"the plan's lanes ({w.lanes}) must be in {_LANES}")
+    _require(name, max(w.blk.numel(), w.br * w.NR_pad, w.bc * w.NC_pad, 32 * w.NR_pad) < _I32,
+             "the plan overflows the kernel's 32-bit indices")
 
 
 # -- plain versions (the CPU path, and the reference the kernels are held to) --
@@ -96,6 +158,20 @@ def bsr_matvec_plain(w, x: torch.Tensor) -> torch.Tensor:
     return w.matvec_ref(x)
 
 
+def bsr_rows_plain(w, x: torch.Tensor) -> torch.Tensor:
+    """The product K6 computes, on the row layout (``row_ptr``/``col``/
+    ``blk``), in plain PyTorch: a reference for the tests of that layout."""
+    sel = x.reshape(w.bc, w.NC_pad)[:, w.col.long()]  # [bc, nnzb]
+    if w.select_passes == 1 and sel.dtype == torch.float32:
+        sel = sel.to(torch.bfloat16).to(torch.float32)
+    contrib = (w.blk.reshape(-1, w.br, w.bc) * sel.T[:, None, :]).sum(dim=2)
+    rows = torch.repeat_interleave(
+        torch.arange(w.NR_pad, device=x.device), torch.diff(w.row_ptr.long())
+    )
+    y = x.new_zeros((w.NR_pad, w.br)).index_add_(0, rows, contrib)
+    return y.T.reshape(-1)
+
+
 # -- the kernels -------------------------------------------------------------------
 
 
@@ -106,14 +182,14 @@ def windowed_gather(ex, u2: torch.Tensor) -> torch.Tensor:
     the output is bit-identical to ``gather_plain``.
     """
     K = u2.shape[0] if u2.dim() == 2 else -1
-    _check("windowed_gather", u2, ex.loc, (K, ex.M_pad))
-    out = torch.empty((ex.B, K, ex.Rn), dtype=u2.dtype, device=u2.device)
-    with torch.cuda.device(u2.device):
-        rc = _entry("gather", u2.dtype)(
-            u2.data_ptr(), ex.loc.data_ptr(), out.data_ptr(),
-            K, ex.B, ex.Rn, ex.T, ex.M_pad, _stream(u2),
-        )
-    launch_check("window", rc)
+    loc = ex.loc
+    index = _check_call("windowed_gather", u2, loc, (K, ex.M_pad))
+    if K > _check_plan_once(ex, loc.data_ptr(), _exchange_invariants, "windowed_gather", ex):
+        msg = f"windowed_gather: {K} rows overflow the kernel's 32-bit indices"
+        raise ValueError(msg)
+    out = u2.new_empty((ex.B, K, ex.Rn))
+    _launch(_entry("gather", u2.dtype), index, u2.data_ptr(), loc.data_ptr(),
+            out.data_ptr(), K, ex.B, ex.Rn, ex.T, ex.M_pad)
     launches["gather"] += 1
     return out
 
@@ -126,43 +202,47 @@ def windowed_scatter(ex, f: torch.Tensor) -> torch.Tensor:
     equals ``scatter_plain`` up to the order of each node's sum.
     """
     K = f.shape[1] if f.dim() == 3 else -1
-    _check("windowed_scatter", f, ex.loc, (ex.B, K, ex.Rn))
-    out = torch.empty((K, ex.M_pad), dtype=f.dtype, device=f.device)
-    with torch.cuda.device(f.device):
-        rc = _entry("scatter", f.dtype)(
-            f.data_ptr(), ex.node_ptr.data_ptr(), ex.node_rows.data_ptr(),
-            out.data_ptr(), K, ex.Rn, ex.M_pad, _stream(f),
-        )
-    launch_check("window", rc)
+    loc = ex.loc
+    index = _check_call("windowed_scatter", f, loc, (ex.B, K, ex.Rn))
+    if K > _check_plan_once(ex, loc.data_ptr(), _exchange_invariants, "windowed_scatter", ex):
+        msg = f"windowed_scatter: {K} rows overflow the kernel's 32-bit indices"
+        raise ValueError(msg)
+    out = f.new_empty((K, ex.M_pad))
+    _launch(_entry("scatter", f.dtype), index, f.data_ptr(), ex.node_ptr.data_ptr(),
+            ex.node_rows.data_ptr(), out.data_ptr(), K, ex.Rn, ex.M_pad)
     launches["scatter"] += 1
     return out
 
 
-def windowed_bsr_matvec(w, x: torch.Tensor) -> torch.Tensor:
-    """K6: y [br * NR_pad] = A x [bc * NC_pad] over the windowed BSR plan ``w``.
+def windowed_bsr_matvec(w, x: torch.Tensor, *, lanes: int | None = None) -> torch.Tensor:
+    """K6: y [br * NR_pad] = A x [bc * NC_pad] on the row layout of plan ``w``
+    (``row_ptr``/``col``/``blk``), with ``w.lanes`` threads per row.
 
     Replaces ``fenics_constitutive_tpu/ops/pallas_window.py::
     windowed_bsr_matvec``. With ``w.select_passes == 1`` a float32 ``x`` is
     rounded to bfloat16 in the column select, as in ``bsr_matvec_plain``.
+    ``lanes`` overrides the plan's threads per row (a power of two up to
+    32); only the lanes sweep of ``chip_smoke.py`` sets it.
     """
-    _check("windowed_bsr_matvec", x, w.vals, (w.bc * w.NC_pad,))
-    if x.dtype != w.vals.dtype:
-        msg = f"windowed_bsr_matvec: x of {x.dtype}, plan of {w.vals.dtype}"
-        raise TypeError(msg)
-    if (w.br, w.bc) not in _BSR_SHAPES:
-        msg = f"windowed_bsr_matvec: blocks {w.br}x{w.bc} not in {_BSR_SHAPES}"
+    if w.blk is None:
+        msg = ("windowed_bsr_matvec: the plan has no row layout (row_ptr, col, blk) "
+               "for the CUDA kernel; build it with build_windowed_bsr")
         raise ValueError(msg)
-    if w.vals.numel() >= 2**31:
-        msg = "windowed_bsr_matvec: plan values overflow the kernel's 32-bit indices"
+    blk = w.blk
+    index = _check_call("windowed_bsr_matvec", x, blk, (w.bc * w.NC_pad,))
+    if x.dtype != blk.dtype:
+        msg = f"windowed_bsr_matvec: x of {x.dtype}, plan of {blk.dtype}"
+        raise TypeError(msg)
+    _check_plan_once(w, blk.data_ptr(), _bsr_invariants, w)
+    if lanes is None:
+        lanes = w.lanes
+    elif lanes not in _LANES:
+        msg = f"windowed_bsr_matvec: lanes must be in {_LANES}, got {lanes}"
         raise ValueError(msg)
     round_bf16 = int(w.select_passes == 1 and x.dtype == torch.float32)
-    y = torch.empty(w.br * w.NR_pad, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _entry("bsr", x.dtype)(
-            x.data_ptr(), w.loc.data_ptr(), w.vals.data_ptr(), w.jb.data_ptr(),
-            y.data_ptr(), w.br, w.bc, w.k, w.T_r, w.B, w.NC_pad, w.NR_pad,
-            round_bf16, _stream(x),
-        )
-    launch_check("window", rc)
+    y = x.new_empty(w.br * w.NR_pad)
+    _launch(_entry("bsr", x.dtype), index, x.data_ptr(), w.row_ptr.data_ptr(),
+            w.col.data_ptr(), blk.data_ptr(), y.data_ptr(), w.br, w.bc, w.NR_pad,
+            w.NC_pad, lanes.bit_length() - 1, round_bf16)
     launches["bsr_matvec"] += 1
     return y

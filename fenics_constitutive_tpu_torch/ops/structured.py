@@ -271,7 +271,7 @@ def _corner_offsets(gdim: int):
 
 
 def build_structured_geometry(
-    space, q_degree: int, constraint: Constraint, *, device, dtype: torch.dtype
+    space, q_degree: int, constraint: Constraint, *, device="cuda", dtype: torch.dtype
 ) -> StructuredGeometry:
     """Flat-index geometry for a box mesh from unit_cube_mesh('hex') /
     unit_square_mesh('quad') (requires mesh.structured_shape metadata)."""

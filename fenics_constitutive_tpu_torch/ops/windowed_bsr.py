@@ -13,9 +13,13 @@ operator is frozen into a plan of fixed row tiles:
   values, with the window start ``jb`` in units of ``_GRAN`` column nodes;
 * each row owns its output: the SpMV needs no scatter.
 
-On CUDA tensors ``matvec`` launches the hand-written kernel K6
-(``ops/cuda_window.py``); on CPU tensors it runs ``matvec_ref``, its plain
-version. ``select_passes=1`` rounds every gathered float32 ``x`` to bfloat16
+The plan carries the same operator twice. The windowed layout above
+(``loc``/``vals``/``jb``) is the JAX package's plan, bit for bit, and feeds
+``matvec_ref``, the plain version. The row layout (``row_ptr``/``col``/
+``blk``: the permuted BSR matrix, blocks in row order) feeds the CUDA kernel
+K6, which spreads each row's blocks over ``lanes`` threads. On CUDA tensors
+``matvec`` launches K6 (``ops/cuda_window.py``); on CPU tensors it runs
+``matvec_ref``. ``select_passes=1`` rounds every gathered float32 ``x`` to bfloat16
 (round to nearest even) before the product, as the AMG levels of the JAX
 package do; ``3`` is exact. float64 is never rounded.
 
@@ -26,48 +30,81 @@ Vector layout: component-major over permuted nodes, ``x[j*NC_pad + cnode]``
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["WindowedBsr", "build_windowed_bsr"]
+__all__ = ["WindowedBsr", "bsr_lanes", "build_windowed_bsr"]
 
 _W2 = 128  # column sub-tile width of the JAX package's plan
 _GRAN = 8 * _W2  # column window granule (1024 column nodes)
+#: blocks each K6 thread takes on a row of mean length, below the cap of a
+#: warp: one, which gives the best lanes, or lanes within 15% of the best,
+#: on every AMG level operator of the 35^3 tet bench (the sweep of
+#: chip_smoke.py phase 8 on an H100)
+_BLOCKS_PER_LANE = 1
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-max(x, 1) // m) * m
 
 
+def bsr_lanes(mean_blocks_per_row: float) -> int:
+    """Threads per row of K6 for a plan whose real rows hold this many
+    blocks on average: a power of two from 1 to 32 (a warp)."""
+    want = max(1, math.ceil(mean_blocks_per_row / _BLOCKS_PER_LANE))
+    return min(32, 1 << (want - 1).bit_length())
+
+
 class WindowedBsr(nn.Module):
     """y[br * NR_pad] = A @ x[bc * NC_pad], component-major node layouts.
 
-    Buffers:
+    Buffers of the windowed layout (the JAX package's plan; ``matvec_ref``):
       loc:  [B, k, T_r] int32 window-local col-node index per slot (-1 pad)
       vals: [B, k * br * bc, T_r] block entries, slot-major then (jr, jc)
       jb:   [B] int32 window start in ``_GRAN``-col-node granules
+    Buffers of the row layout (the kernel K6; None in a plan built without):
+      row_ptr: [NR_pad + 1] int32, the blocks of row node r are
+          ``row_ptr[r]:row_ptr[r + 1]`` (pad rows empty)
+      col:  [nnzb] int32 permuted col node of each block
+          (= ``jb[b] * _GRAN + loc[b, a, t]`` of its slot)
+      blk:  [nnzb, br * bc] block entries, rows in order, (jr, jc) within
+    ``lanes`` (``bsr_lanes`` of the mean blocks per real row) is K6's
+    threads per row.
     """
 
     loc: torch.Tensor
     vals: torch.Tensor
     jb: torch.Tensor
+    row_ptr: torch.Tensor | None
+    col: torch.Tensor | None
+    blk: torch.Tensor | None
 
     def __init__(self, *, loc, vals, jb, br: int, bc: int, k: int, T_r: int, P: int,
                  B: int, n_rnodes: int, n_cnodes: int, NR_pad: int, NC_pad: int,
-                 select_passes: int = 3):
+                 select_passes: int = 3, row_ptr=None, col=None, blk=None):
         super().__init__()
         if select_passes not in (1, 3):
             msg = f"select_passes must be 1 or 3, got {select_passes}"
             raise ValueError(msg)
+        if (row_ptr is None) != (col is None) or (col is None) != (blk is None):
+            msg = "row_ptr, col and blk come together or not at all"
+            raise ValueError(msg)
         self.register_buffer("loc", loc)
         self.register_buffer("vals", vals)
         self.register_buffer("jb", jb)
+        self.register_buffer("row_ptr", row_ptr)
+        self.register_buffer("col", col)
+        self.register_buffer("blk", blk)
         self.br, self.bc, self.k, self.T_r, self.P, self.B = br, bc, k, T_r, P, B
         self.n_rnodes, self.n_cnodes = n_rnodes, n_cnodes
         self.NR_pad, self.NC_pad = NR_pad, NC_pad
         #: 3 = exact; 1 = float32 x rounded to bfloat16 in the column select
         self.select_passes = select_passes
+        #: K6 threads per row (None without the row layout)
+        self.lanes = None if col is None else bsr_lanes(col.numel() / max(n_rnodes, 1))
 
     @property
     def n_rows(self) -> int:
@@ -189,6 +226,9 @@ def build_windowed_bsr(
         msg = "windowed BSR: a row tile's columns fall outside its window"
         raise RuntimeError(msg)
 
+    # the row layout of K6: the same blocks in row order, pad rows empty
+    row_ptr = np.concatenate([indptr, np.full(NR_pad - NRn, indptr[-1])])
+
     def dev(x, dt):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dt, device=device)
 
@@ -199,4 +239,7 @@ def build_windowed_bsr(
         br=br, bc=bc, k=k, T_r=T_r, P=P, B=B,
         n_rnodes=NRn, n_cnodes=NCn, NR_pad=NR_pad, NC_pad=NC_pad,
         select_passes=select_passes,
+        row_ptr=dev(row_ptr, torch.int32),
+        col=dev(indices, torch.int32),
+        blk=dev(data.reshape(-1, br * bc), dtype),
     )

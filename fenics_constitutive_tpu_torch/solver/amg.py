@@ -395,7 +395,7 @@ def build_amg(
     kappa: float,
     free_mask,
     *,
-    device,
+    device="cuda",
     dtype: torch.dtype,
     q_degree: int = 2,
     omega: float = 0.6,

@@ -309,7 +309,7 @@ def build_multigrid(
     kappa: float,
     free_mask=None,
     *,
-    device,
+    device="cuda",
     dtype: torch.dtype,
     omega: float = 0.6,
     nu: int = 2,

@@ -109,7 +109,7 @@ def _build_geometry(space, law, q_degree: int, engine: str, *, device, dtype):
 
 
 def build_packed_problem(
-    space, laws, q_degree: int, *, device, dtype: torch.dtype, engine: str = "auto"
+    space, laws, q_degree: int, *, device="cuda", dtype: torch.dtype, engine: str = "auto"
 ):
     """Geometry and zero initial state for one law, or several on cell subsets.
 

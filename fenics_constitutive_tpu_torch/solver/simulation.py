@@ -75,7 +75,8 @@ class PackedSimulation:
         f_ext: optional [ndofs] node-major external (Neumann) load vector,
             e.g. from ``fem.assemble_facet_traction``; the ``f_ext``
             attribute may be reassigned between steps.
-        device, dtype: where and in what type the state lives.
+        device, dtype: where and in what type the state lives; the card
+            ("cuda") unless the caller asks for the CPU.
         newton/cg options are forwarded to make_packed_step. By default a
             float32 state uses flexible CG with float64 dot products.
         mg_options: keyword overrides for build_multigrid or build_amg.
@@ -89,7 +90,7 @@ class PackedSimulation:
         q_degree: int,
         del_t: float = 1.0,
         *,
-        device,
+        device="cuda",
         dtype: torch.dtype,
         preconditioner: str | None = "auto",
         matvec_impl: str = "auto",

@@ -82,9 +82,12 @@ def test_simulation_auto_is_plain_off_the_card(box, mat):
                          device="cpu", dtype=torch.float64)
 
 
-@pytest.mark.parametrize("kernel", ["gather", "scatter", "bsr_matvec"])
+@pytest.mark.parametrize("kernel", ["gather", "scatter", "bsr_matvec", "bsr_matvec_bare"])
 def test_window_kernels_refuse_cpu_tensors(tets, kernel):
+    """Each wrapper raises instead of running its plain version; K6 also
+    refuses a plan without the row layout it reads ("bsr_matvec_bare")."""
     from fenics_constitutive_tpu_torch.ops import (
+        WindowedBsr,
         build_windowed_bsr,
         build_windowed_exchange,
         cuda_window,
@@ -100,11 +103,31 @@ def test_window_kernels_refuse_cpu_tensors(tets, kernel):
         import scipy.sparse as sp
 
         w = build_windowed_bsr(sp.eye(6), 3, 3, device="cpu", dtype=torch.float64)
+        if kernel == "bsr_matvec_bare":
+            w = WindowedBsr(loc=w.loc, vals=w.vals, jb=w.jb, br=3, bc=3, k=w.k, T_r=w.T_r,
+                            P=w.P, B=w.B, n_rnodes=w.n_rnodes, n_cnodes=w.n_cnodes,
+                            NR_pad=w.NR_pad, NC_pad=w.NC_pad)
         call = lambda: cuda_window.windowed_bsr_matvec(w, torch.zeros(3 * w.NC_pad,
                                                                       dtype=torch.float64))
     with pytest.raises(ValueError, match="CUDA"):
         call()
-    assert cuda_window.launches[kernel] == 0
+    assert cuda_window.launches[kernel.removesuffix("_bare")] == 0
+
+
+@pytest.mark.parametrize("entry", ["PackedSimulation", "build_packed_problem", "build_amg",
+                                   "build_multigrid", "build_structured_geometry"])
+def test_entry_points_default_to_the_card(entry):
+    """The entry points run on the card unless the caller asks for the CPU
+    (no fallback: without a card the default fails at the first allocation)."""
+    import inspect
+
+    from fenics_constitutive_tpu_torch import solver
+    from fenics_constitutive_tpu_torch.ops import structured
+
+    fn = getattr(solver, entry, None) or getattr(structured, entry)
+    param = inspect.signature(fn).parameters["device"]
+    assert param.kind is inspect.Parameter.KEYWORD_ONLY
+    assert param.default == "cuda"
 
 
 def test_import_and_build_never_call_nvcc(box, tets, mat, monkeypatch):
