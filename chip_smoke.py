@@ -10,11 +10,15 @@ exits non-zero before the last line:
   2. build: compiles the four sources of ``fenics_constitutive_tpu_torch/csrc``
      (matvec, eval, window, smoother), one nvcc each, started together, and
      prints the build seconds and register use.
-  3. K1, the fused CG operator, against its plain PyTorch version at the
-     benchmark size (50^3 hexes, M = 51^3 flat nodes) with a plastic
-     tangent, in float64 and float32, and both times.
+  3. K1, the fused CG operator (one launch that writes the node values),
+     against its plain PyTorch version at the benchmark size (50^3 hexes,
+     M = 51^3 flat nodes) with a plastic tangent, in float64 and float32,
+     bit-equal across two launches; its call time, its kernel's time on the
+     card (torch.profiler), its device ops per apply (must be 1), and a
+     sweep of the node brick one block owns.
   4. K2, the fused VonMises3D eval + assembly, against its plain version at
-     50^3 from a plastic pre-state, every output, float64 and float32.
+     50^3 from a plastic pre-state, every output, float64 and float32; its
+     call time and its kernel's time on the card.
   5. the benchmark workload on the port (1M quadrature points, float32,
      max_newton=1, fixed-9 CG, V(3,3) multigrid with a direct coarse solve,
      both kernels): three warm-up load steps, a timed window of 48 steps,
@@ -62,20 +66,33 @@ padded quadrature points):
 The fused multigrid smoothing chains (K3) and the box-mesh entry point
 around them:
 
- 11. K3 against its plain version on every level of the 50^3 hierarchy
-     (levels 0-3: the pre chain, nu sweeps and the residual, and the post
-     chain, nu = 3 on level 0 and 2 below; level 4: the coarse chain of 20
-     sweeps, from a hierarchy without the direct coarse solve), float64 and
-     float32: per-chain errors, bit-equality of two launches, kernel and
-     plain times; then the whole fused V-cycle against the unfused one.
+ 11. K3 against its plain twins, float64 and float32, each call bit-equal
+     across two launches: every chain of the 50^3 hierarchy (levels 0-3: the
+     pre chain, nu sweeps and the residual, and the post chain, nu = 3 on
+     level 0 and 2 below; level 4: the coarse chain of 20 sweeps, from a
+     hierarchy without the direct coarse solve), one launch each; every entry
+     of one fused V-cycle there (pre_restrict and prolong_post on the levels
+     above the one-block tail, the tail) with its call time, kernel time on
+     the card and bound; the same entries and the whole cycle on an
+     11 x 10 x 10 box (non-nested transfers); the device ops of one fused
+     V-cycle at 50^3 (torch.profiler; fails above 8); the fused V-cycle
+     against the unfused one.
  12. phase 5's workload with fused_smoothing=True: the same warm-up and 48
      steps, the deep fixed-40 re-run with the same preconditioner, ms/step
-     beside phase 5's, the V-cycle fused against unfused, K3 launches.
+     beside phase 5's, the V-cycle fused against unfused, K3 launches per
+     entry.
  13. PackedSimulation on scripts/ab_multimat.py's two-law 50^3 box (linear
      elasticity below z = 0.5, VonMises3D above; float64, V-cycle with the
      K3 chains): solve_schedule over 3 steps of 0.0004 k, a checkpoint round
      trip into a second simulation (one more step on both, bit-equal), and a
      traction on the x = 1 face with symmetry planes and max_subdivisions=2.
+
+A kernel's time on the card and a device-op count come from torch.profiler.
+CUPTI now and then delivers a short profile on the H100, so such a profile
+is taken again, three times in all; after that the time is taken by CUDA
+events behind a sleep kernel (gated_ms) and the ops other than the port's
+kernels are counted as aten ops (aten_device_ops). A line before the JSON
+says how often that happened.
 
 Then one JSON line of per-kernel results (launches on the path's run,
 times, plain and library times, the bound) and, last, the device JSON line.
@@ -87,11 +104,18 @@ fused V-cycle, and 3 steps of the general-tet bench (torch.profiler: device
 time per step, busy share, device ops per step, the costliest kernels), and
 prints no JSON.
 
+    python3 chip_smoke.py --profiler-check
+
+instead counts the short profiles torch.profiler delivers for the fused
+V-cycle's K3 entries, compares their times by the profiler and by gated_ms,
+and counts one V-cycle's device ops both ways, and prints no JSON.
+
     python3 chip_smoke.py --ab PARENT CHANGE
 
-runs phases 7-9 from two checkouts of the repository (e.g. `git archive`s
-of the parent commit and of the change) in turns, parent, change, change,
-parent, each in its own process on the same card, and prints no JSON.
+runs phases 3, 11 and 12, the box profile, and phases 7-9 from two
+checkouts of the repository (e.g. `git archive`s of the parent commit and of
+the change) in turns, parent, change, change, parent, each in its own
+process on the same card, and prints no JSON.
 """
 
 from __future__ import annotations
@@ -205,25 +229,67 @@ def device_events(prof) -> list:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms: the kernels it ran on the card, by
-    torch.profiler (the launch path on the host is not in it). A profile
-    that holds no device event at all (CUPTI delivered none, seen once in
-    some hundred short profiles on the H100) is taken again, twice at most."""
+#: profiles that torch.profiler delivered empty or short, and the measures
+#: that fell back to another clock or count for that reason (printed at the end)
+PROFILER_MISSES = {"profiles": 0, "fallbacks": 0}
+
+
+def profiled(fn, iters: int, complete=bool, tries: int = 3):
+    """The device events of a profile of `iters` calls of fn(), or None.
+
+    CUPTI now and then delivers a short profile on the H100 (no device event
+    at all, or fewer kernel events than launches; ``--profiler-check``
+    counts them), once three empty ones in a row. So a profile for which
+    ``complete(events)`` is false is taken again after a pause, `tries`
+    times in all."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(tries):
+        time.sleep(0.2 * attempt * attempt)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in device_events(prof))
-        if total > 0:
-            return total / 1e3 / iters
-    fail("torch.profiler saw no device time in three profiles")
+        evs = device_events(prof)
+        if complete(evs):
+            return evs
+        PROFILER_MISSES["profiles"] += 1
+    return None
+
+
+def gated_ms(fn, iters: int = 20) -> float:
+    """Mean device time of fn() in ms by CUDA events, with the launch path
+    hidden: a sleep kernel holds the stream while the host queues the events
+    and the calls, so the card runs them back to back. (On the H100 it reads
+    within 1.5 us per call of the profiler's kernel time.)"""
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (2 * host_s + 1e-3)))  # ~2 GHz clock: twice the host time
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms: the kernels it ran on the card, by
+    torch.profiler (the launch path on the host is not in it), or by
+    gated_ms where the profiler delivered no device event in three tries."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    evs = profiled(fn, iters)
+    if evs is None:
+        PROFILER_MISSES["fallbacks"] += 1
+        return gated_ms(fn, iters)
+    return sum(e.self_device_time_total for e in evs) / 1e3 / iters
 
 
 def bench_bcs(V):
@@ -311,6 +377,10 @@ def plastic_tangent(geo, law, rng, amp):
     return law.evaluate_packed(0.0, 1.0, eps, zeros, hist)
 
 
+#: the node bricks phase 3 sweeps (b0 x b1 x b2, z fastest)
+K1_BRICKS = ((8, 8, 13), (4, 8, 13), (4, 4, 13), (4, 4, 17), (4, 8, 17), (8, 4, 17))
+
+
 def phase_k1(results: dict) -> None:
     from fenics_constitutive_tpu_torch.models import Constraint, VonMises3D
     from fenics_constitutive_tpu_torch.ops import cuda_matvec
@@ -328,17 +398,24 @@ def phase_k1(results: dict) -> None:
             fail("K1 test tangent is not plastic")
         v = torch.as_tensor(rng.normal(size=V.ndofs), dtype=dtype, device="cuda")
         mv = cuda_matvec.build_cuda_matvec(geo)
-        r_k = mv(v, tg)
+        r_k, r_k2 = mv(v, tg), mv(v, tg)
         torch.cuda.synchronize()
         r_p = cuda_matvec.matvec_plain(geo, v, tg)
         if not torch.isfinite(r_k).all():
             fail("K1 returned non-finite values")
+        if not torch.equal(r_k, r_k2):
+            fail(f"K1 {dtype} differs between two launches")
         err, rel = normwise(r_k, r_p)
-        line.append(f"{str(dtype)[6:]} max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g})")
+        line.append(f"{str(dtype)[6:]} max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:g}), "
+                    "bit-equal across two launches")
         if rel > tol:
             fail(f"K1 {dtype} disagrees with the plain version: rel {rel:.3e} > {tol:g}")
         if dtype == torch.float32:
             ms = cuda_ms(lambda: mv(v, tg))
+            dev = device_ms(lambda: mv(v, tg))
+            k1_launches, others, counted = kernel_ops(lambda: mv(v, tg), cuda_matvec,
+                                                      ("matvec_kernel",))
+            ops = k1_launches + others
             plain_ms = cuda_ms(lambda: cuda_matvec.matvec_plain(geo, v, tg))
             # u -> r: u, beta, gamma [8, M], n [48, M], mask in; r out. Per
             # valid cell the strain and divergence products (2 x 1152
@@ -347,9 +424,24 @@ def phase_k1(results: dict) -> None:
             bound, by = bound_ms(4 * (3 + 8 + 8 + 48 + 1 + 3) * M,
                                  cells * (4 * 1152 + 8 * 40) + 21 * M, dtype)
             results["K1"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": bound, "bound_by": by, "library_ms": None}
-            line.append(f"f32 {ms:.4f} ms/apply vs plain {plain_ms:.4f} ms "
+                             "bound_ms": bound, "bound_by": by, "library_ms": None,
+                             "device_ms": dev, "device_ops": ops}
+            line.append(f"f32 {ms:.4f} ms/apply (kernel on the card {dev:.4f}, {ops:g} device "
+                        f"ops per apply, other ops by the {counted}) vs plain {plain_ms:.4f} ms "
                         f"(bound {bound:.4f} ms, {by})")
+            if ops != 1:
+                fail(f"K1 takes {ops:g} device ops per apply, expected 1")
+        # the node bricks of one block, each checked: kernel ms on the card
+        sweep = {}
+        for b in K1_BRICKS:
+            mv_b = cuda_matvec.build_cuda_matvec(geo, brick_nodes=b)
+            if normwise(mv_b(v, tg), r_p)[1] > tol:
+                fail(f"K1 {dtype} with the brick {b} disagrees with the plain version")
+            sweep[b] = device_ms(lambda mv_b=mv_b: mv_b(v, tg), iters=10)
+        rule = cuda_matvec.brick((geo.grid[0] + 1, geo.grid[1] + 1, geo.grid[2] + 1))
+        line.append(f"{str(dtype)[6:]} brick sweep, kernel ms on the card (rule {rule}, best "
+                    f"{min(sweep, key=sweep.get)}): "
+                    + ", ".join(f"{'x'.join(map(str, b))} {t:.4f}" for b, t in sweep.items()))
     print("phase 3 K1 vs plain at 50^3: " + "; ".join(line))
 
 
@@ -394,6 +486,7 @@ def phase_k2(results: dict) -> None:
             fail(f"K2 {dtype} disagrees with the plain version: rel {worst:.3e} > {tol:g}")
         if dtype == torch.float32:
             ms = cuda_ms(lambda: fused(du, sig1, hist1))
+            dev = device_ms(lambda: fused(du, sig1, hist1))
             plain_ms = cuda_ms(lambda: cuda_eval.eval_plain(geo, law, du, sig1, hist1))
             err_f, _ = normwise(out_k[0], out_p[0])
             # du, stress, eps_n, alpha, mask in (108 M values); F, stress,
@@ -403,9 +496,10 @@ def phase_k2(results: dict) -> None:
             M, cells = geo.M, float(geo.mask.sum())
             bound, by = bound_ms(4 * 300 * M, cells * (4 * 1152 + 8 * 100), dtype)
             results["K2"] = {"max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": bound, "bound_by": by, "library_ms": None}
-            print(f"phase 4 K2 f32 time: {ms:.4f} ms/call vs plain {plain_ms:.4f} ms "
-                  f"(bound {bound:.4f} ms, {by})")
+                             "bound_ms": bound, "bound_by": by, "library_ms": None,
+                             "device_ms": dev}
+            print(f"phase 4 K2 f32 time: {ms:.4f} ms/call (kernel on the card {dev:.4f}) vs "
+                  f"plain {plain_ms:.4f} ms (bound {bound:.4f} ms, {by})")
 
 
 def bench_setup(n: int, dtype, device, fused: bool = False):
@@ -501,8 +595,7 @@ def phase_bench(results: dict) -> dict:
     ev1.record()
     ev1.synchronize()
     host_s = time.perf_counter() - h0
-    counts = read_counts()
-    del counts["K3"]  # the unfused V-cycle launches no K3
+    counts = {k: v for k, v in read_counts().items() if not k.startswith("K3")}
     ms_step = ev0.elapsed_time(ev1) / K
     if not (torch.isfinite(probes).all() and torch.isfinite(out_state.u).all()):
         fail("bench run produced non-finite values")
@@ -539,12 +632,16 @@ def reset_counts() -> None:
     from fenics_constitutive_tpu_torch.ops import cuda_eval, cuda_matvec, cuda_smoother
 
     cuda_matvec.launches = cuda_eval.launches = cuda_smoother.launches = 0
+    for key in cuda_smoother.entry_launches:
+        cuda_smoother.entry_launches[key] = 0
 
 
 def read_counts() -> dict:
+    """K1-K3 launches since reset_counts(), and K3's per V-cycle entry."""
     from fenics_constitutive_tpu_torch.ops import cuda_eval, cuda_matvec, cuda_smoother
 
-    return {"K1": cuda_matvec.launches, "K2": cuda_eval.launches, "K3": cuda_smoother.launches}
+    return {"K1": cuda_matvec.launches, "K2": cuda_eval.launches, "K3": cuda_smoother.launches,
+            **{f"K3_{kind}": cuda_smoother.entry_launches[kind] for kind in K3_ENTRIES}}
 
 
 def phase_bench_fused(box_bench: dict) -> dict:
@@ -584,7 +681,8 @@ def phase_bench_fused(box_bench: dict) -> dict:
           f"steps (phase 5, unfused, same call: {box_bench['ms_step']:.3f} ms/step), r_norm "
           f"{r_settled:.4f} vs deep fixed-40 {r_ref:.4f} (envelope {R_NORM_ENVELOPE}); V-cycle "
           f"fused {t_f1:.3f}/{t_f2:.3f} ms vs unfused {t_p1:.3f}/{t_p2:.3f} ms; launches "
-          f"K1 {counts['K1']} K2 {counts['K2']} K3 {counts['K3']}")
+          f"K1 {counts['K1']} K2 {counts['K2']} K3 {counts['K3']} ("
+          + ", ".join(f"{kind} {counts['K3_' + kind]}" for kind in K3_ENTRIES) + ")")
     if r_settled > R_NORM_ENVELOPE * r_ref:
         fail(f"fused settled r_norm {r_settled:.4f} exceeds {R_NORM_ENVELOPE} x {r_ref:.4f}")
     for name, c in counts.items():
@@ -1126,18 +1224,21 @@ def phase_tet_simulation(tet: dict) -> None:
 
 
 def chain_cost(chain) -> tuple[float, float]:
-    """(bytes, flops) one call of a K3 chain needs: b, inv_d, mask (and x)
-    read once, x (and r) written once; per operator apply 24 x 24
-    multiply-adds on each valid cell, per sweep 3 operations per dof."""
-    geo, nu = chain.geo, chain.nu
-    M, size = geo.M, chain.inv_d.element_size()
-    vecs_in = 2 + (0 if chain.zero_start else 1)
-    vecs_out = 1 + int(chain.emit_residual)
-    nbytes = ((vecs_in + vecs_out) * 3 * M + M + 576) * size
-    applies = nu if not chain.zero_start else max(nu - 1, 0) + int(chain.emit_residual)
-    sweeps = nu - int(chain.zero_start)
-    cells = float(chain.mask.sum())
-    return nbytes, applies * cells * 576 * 2 + sweeps * 3 * M * 3
+    """(bytes, flops) one call of a K3 chain needs: b, the level data (and x)
+    read once, x (and r) written once; per operator apply the 27-point stencil
+    of 3 x 3 blocks on every node (243 multiply-adds), per sweep 3
+    operations per dof."""
+    M, size = chain.geo.M, chain.inv_d.element_size()
+    vecs = 1 + (0 if chain.zero_start else 1) + 1 + int(chain.emit_residual)
+    nbytes = vecs * 3 * M * size + level_bytes(chain)
+    sweeps = max(chain.nu - 1, 0) if chain.zero_start else chain.nu
+    applies = sweeps + int(chain.emit_residual)
+    return nbytes, applies * M * 486.0 + sweeps * 3 * M * 3
+
+
+def level_bytes(chain) -> int:
+    """What a K3 kernel reads of a level: inv_d, the pattern ids and stencils."""
+    return sum(t.numel() * t.element_size() for t in (chain.inv_d, chain.pid, chain.st))
 
 
 def k3_chains(mg, mg_coarse):
@@ -1150,78 +1251,248 @@ def k3_chains(mg, mg_coarse):
     return out
 
 
+#: the entries of the fused V-cycle, as the kernels JSON line names them
+K3_ENTRIES = {"pre_restrict": "fused_smoother_pre_restrict",
+              "tail": "fused_smoother_tail",
+              "prolong_post": "fused_smoother_prolong_post"}
+
+
+def k3_entries(fc, b0: torch.Tensor, first: int | None = None):
+    """Every K3 entry one fused V-cycle from b0 runs, in its order, with the
+    inputs the cycle gives it (taken from the plain twins): (label, kind,
+    kernel call, plain call, (bytes, flops)). ``first``: the tail's first
+    level (default: the card's rule)."""
+    first = fc.tail_start(b0.device) if first is None else first
+    vec = b0.element_size() * 3
+    out, xs, bs, b = [], [], [], b0
+    for lvl in range(first):
+        pre, M, Mc = fc.chains[lvl]["pre"], fc._chain(lvl).geo.M, fc._chain(lvl + 1).geo.M
+        x, bc = fc.pre_restrict_plain(lvl, b)
+        cost = (level_bytes(pre) + vec * (2 * M + Mc),
+                pre.nu * M * 486.0 + (pre.nu - 1) * 9 * M + 27 * 2 * 3 * Mc)
+        out.append((f"L{lvl} pre_restrict", "pre_restrict",
+                    lambda lvl=lvl, b=b: fc.pre_restrict(lvl, b),
+                    lambda lvl=lvl, b=b: fc.pre_restrict_plain(lvl, b), cost))
+        xs.append(x)
+        bs.append(b)
+        b = bc
+    xc = fc.plain(b, first)
+    nbytes = vec * 2 * fc._chain(first).geo.M + sum(
+        level_bytes(fc._chain(t)) for t in range(first, fc.n_levels))
+    flops = 0.0
+    for t in range(first, fc.n_levels - 1):
+        c, M = fc._chain(t), fc._chain(t).geo.M
+        flops += (2 * c.nu * M * 486.0 + 2 * c.nu * 9 * M + 27 * 2 * 3 * fc._chain(t + 1).geo.M
+                  + 16 * 3 * M)
+    Nc = 3 * fc._chain(fc.n_levels - 1).geo.M
+    if fc.coarse_inv is not None:
+        nbytes += fc.coarse_inv.numel() * fc.coarse_inv.element_size()
+        flops += 2.0 * Nc * Nc
+    else:
+        flops += fc.chains[-1]["coarse"].nu * (Nc / 3) * 486.0
+    out.append((f"L{first}-{fc.n_levels - 1} tail", "tail",
+                lambda b=b: fc.tail(b, first), lambda b=b: fc.plain(b, first), (nbytes, flops)))
+    for lvl in reversed(range(first)):
+        post, M = fc.chains[lvl]["post"], fc._chain(lvl).geo.M
+        cost = (level_bytes(post) + vec * (3 * M + fc._chain(lvl + 1).geo.M),
+                post.nu * M * 486.0 + post.nu * 9 * M + 16 * 3 * M)
+        out.append((f"L{lvl} prolong_post", "prolong_post",
+                    lambda lvl=lvl, x=xs[lvl], b=bs[lvl], xc=xc: fc.prolong_post(lvl, x, b, xc),
+                    lambda lvl=lvl, x=xs[lvl], b=bs[lvl], xc=xc: fc.prolong_post_plain(
+                        lvl, x, b, xc), cost))
+        xc = fc.prolong_post_plain(lvl, xs[lvl], bs[lvl], xc)
+    return out
+
+
+def check_k3(label: str, kernel, plain, dtype, tol) -> tuple[float, float]:
+    """A K3 call against its plain twin: finite, bit-equal across two
+    launches, within tol normwise. Returns (max abs error, worst rel)."""
+    out1, out2, ref = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    if isinstance(ref, torch.Tensor):
+        out1, out2, ref = (out1,), (out2,), (ref,)
+    worst_abs = worst = 0.0
+    for got, again, want in zip(out1, out2, ref):
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"K3 {label} {dtype}: shape {tuple(got.shape)} vs {tuple(want.shape)} or "
+                 "non-finite values")
+        if not torch.equal(got, again):
+            fail(f"K3 {label} {dtype} differs between two launches")
+        err, rel = normwise(got, want)
+        if rel > tol:
+            fail(f"K3 {label} {dtype}: rel {rel:.3e} > {tol:g}")
+        worst_abs, worst = max(worst_abs, err), max(worst, rel)
+    return worst_abs, worst
+
+
+#: the most device ops one fused V-cycle on the 50^3 hierarchy may take
+K3_VCYCLE_OPS = 8
+
+
+#: aten ops that do no work on the card (allocations, views, aliases)
+NO_DEVICE_WORK = ("aten.empty", "aten.new_empty", "aten.detach", "aten.alias",
+                  "aten.lift_fresh", "aten._reshape_alias")
+
+
+def aten_device_ops(fn) -> int:
+    """The aten ops one call of fn() dispatches that do work on the card
+    (every op but views, allocations and aliases), counted on the host."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not (func.is_view or str(func).startswith(NO_DEVICE_WORK)):
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        fn()
+    return count.n
+
+
+def kernel_ops(fn, module, kernels: tuple, iters: int = 10) -> tuple[float, float, str]:
+    """(launches, other device ops, how the others were counted) per call of
+    fn(): the launches of the kernels named ``kernels`` by
+    ``module.launches``, the wrappers' counter, and every other op (kernels,
+    copies, fills) by torch.profiler, from a profile that holds an event for
+    each of those launches. Where three profiles lack some (see profiled),
+    the other ops are the aten ops that do device work (aten_device_ops)."""
+    fn()
+    before = module.launches
+    fn()
+    launches = module.launches - before
+    torch.cuda.synchronize()
+
+    def ours(evs):
+        return sum(e.count for e in evs if short_name(e.key).startswith(kernels))
+
+    evs = profiled(fn, iters, lambda evs: ours(evs) == iters * launches)
+    if evs is None:
+        PROFILER_MISSES["fallbacks"] += 1
+        return launches, aten_device_ops(fn), "aten ops"
+    return launches, sum(e.count for e in evs) / iters - launches, "profiler"
+
+
 def phase_k3(results: dict) -> None:
-    """K3 against its plain version on every level of the 50^3 hierarchy, and
-    the fused V-cycle against the unfused one."""
+    """K3 against its plain twins on the 50^3 hierarchy (every chain, and
+    every entry of the fused V-cycle) and on an 11 x 10 x 10 box (non-nested
+    transfers), float64 and float32; the device ops of one fused V-cycle; the
+    fused V-cycle against the unfused one."""
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace, unit_cube_mesh
     from fenics_constitutive_tpu_torch.models import Constraint
+    from fenics_constitutive_tpu_torch.ops import cuda_smoother
     from fenics_constitutive_tpu_torch.ops.structured import build_structured_geometry
     from fenics_constitutive_tpu_torch.solver import build_multigrid
 
     V, bcs = box(N_BENCH)
     free = torch.as_tensor(free_mask(V, bcs))
+    V_s = FunctionSpace(unit_cube_mesh(11, 10, 10, "hex"), 1, 3)
+    free_s = torch.as_tensor(free_mask(V_s, bench_bcs(V_s)))
     mg_opts = dict(nu=3, nu_coarse=2)
     for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32_K1)):
         geo = build_structured_geometry(V, 2, Constraint.FULL, device="cuda", dtype=dtype)
 
-        def mg_of(**kw):
-            return build_multigrid(geo, MU, KAPPA, free, device="cuda", dtype=dtype,
+        def mg_of(g=geo, fr=free, **kw):
+            return build_multigrid(g, MU, KAPPA, fr, device="cuda", dtype=dtype,
                                    **mg_opts, **kw)
 
         mg = mg_of(coarse_direct=True, fused_smoothing=True)
         mg_coarse = mg_of(coarse_direct=False, fused_smoothing=True)
         mg_plain = mg_of(coarse_direct=True)
         rng = np.random.default_rng(3)
-        parts, worst_abs = [], 0.0
-        k_ms = p_ms = b_ms = 0.0
-        b_flops = b_bytes = 0.0
+        parts = []
         for label, chain in k3_chains(mg, mg_coarse):
             n = chain.inv_d.numel()
             fr = (chain.inv_d != 0).to(dtype)
             b = torch.as_tensor(rng.normal(size=n), dtype=dtype, device="cuda") * fr
             x = torch.as_tensor(rng.normal(size=n) * 1e-5, dtype=dtype, device="cuda") * fr
             args = (b,) if chain.zero_start else (x, b)
-            out1, out2 = chain(*args), chain(*args)
-            ref = chain.plain(*args)
-            torch.cuda.synchronize()
-            if not chain.emit_residual:
-                out1, out2, ref = (out1,), (out2,), (ref,)
-            rels = []
-            for got, again, want in zip(out1, out2, ref):
-                if not torch.isfinite(got).all():
-                    fail(f"K3 {label} {dtype} returned non-finite values")
-                if not torch.equal(got, again):
-                    fail(f"K3 {label} {dtype} differs between two launches")
-                err, rel = normwise(got, want)
-                rels.append(rel)
-                if rel > tol:
-                    fail(f"K3 {label} {dtype}: rel {rel:.3e} > {tol:g}")
-                if dtype == torch.float32:
-                    worst_abs = max(worst_abs, err)
-            ms = cuda_ms(lambda: chain(*args))
-            pms = cuda_ms(lambda: chain.plain(*args))
-            nbytes, flops = chain_cost(chain)
-            bound, by = bound_ms(nbytes, flops, dtype)
-            parts.append(f"{label} (nu {chain.nu}, M {chain.geo.M}) rel "
-                         + "/".join(f"{r:.1e}" for r in rels)
-                         + f" {ms:.4f} ms vs plain {pms:.4f} (bound {bound:.4f} {by})")
-            if "coarse" not in label:  # the chains one V-cycle with coarse_direct runs
-                k_ms, p_ms = k_ms + ms, p_ms + pms
-                b_bytes, b_flops = b_bytes + nbytes, b_flops + flops
+            _, rel = check_k3(label, lambda: chain(*args), lambda: chain.plain(*args), dtype,
+                              tol)
+            part = f"{label} (nu {chain.nu}, M {chain.geo.M}) rel {rel:.1e}"
+            if dtype == torch.float32:
+                ms = cuda_ms(lambda: chain(*args))
+                bound, by = bound_ms(*chain_cost(chain), dtype)
+                part += f" {ms:.4f} ms (bound {bound:.4f} {by})"
+            parts.append(part)
+        print(f"phase 11 K3 chains vs plain at {N_BENCH}^3 {str(dtype)[6:]} (tol {tol:g}; one "
+              f"launch each, bit-equal across two): " + "; ".join(parts))
+
+        # the fused V-cycle's entries, on the 50^3 hierarchy and the small box
         r = torch.as_tensor(np.random.default_rng(2).normal(size=V.ndofs), dtype=dtype,
                             device="cuda")
+        fc = mg.fused_cycle
+        parts, agg = [], {}
+        for label, kind, kernel, plain, cost in k3_entries(fc, r):
+            err, rel = check_k3(label, kernel, plain, dtype, tol)
+            part = f"{label} rel {rel:.1e}"
+            if dtype == torch.float32:
+                t = {"ms": cuda_ms(kernel), "device_ms": device_ms(kernel),
+                     "plain_ms": cuda_ms(plain)}
+                bound, by = bound_ms(*cost, dtype)
+                part += (f" {t['ms']:.4f} ms (on the card {t['device_ms']:.4f}) vs plain "
+                         f"{t['plain_ms']:.4f} (bound {bound:.4f} {by})")
+                a = agg.setdefault(kind, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                          "device_ms": 0.0, "bytes": 0.0, "flops": 0.0})
+                a["max_abs_err"] = max(a["max_abs_err"], err)
+                for key in ("ms", "plain_ms", "device_ms"):
+                    a[key] += t[key]
+                a["bytes"] += cost[0]
+                a["flops"] += cost[1]
+            parts.append(part)
+        if dtype == torch.float32:
+            # the tail-start rule's choice against one level lower, on the card
+            first = fc.tail_start(r.device)
+            if first + 1 < fc.n_levels:
+                alt = {label: device_ms(kernel) for label, _, kernel, _, _ in
+                       k3_entries(fc, r, first=first + 1)[first:first + 3]}
+                parts.append(f"tail from level {first} {agg['tail']['device_ms']:.4f} ms on the "
+                             f"card vs level {first} as two cooperative launches and the tail "
+                             f"from {first + 1}: " + " + ".join(
+                                 f"{label} {t:.4f}" for label, t in alt.items())
+                             + f" = {sum(alt.values()):.4f} ms")
+        geo_s = build_structured_geometry(V_s, 2, Constraint.FULL, device="cuda", dtype=dtype)
+        mg_s = mg_of(geo_s, free_s, coarse_direct=True, fused_smoothing=True)
+        fc_s = mg_s.fused_cycle
+        r_s = torch.as_tensor(np.random.default_rng(4).normal(size=V_s.ndofs), dtype=dtype,
+                              device="cuda")
+        for label, _, kernel, plain, _ in k3_entries(fc_s, r_s, first=1):
+            _, rel = check_k3(f"11x10x10 {label}", kernel, plain, dtype, tol)
+            parts.append(f"11x10x10 {label} rel {rel:.1e}")
+        _, rel = check_k3("11x10x10 V-cycle", lambda: mg_s(r_s), lambda: fc_s.plain(r_s), dtype,
+                          tol)
+        _, rel_u = normwise(mg_s(r_s), mg_of(geo_s, free_s, coarse_direct=True)(r_s))
+        parts.append(f"11x10x10 V-cycle ({fc_s.node_grids}, tail from level "
+                     f"{fc_s.tail_start(r_s.device)}) rel {rel:.1e}, vs unfused {rel_u:.1e}")
+        if rel_u > tol:
+            fail(f"the fused V-cycle on the 11x10x10 box {dtype} disagrees with the unfused "
+                 f"one: {rel_u:.3e}")
+
+        k3_launches, others, counted = kernel_ops(lambda: mg(r), cuda_smoother,
+                                                  ("chain_kernel", "tail_kernel"))
+        ops = k3_launches + others
         z_f, z_p = mg(r), mg_plain(r)
         _, rel_v = normwise(z_f, z_p)
         vf_ms = cuda_ms(lambda: mg(r), iters=10)
         vp_ms = cuda_ms(lambda: mg_plain(r), iters=10)
-        print(f"phase 11 K3 vs plain at {N_BENCH}^3 {str(dtype)[6:]} (tol {tol:g}; bit-equal across "
-              f"two launches): " + "; ".join(parts)
-              + f"; V-cycle fused vs unfused rel {rel_v:.2e}, {vf_ms:.3f} ms vs {vp_ms:.3f} ms")
+        print(f"phase 11 K3 fused V-cycle entries vs plain {str(dtype)[6:]} (tol {tol:g}; "
+              f"bit-equal across two launches; tail from level {fc.tail_start(r.device)}): "
+              + "; ".join(parts) + f"; V-cycle at {N_BENCH}^3 {ops:g} device ops ({k3_launches:g} "
+              f"K3 launches, {others:g} other ops by the {counted}; limit {K3_VCYCLE_OPS}), fused "
+              f"vs unfused rel "
+              f"{rel_v:.2e}, {vf_ms:.3f} ms vs {vp_ms:.3f} ms")
         if rel_v > tol:
             fail(f"the fused V-cycle {dtype} disagrees with the unfused one: {rel_v:.3e}")
+        if ops > K3_VCYCLE_OPS:
+            fail(f"one fused V-cycle takes {ops:g} device ops, more than {K3_VCYCLE_OPS}")
         if dtype == torch.float32:
-            bound, by = bound_ms(b_bytes, b_flops, dtype)
-            results["K3"] = {"max_abs_err": worst_abs, "ms": k_ms, "plain_ms": p_ms,
-                             "bound_ms": bound, "bound_by": by, "library_ms": None}
+            for kind, a in agg.items():
+                bound, by = bound_ms(a.pop("bytes"), a.pop("flops"), dtype)
+                results[f"K3_{kind}"] = {**a, "bound_ms": bound, "bound_by": by,
+                                         "library_ms": None}
+            results["K3_vcycle"] = {"ops": ops, "ms": vf_ms, "unfused_ms": vp_ms}
 
 
 def timed(label: str, fn, *args):
@@ -1251,6 +1522,8 @@ def main() -> None:
     fused_bench = timed("phase 12", phase_bench_fused, box_bench)
     with tempfile.TemporaryDirectory() as tmp:
         timed("phase 13", phase_multimat, Path(tmp))
+    print(f"profiler: {PROFILER_MISSES['profiles']} short profiles taken again, "
+          f"{PROFILER_MISSES['fallbacks']} measures by the fallback (gated_ms, aten_device_ops)")
     counts = box_bench["counts"]
     src = "fenics_constitutive_tpu_torch/csrc/"
     kernels = [
@@ -1260,9 +1533,10 @@ def main() -> None:
         {"name": "fused_eval", "route": "cuda", "source": src + "eval.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_eval.py:52",
          "launches": counts["K2"], **results["K2"]},
-        {"name": "fused_smoother", "route": "cuda", "source": src + "smoother.cu",
-         "replaces": "fenics_constitutive_tpu/ops/pallas_smoother.py:38",
-         "launches": fused_bench["counts"]["K3"], **results["K3"]},
+        *({"name": name, "route": "cuda", "source": src + "smoother.cu",
+           "replaces": "fenics_constitutive_tpu/ops/pallas_smoother.py:38",
+           "launches": fused_bench["counts"][f"K3_{kind}"], **results[f"K3_{kind}"]}
+          for kind, name in K3_ENTRIES.items()),
         {"name": "windowed_gather", "route": "cuda", "source": src + "window.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:89",
          "launches": tet_counts["gather"], **results["K4"]},
@@ -1290,8 +1564,6 @@ def profile_steps(label: str, run, K: int) -> None:
     """torch.profiler over run(), which takes K load steps: device time per
     step against the same call's CUDA-event ms/step (unprofiled), device ops
     per step and the costliest kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
     run()  # warm
     torch.cuda.synchronize()
     ev0 = torch.cuda.Event(enable_timing=True)
@@ -1301,10 +1573,9 @@ def profile_steps(label: str, run, K: int) -> None:
     ev1.record()
     ev1.synchronize()
     ms_step = ev0.elapsed_time(ev1) / K
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    evs = device_events(prof)
+    evs = profiled(run, 1)
+    if evs is None:
+        fail(f"profile {label}: torch.profiler delivered no device event in three profiles")
     dev_ms = sum(e.self_device_time_total for e in evs) / 1e3 / K
     launches = sum(e.count for e in evs) / K
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
@@ -1346,14 +1617,60 @@ def profile_tet() -> None:
                   lambda: run_schedule(step, models, st.clone(), args, scales), K)
 
 
-#: phases 7-9 as both the parent commit's and this script's checkouts have them
+def profiler_check(reps: int = 25, iters: int = 20) -> None:
+    """``--profiler-check``: how often torch.profiler delivers a short
+    profile of `iters` calls, for each K3 entry of the fused V-cycle at 50^3
+    (float32) and for one torch op, each taken `reps` times, and their
+    times by the profiler and by gated_ms; then the device ops of one fused
+    V-cycle by the profiler and by the aten count."""
+    from fenics_constitutive_tpu_torch.models import Constraint
+    from fenics_constitutive_tpu_torch.ops import cuda_smoother
+    from fenics_constitutive_tpu_torch.ops.structured import build_structured_geometry
+    from fenics_constitutive_tpu_torch.solver import build_multigrid
+
+    V, bcs = box(N_BENCH)
+    geo = build_structured_geometry(V, 2, Constraint.FULL, device="cuda", dtype=torch.float32)
+    mg = build_multigrid(geo, MU, KAPPA, torch.as_tensor(free_mask(V, bcs)), device="cuda",
+                         dtype=torch.float32, nu=3, nu_coarse=2, coarse_direct=True,
+                         fused_smoothing=True)
+    r = torch.as_tensor(np.random.default_rng(2).normal(size=V.ndofs), dtype=torch.float32,
+                        device="cuda")
+    big = torch.randn(1 << 22, device="cuda")
+    calls = [(label, kernel) for label, _, kernel, _, _ in k3_entries(mg.fused_cycle, r)]
+    for label, fn in calls + [("torch mul", lambda: big * 2.0)]:
+        fn()
+        before = cuda_smoother.launches
+        fn()
+        want = iters * max(cuda_smoother.launches - before, 1)
+        seen, times = {"empty": 0, "short": 0, "full": 0}, []
+        for _ in range(reps):
+            n = [e.count for e in profiled(fn, iters, complete=lambda evs: True, tries=1)]
+            seen["empty" if not n else "short" if sum(n) < want else "full"] += 1
+        for _ in range(5):
+            evs = profiled(fn, iters) or []
+            times += [sum(e.self_device_time_total for e in evs) / 1e3 / iters] if evs else []
+        print(f"profiler check {label}: {reps} profiles of {iters} calls {seen}; "
+              f"profiler {np.median(times):.4f} ms, gated_ms {gated_ms(fn, iters):.4f} ms")
+    kinds = ("chain_kernel", "tail_kernel")
+    launches, others, _ = kernel_ops(lambda: mg(r), cuda_smoother, kinds)
+    print(f"profiler check V-cycle: {launches:g} K3 launches; other ops: profiler {others:g}, "
+          f"aten count {aten_device_ops(lambda: mg(r))}")
+
+
+#: phases 3, 11 and 12 (the box, with the box profile) and 7-9 (the tets), as
+#: both the parent commit's and this script's checkouts have them
 AB_PHASES = """
-import pathlib, tempfile, chip_smoke as c
+import pathlib, tempfile, torch, chip_smoke as c
 c.phase_device()
 c.phase_build()
+results = {}
+c.timed("phase 3", c.phase_k1, results)
+c.timed("phase 11", c.phase_k3, results)
+box = {"mg": c.bench_setup(c.N_BENCH, torch.float32, "cuda")[3], "ms_step": float("nan")}
+c.timed("phase 12", c.phase_bench_fused, box)
+c.timed("profile box", c.profile_box)
 with tempfile.TemporaryDirectory() as tmp:
     tet = c.timed("tet setup", c.tet_setup, pathlib.Path(tmp))
-results = {}
 c.timed("phase 7", c.phase_k4_k5, results, tet)
 c.timed("phase 8", c.phase_k6, results, tet)
 c.timed("phase 9", c.phase_tet_bench, tet)
@@ -1361,18 +1678,19 @@ c.timed("phase 9", c.phase_tet_bench, tet)
 
 
 def ab(parent: str, change: str) -> None:
-    """``--ab PARENT CHANGE``: phases 7-9 from two checkouts in turns (parent,
-    change, change, parent), each in its own process on the same card."""
+    """``--ab PARENT CHANGE``: phases 3, 11, 12, the box profile and phases 7-9
+    from two checkouts in turns (parent, change, change, parent), each in its
+    own process on the same card."""
     import sys
 
     for label, where in (("parent", parent), ("change", change), ("change", change),
                          ("parent", parent)):
         proc = subprocess.run([sys.executable, "-c", AB_PHASES], cwd=where,
-                              capture_output=True, text=True, timeout=900, check=False)
+                              capture_output=True, text=True, timeout=1200, check=False)
         for ln in proc.stdout.splitlines():
             print(f"ab {label}: {ln}", flush=True)
         if proc.returncode != 0:
-            fail(f"phases 7-9 of the {label} ({where}) exited {proc.returncode}:\n"
+            fail(f"the phases of the {label} ({where}) exited {proc.returncode}:\n"
                  + proc.stderr[-3000:])
 
 
@@ -1384,6 +1702,10 @@ if __name__ == "__main__":
         phase_build()
         profile_box()
         profile_tet()
+    elif sys.argv[1:] == ["--profiler-check"]:
+        phase_device()
+        phase_build()
+        profiler_check()
     elif sys.argv[1:2] == ["--ab"] and len(sys.argv) == 4:
         phase_device()
         ab(sys.argv[2], sys.argv[3])

@@ -1,4 +1,5 @@
-// Damped-Jacobi smoothing sweeps of the multigrid levels (structured hex grids).
+// Damped-Jacobi smoothing chains of the multigrid levels (structured hex
+// grids), with the V-cycle's transfers fused in.
 //
 // Replaces the TPU kernel fenics_constitutive_tpu/ops/pallas_smoother.py::
 // build_fused_smoother. A level's chain is nu sweeps
@@ -8,148 +9,541 @@
 // origin c with the constant element matrix Ke [24, 24] on the masked corner
 // dofs and summed onto the nodes:
 //   (A x)[j, n] = sum_{a=0..7} sum_{col} Ke[a*3+j, col] * mask[c] * x[col @ c],
-//   c = n - off_a, corners past the end of the grid reading 0.
+//   c = n - off_a, cells outside the cell grid contributing nothing.
+// b is read masked, [inv_d != 0] * b (inv_d is zero exactly at the Dirichlet
+// dofs), so no caller masks it first.
 //
-// Design. The TPU kept a level's whole iterate in VMEM (~1.7 MB at 50^3) and
-// ran every sweep of a chain in one kernel. An H100 block has at most 227 KB
-// of shared memory, so a sweep needs a grid-wide barrier before the next one:
-// this file takes ONE LAUNCH PER SWEEP, with two ping-pong buffers that the
-// wrapper allocates with torch.empty (a cooperative launch with a grid sync is
-// the alternative, left for a later change). Each thread owns one node and
-// GATHERS (A x) at its 3 dofs from its up-to-8 cells in the fixed order
-// a = 0..7, so there are no atomics and two launches are bit-equal. Ke sits in
-// shared memory. A zero-start chain pays no launch for its first sweep: the
-// next launch reads x1 = inv_d * b at the neighbours on the fly.
+// Design. The TPU kept a level's whole iterate in VMEM and ran a chain in one
+// kernel, and XLA fused the transfers between the chains. On the H100 one
+// fused V-cycle takes a handful of launches:
 //
-// What bounds it on the H100: operations. One apply is 24 x 24 multiply-adds
-// per valid cell (~144 MFLOP at 50^3), against ~13 values per node read or
-// written once per chain (~7 MB in float32): the chain is bound by arithmetic,
-// at 67 TFLOP/s (float32) or 34 TFLOP/s (float64) outside the tensor cores.
-// This first version re-reads each cell's 24 corner values from L1/L2 for
-// each of the 8 nodes that touch it and runs on the CUDA cores; the tensor
-// cores (DMMA, wgmma) are later work.
+// * chain_kernel, one COOPERATIVE launch per chain on the fine levels
+//   (cudaLaunchCooperativeKernel, a persistent grid of at most the blocks the
+//   SMs hold at once, from cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+//   every phase loops over the nodes). A sweep must see the whole previous
+//   iterate, so the phases are separated by cg::this_grid().sync(), with two
+//   ping-pong buffers in global memory (L2-resident: 1.6 MB at 51^3 in
+//   float32). The same launch starts a post-chain with the prolongation of
+//   the coarse correction, masked and added (x0 = x + [free] P xc), and ends
+//   a pre-chain with the residual and its restriction R = P^T to the next
+//   level's right-hand side. A grid that the card cannot hold at once is
+//   refused by the launch (cudaErrorCooperativeLaunchTooLarge), never split.
+// * tail_kernel, ONE BLOCK of 512 threads for the coarse levels from the
+//   tail's first level down, as the TPU did with VMEM: the pre-chains and
+//   restrictions, the dense coarse solve (coarse_inv from L2, one warp per
+//   row, four rows at a time, a fixed xor-shuffle sum) or the coarse chain,
+//   the prolongations and the post-chains, with __syncthreads() between the
+//   phases. Every tail level's stencils (27 x 252 values on a box) and its x,
+//   b and a scratch vector (3 x 3 M_l values) sit in dynamic shared memory;
+//   inv_d and the masks are read from global memory (L1). On the 50^3
+//   hierarchy (node grids 51/26/13/7/4) the levels 13^3, 7^3 and 4^3 take
+//   3 x 27 x 252 + 9 x (2197 + 343 + 64) values: 171.3 KB in float32, under
+//   the 227 KB a block may hold, so the tail starts at level 2 (5 launches per
+//   V-cycle); in float64 that is 342.6 KB, so the tail starts at level 3
+//   (134.9 KB; 7 launches). The level where the tail starts is computed by
+//   the wrapper from the level sizes, the patterns, the type and
+//   fct_smem_optin(); a tail that does not fit raises there. The level table
+//   (views and places in shared memory) is one copy per block in shared
+//   memory: per-thread arrays indexed by level spilled to local memory.
+//
+// Sweeps. Each node applies A as the 27-point stencil of 3 x 3 blocks of its
+// pattern, the set of its 8 cells that exist with mask 1: a box has 27
+// patterns (interior, faces, edges, corners), assembled from Ke on the host
+// in float64, so every node runs the same code, 81 loads and 243
+// multiply-adds, against 192 and 576 for the 8-cell gather. (The wrapper
+// takes cell masks of 0 and 1 only, the validity masks the engine builds.)
+// The coefficients are read from shared memory 16 bytes at a time. Every
+// sum is taken in a fixed order by the thread that owns the node: no
+// atomics, and two launches are bit-equal.
+//
+// What bounds it on the H100: a chain moves ~13 values per node (~7 MB at
+// 51^3 in float32) and does 243 multiply-adds per node per apply, so its
+// bound is arithmetic (67 TFLOP/s float32, 34 float64) at a few us; what
+// binds it is latency: ~4 us per phase of a cooperative chain on the H100
+// whether it runs 2 or 519 blocks (a grid sync and one node's latency), and
+// one SM for the whole tail. The tensor cores (DMMA, wgmma) are later work.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
+
+// one multigrid level's constant data (device pointers)
+struct FctLevel {
+  const void* invd;  // [3, M] damped inverse diagonal, 0 at Dirichlet dofs
+  const void* pid;   // [M] uint8: the node's pattern of cells
+  const void* st;    // [patterns][3][84] stencils ([k][d][j], padded)
+  int n0, n1, n2;    // node grid, n = (i0 * n1 + i1) * n2 + i2
+  int nu;            // sweeps of the level's chains
+  int n_pat;         // patterns in st
+};
+
+// one chain launch on a fine level
+struct FctChain {
+  FctLevel lv;
+  const void* x;   // [3, M] start iterate (not read with zero_start)
+  const void* b;   // [3, M] right-hand side
+  const void* xc;  // [3, Mc] coarse correction (with prolong)
+  void* xout;      // [3, M] the chain's result
+  void* tmp;       // [3, M] ping-pong scratch (with 2 or more writes)
+  void* r;         // [3, M] the residual (with residual)
+  void* bc;        // [3, Mc] its restriction (with restrict_to)
+  int c0, c1, c2;  // coarse node grid
+  int zero_start, residual, prolong, restrict_to;
+};
+
+constexpr int kMaxTail = 8;
+
+// the one-block tail: levels lv[0] (its first level) .. lv[n_levels - 1]
+struct FctTail {
+  FctLevel lv[kMaxTail];
+  int n_levels;
+  const void* coarse_inv;  // [N, N], N = 3 M of the coarsest level, or null
+  const void* b;           // [3, M] right-hand side of the first level
+  void* xout;              // [3, M] its V-cycle result
+};
 
 namespace {
 
-using fct::kCorner;
-using fct::kNodes;
-using fct::kThreads;
 using fct::kVs;
 
-constexpr int kKe = kCorner * kCorner;  // 576 entries of Ke
+constexpr int kStencilK = 84;  // one component's [27][3] stencil values, padded
+constexpr int kStencilValues = kVs * kStencilK;  // one pattern's stencil
 
-// x at dof (j, node idx): the iterate, or x1 = inv_d * b on the fly
-template <typename T, bool kFromB>
-__device__ __forceinline__ T x_at(const T* __restrict__ x, const T* __restrict__ b,
-                                  const T* __restrict__ invd, int i) {
-  if constexpr (kFromB) {
-    return invd[i] * b[i];
-  } else {
-    return x[i];
+// 16-byte vectors of the working type, for the stencils' coefficients
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+};
+
+constexpr int kChainThreads = 256;
+constexpr int kTailThreads = 512;
+
+template <typename T>
+struct Lv {
+  const T* invd;
+  const unsigned char* pid;
+  int n0, n1, n2, M, nu;
+};
+
+template <typename T>
+__device__ __forceinline__ Lv<T> view(const FctLevel& l) {
+  return {static_cast<const T*>(l.invd), static_cast<const unsigned char*>(l.pid), l.n0, l.n1,
+          l.n2, l.n0 * l.n1 * l.n2, l.nu};
+}
+
+__device__ __forceinline__ void coords(int n, int n1, int n2, int& i0, int& i1, int& i2) {
+  const int s0 = n1 * n2;
+  i0 = n / s0;
+  const int rem = n - i0 * s0;
+  i1 = rem / n2;
+  i2 = rem - i1 * n2;
+}
+
+// (A x) at the 3 dofs of node n = (i0, i1, i2), x in shared or global memory,
+// st (the stencils) in shared memory. A node of pattern p applies its
+// 27-point stencil st[p] [k][d][j]: one component k at a time, its 27
+// neighbour values are loaded together first (neighbours outside the grid
+// read 0), so the node waits for memory three times, not once per neighbour.
+template <typename T>
+__device__ __forceinline__ void apply_node(const Lv<T>& L, const T* st, const T* x, int n,
+                                           int i0, int i1, int i2, T (&acc)[kVs]) {
+  const int M = L.M, s1 = L.n2, s0 = L.n1 * L.n2;
+  acc[0] = acc[1] = acc[2] = T(0);
+  const bool lo0 = i0 > 0, lo1 = i1 > 0, lo2 = i2 > 0;
+  const bool hi0 = i0 < L.n0 - 1, hi1 = i1 < L.n1 - 1, hi2 = i2 < L.n2 - 1;
+  const T* c = st + __ldg(L.pid + n) * kStencilValues;
+#pragma unroll
+  for (int k = 0; k < kVs; ++k) {
+    T v[27];
+#pragma unroll
+    for (int d = 0; d < 27; ++d) {
+      const int d0 = d / 9 - 1, d1 = (d / 3) % 3 - 1, d2 = d % 3 - 1;
+      const bool in = (d0 >= 0 || lo0) && (d0 <= 0 || hi0) && (d1 >= 0 || lo1) &&
+                      (d1 <= 0 || hi1) && (d2 >= 0 || lo2) && (d2 <= 0 || hi2);
+      v[d] = in ? x[k * M + n + d0 * s0 + d1 * s1 + d2] : T(0);
+    }
+    // coefficient i = d * 3 + j, read 16 bytes at a time (ck is aligned)
+    using V = typename Vec16<T>::type;
+    constexpr int kPer = sizeof(V) / sizeof(T);
+    const V* ck = reinterpret_cast<const V*>(c + k * kStencilK);
+#pragma unroll
+    for (int q = 0; q < (27 * kVs + kPer - 1) / kPer; ++q) {
+      const V cv = ck[q];
+      const T* e = reinterpret_cast<const T*>(&cv);
+#pragma unroll
+      for (int t = 0; t < kPer; ++t) {
+        const int i = q * kPer + t;
+        if (i < 27 * kVs) acc[i % kVs] += e[t] * v[i / kVs];
+      }
+    }
   }
 }
 
-// kResidual = false: xout = x + inv_d * (b - A x)
-// kResidual = true:  rout = [inv_d != 0] * (b - A x); with kFromB also xout = x
-template <typename T, bool kFromB, bool kResidual>
-__global__ void __launch_bounds__(kThreads)
-sweep_kernel(const T* __restrict__ x, const T* __restrict__ b,
-             const T* __restrict__ invd, const T* __restrict__ ke,
-             const T* __restrict__ mask, T* __restrict__ xout, T* __restrict__ rout,
-             int M, int s0, int s1) {
-  __shared__ T sk[kKe];
-  for (int i = threadIdx.x; i < kKe; i += blockDim.x) sk[i] = ke[i];
-  __syncthreads();
-
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= M) return;
-
-  T acc[kVs] = {T(0), T(0), T(0)};
-  // one cell at a time: the 24 corner values stay in registers
-#pragma unroll 1
-  for (int a = 0; a < kNodes; ++a) {
-    const int c = n - ((a & 1) * s0 + ((a >> 1) & 1) * s1 + ((a >> 2) & 1));
-    if (c < 0) continue;
-    const T m = mask[c];
-    if (m == T(0)) continue;
-    T U[kCorner];
-#pragma unroll
-    for (int bb = 0; bb < kNodes; ++bb) {
-      const int idx = c + (bb & 1) * s0 + ((bb >> 1) & 1) * s1 + ((bb >> 2) & 1);
-#pragma unroll
-      for (int k = 0; k < kVs; ++k) {
-        U[bb * kVs + k] = idx < M ? x_at<T, kFromB>(x, b, invd, k * M + idx) * m : T(0);
-      }
-    }
+// kResid = false: out = x + inv_d * (bm - A x)
+// kResid = true:  out = [inv_d != 0] * (bm - A x)
+template <typename T, bool kResid>
+__device__ void sweep(const Lv<T>& L, const T* st, const T* x, const T* b,
+                      T* out, int start, int stride) {
+  for (int n = start; n < L.M; n += stride) {
+    int i0, i1, i2;
+    coords(n, L.n1, L.n2, i0, i1, i2);
+    T acc[kVs];
+    apply_node(L, st, x, n, i0, i1, i2, acc);
 #pragma unroll
     for (int j = 0; j < kVs; ++j) {
-      const T* row = sk + (a * kVs + j) * kCorner;
-      T s = T(0);
-#pragma unroll
-      for (int col = 0; col < kCorner; ++col) s += row[col] * U[col];
-      acc[j] += s;
+      const int i = j * L.M + n;
+      const T d = __ldg(L.invd + i);
+      const T rj = (d != T(0) ? b[i] : T(0)) - acc[j];
+      if constexpr (kResid) {
+        out[i] = d != T(0) ? rj : T(0);
+      } else {
+        out[i] = x[i] + d * rj;
+      }
     }
   }
+}
 
+// trilinear prolongation of xc (coarse grid c0 x c1 x c2) at fine node
+// (i0, i1, i2), component k: fine 2i reads coarse i, fine 2i+1 reads
+// (i + (i+1)) / 2 with coarse nodes past the end read as 0
+template <typename T>
+__device__ __forceinline__ T prolong_at(const T* xc, int c0, int c1, int c2, int i0, int i1,
+                                        int i2, int k) {
+  const int ci[3] = {i0 >> 1, i1 >> 1, i2 >> 1};
+  const int odd[3] = {i0 & 1, i1 & 1, i2 & 1};
+  const int cn[3] = {c0, c1, c2};
+  const T* base = xc + k * c0 * c1 * c2;
+  T acc = T(0);
 #pragma unroll
-  for (int j = 0; j < kVs; ++j) {
-    const int i = j * M + n;
-    const T d = invd[i];
-    const T rj = b[i] - acc[j];
-    if constexpr (kResidual) {
-      rout[i] = d != T(0) ? rj : T(0);
-      if constexpr (kFromB) xout[i] = d * b[i];
-    } else {
-      xout[i] = x_at<T, kFromB>(x, b, invd, i) + d * rj;
+  for (int t = 0; t < 8; ++t) {
+    int I[3];
+    T w = T(1);
+    bool ok = true;
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      const int hi = (t >> ax) & 1;
+      if (hi && !odd[ax]) ok = false;
+      I[ax] = ci[ax] + hi;
+      if (I[ax] >= cn[ax]) ok = false;
+      if (odd[ax]) w *= T(0.5);
+    }
+    if (ok) acc += w * base[(I[0] * c1 + I[1]) * c2 + I[2]];
+  }
+  return acc;
+}
+
+// restriction R = P^T of r (fine grid f0 x f1 x f2) at coarse node
+// (I0, I1, I2), component k: weights 1 at fine 2I and 1/2 at 2I -+ 1
+template <typename T>
+__device__ __forceinline__ T restrict_at(const T* r, int f0, int f1, int f2, int I0, int I1,
+                                         int I2, int k) {
+  const T* base = r + k * f0 * f1 * f2;
+  T acc = T(0);
+#pragma unroll
+  for (int d = 0; d < 27; ++d) {
+    const int d0 = d / 9 - 1, d1 = (d / 3) % 3 - 1, d2 = d % 3 - 1;
+    const int a = 2 * I0 + d0, b = 2 * I1 + d1, c = 2 * I2 + d2;
+    if (a < 0 || b < 0 || c < 0 || a >= f0 || b >= f1 || c >= f2) continue;
+    const T w = (d0 ? T(0.5) : T(1)) * (d1 ? T(0.5) : T(1)) * (d2 ? T(0.5) : T(1));
+    acc += w * base[(a * f1 + b) * f2 + c];
+  }
+  return acc;
+}
+
+// first write of a chain: zero start: inv_d * bm (nu >= 1) or 0; else
+// x + [inv_d != 0] * P xc (with xc) or x
+template <typename T>
+__device__ void start(const Lv<T>& L, const T* x, const T* b, const T* xc, int c0, int c1,
+                      int c2, bool zero_start, T* out, int first, int stride) {
+  for (int n = first; n < L.M; n += stride) {
+    int i0 = 0, i1 = 0, i2 = 0;
+    if (xc != nullptr) coords(n, L.n1, L.n2, i0, i1, i2);
+#pragma unroll
+    for (int j = 0; j < kVs; ++j) {
+      const int i = j * L.M + n;
+      const T d = __ldg(L.invd + i);
+      T v;
+      if (zero_start) {
+        v = L.nu >= 1 && d != T(0) ? d * b[i] : T(0);
+      } else {
+        v = x[i];
+        if (xc != nullptr && d != T(0)) v += prolong_at(xc, c0, c1, c2, i0, i1, i2, j);
+      }
+      out[i] = v;
     }
   }
 }
 
 template <typename T>
-int launch(const void* x, const void* b, const void* invd, const void* ke,
-           const void* mask, void* xout, void* rout, int from_b, int residual, int M,
-           int s0, int s1, void* stream) {
-  const dim3 grid(fct::num_blocks(M));
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* xp = static_cast<const T*>(x);
-  const auto* bp = static_cast<const T*>(b);
-  const auto* dp = static_cast<const T*>(invd);
-  const auto* kp = static_cast<const T*>(ke);
-  const auto* mp = static_cast<const T*>(mask);
-  auto* xo = static_cast<T*>(xout);
-  auto* ro = static_cast<T*>(rout);
-  if (from_b && residual) {
-    sweep_kernel<T, true, true><<<grid, kThreads, 0, st>>>(xp, bp, dp, kp, mp, xo, ro, M, s0, s1);
-  } else if (from_b) {
-    sweep_kernel<T, true, false><<<grid, kThreads, 0, st>>>(xp, bp, dp, kp, mp, xo, ro, M, s0, s1);
-  } else if (residual) {
-    sweep_kernel<T, false, true><<<grid, kThreads, 0, st>>>(xp, bp, dp, kp, mp, xo, ro, M, s0, s1);
-  } else {
-    sweep_kernel<T, false, false><<<grid, kThreads, 0, st>>>(xp, bp, dp, kp, mp, xo, ro, M, s0, s1);
+__device__ void restrict_all(const T* r, int f0, int f1, int f2, T* bc, int c0, int c1, int c2,
+                             int first, int stride) {
+  const int Mc = c0 * c1 * c2;
+  for (int nc = first; nc < Mc; nc += stride) {
+    int I0, I1, I2;
+    coords(nc, c1, c2, I0, I1, I2);
+#pragma unroll
+    for (int k = 0; k < kVs; ++k) bc[k * Mc + nc] = restrict_at(r, f0, f1, f2, I0, I1, I2, k);
   }
+}
+
+// A chain: the first write, then the sweeps, each phase behind sync(). The
+// writes alternate between tmp and xout so that the last one lands in xout.
+template <typename T, typename Sync>
+__device__ void run_chain(const Lv<T>& L, const T* st, const T* x, const T* b,
+                          const T* xc, int c0, int c1, int c2, bool zero_start, T* xout,
+                          T* tmp, int first, int stride, Sync sync) {
+  const int sweeps = zero_start ? (L.nu > 1 ? L.nu - 1 : 0) : L.nu;
+  T* cur = (sweeps & 1) ? tmp : xout;
+  start(L, x, b, xc, c0, c1, c2, zero_start, cur, first, stride);
+  for (int s = 1; s <= sweeps; ++s) {
+    sync();
+    T* nxt = ((sweeps - s) & 1) ? tmp : xout;
+    sweep<T, false>(L, st, cur, b, nxt, first, stride);
+    cur = nxt;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kChainThreads, 4) chain_kernel(FctChain a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* st = reinterpret_cast<T*>(smem_raw);
+  {
+    const T* g = static_cast<const T*>(a.lv.st);
+    for (int i = threadIdx.x; i < a.lv.n_pat * kStencilValues; i += blockDim.x) st[i] = g[i];
+  }
+  __syncthreads();
+  cg::grid_group grid = cg::this_grid();
+  const Lv<T> L = view<T>(a.lv);
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  const T* b = static_cast<const T*>(a.b);
+  T* xout = static_cast<T*>(a.xout);
+  run_chain(L, st, static_cast<const T*>(a.x), b,
+            a.prolong ? static_cast<const T*>(a.xc) : nullptr, a.c0, a.c1, a.c2,
+            a.zero_start != 0, xout, static_cast<T*>(a.tmp), first, stride,
+            [&] { grid.sync(); });
+  if (!a.residual) return;
+  grid.sync();
+  T* r = static_cast<T*>(a.r);
+  sweep<T, true>(L, st, xout, b, r, first, stride);
+  if (!a.restrict_to) return;
+  grid.sync();
+  restrict_all(r, L.n0, L.n1, L.n2, static_cast<T*>(a.bc), a.c0, a.c1, a.c2, first, stride);
+}
+
+// shared memory of one tail level: its stencils, and x, b and a scratch
+// vector of 3 M values
+__host__ __device__ constexpr int tail_level_values(int M, int n_pat) {
+  return 3 * kVs * M + n_pat * kStencilValues;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTailThreads) tail_kernel(FctTail a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the levels' views and their place in shared memory, one copy per block
+  __shared__ Lv<T> sL[kMaxTail];
+  __shared__ T* sX[kMaxTail];
+  __shared__ T* sB[kMaxTail];
+  __shared__ T* sS[kMaxTail];
+  __shared__ T* sSt[kMaxTail];
+  const int nt = a.n_levels;
+  if (threadIdx.x == 0) {
+    // the stencils first (each a multiple of 16 bytes, so every table stays
+    // aligned for the 16-byte reads), then the vectors
+    T* p = reinterpret_cast<T*>(smem_raw);
+#pragma unroll
+    for (int t = 0; t < kMaxTail; ++t) {
+      if (t >= nt) break;
+      sL[t] = view<T>(a.lv[t]);
+      sSt[t] = p;
+      p += a.lv[t].n_pat * kStencilValues;
+    }
+#pragma unroll
+    for (int t = 0; t < kMaxTail; ++t) {
+      if (t >= nt) break;
+      const int n = kVs * sL[t].M;
+      sX[t] = p;
+      sB[t] = p + n;
+      sS[t] = p + 2 * n;
+      p += 3 * n;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < kMaxTail; ++t) {
+    if (t >= nt) break;
+    const T* g = static_cast<const T*>(a.lv[t].st);
+    T* st = sSt[t];
+    for (int i = threadIdx.x; i < a.lv[t].n_pat * kStencilValues; i += blockDim.x) st[i] = g[i];
+  }
+  const int first = threadIdx.x, stride = blockDim.x;
+  auto sync = [] { __syncthreads(); };
+
+  {
+    const T* b = static_cast<const T*>(a.b);
+    T* B0 = sB[0];
+    for (int i = first; i < kVs * sL[0].M; i += stride) B0[i] = b[i];
+  }
+  __syncthreads();
+
+  // down: pre-chain, residual, restriction
+  for (int t = 0; t + 1 < nt; ++t) {
+    const Lv<T> L = sL[t];
+    T* X = sX[t];
+    T* B = sB[t];
+    T* S = sS[t];
+    run_chain(L, sSt[t], (const T*)nullptr, B, (const T*)nullptr, 0, 0, 0, true, X, S,
+              first, stride, sync);
+    __syncthreads();
+    sweep<T, true>(L, sSt[t], X, B, S, first, stride);
+    __syncthreads();
+    const Lv<T> Lc = sL[t + 1];
+    restrict_all(S, L.n0, L.n1, L.n2, sB[t + 1], Lc.n0, Lc.n1, Lc.n2, first, stride);
+    __syncthreads();
+  }
+
+  // the coarsest level: dense solve or the coarse chain
+  {
+    const int c = nt - 1;
+    const Lv<T> L = sL[c];
+    T* X = sX[c];
+    const T* B = sB[c];
+    if (a.coarse_inv != nullptr) {
+      const T* C = static_cast<const T*>(a.coarse_inv);
+      const int N = kVs * L.M;
+      const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+      // rows i0 + r nwarps (r < 4) at once, so that their loads overlap
+      for (int i0 = warp; i0 < N; i0 += 4 * nwarps) {
+        T s[4] = {T(0), T(0), T(0), T(0)};
+#pragma unroll 2
+        for (int k = lane; k < N; k += 32) {
+          const T bk = __ldg(L.invd + k) != T(0) ? B[k] : T(0);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int i = i0 + r * nwarps;
+            if (i < N) s[r] += __ldg(C + static_cast<size_t>(i) * N + k) * bk;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) s[r] += __shfl_xor_sync(0xffffffffu, s[r], off);
+          const int i = i0 + r * nwarps;
+          if (lane == 0 && i < N) X[i] = __ldg(L.invd + i) != T(0) ? s[r] : T(0);
+        }
+      }
+    } else {
+      run_chain(L, sSt[c], (const T*)nullptr, B, (const T*)nullptr, 0, 0, 0, true, X,
+                sS[c], first, stride, sync);
+    }
+  }
+  __syncthreads();
+
+  // up: prolongation, mask and add, post-chain
+  for (int t = nt - 2; t >= 0; --t) {
+    const Lv<T> L = sL[t];
+    const Lv<T> Lc = sL[t + 1];
+    run_chain(L, sSt[t], sX[t], sB[t], sX[t + 1], Lc.n0, Lc.n1, Lc.n2, false, sX[t],
+              sS[t], first, stride, sync);
+    __syncthreads();
+  }
+  T* xout = static_cast<T*>(a.xout);
+  const T* X0 = sX[0];
+  for (int i = first; i < kVs * sL[0].M; i += stride) xout[i] = X0[i];
+}
+
+template <typename T>
+int launch_chain(const FctChain* args, void* stream) {
+  // the persistent grid: as many blocks as the SMs hold at once with this
+  // many stencils in shared memory, once per device and pattern count
+  constexpr int kDevs = 16, kPats = 257;
+  static int cap[kDevs][kPats] = {};
+  static size_t opted = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_pat = args->lv.n_pat;
+  if (dev >= kDevs || n_pat < 1 || n_pat >= kPats) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = static_cast<size_t>(n_pat) * kStencilValues * sizeof(T);
+  if (bytes > opted) {
+    e = cudaFuncSetAttribute(chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted = bytes;
+  }
+  if (cap[dev][n_pat] == 0) {
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_kernel<T>, kChainThreads,
+                                                      bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm * sms == 0) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    cap[dev][n_pat] = per_sm * sms;
+  }
+  const int M = args->lv.n0 * args->lv.n1 * args->lv.n2;
+  int blocks = (M + kChainThreads - 1) / kChainThreads;
+  if (blocks > cap[dev][n_pat]) blocks = cap[dev][n_pat];
+  FctChain a = *args;
+  void* params[] = {&a};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(chain_kernel<T>), dim3(blocks),
+                                  dim3(kChainThreads), params, bytes,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_tail(const FctTail* args, void* stream) {
+  if (args->n_levels < 1 || args->n_levels > kMaxTail) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  size_t bytes = 0;
+  for (int t = 0; t < args->n_levels; ++t) {
+    const FctLevel& l = args->lv[t];
+    bytes += static_cast<size_t>(tail_level_values(l.n0 * l.n1 * l.n2, l.n_pat)) * sizeof(T);
+  }
+  cudaError_t e = cudaFuncSetAttribute(tail_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  tail_kernel<T><<<1, kTailThreads, bytes, static_cast<cudaStream_t>(stream)>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Entry points: every pointer is a device pointer, ``stream`` a cudaStream_t.
-// x, b, inv_d, xout, rout are grid-major [3, M]; ke is [24, 24] row-major;
-// mask is [M]. ``from_b`` reads x as inv_d * b (x unused); ``residual``
-// writes rout (and, with from_b, xout = inv_d * b) instead of a sweep into
-// xout. xout must not alias x. Returns cudaGetLastError() after the launch.
-extern "C" int fct_smooth_f32(const void* x, const void* b, const void* invd,
-                              const void* ke, const void* mask, void* xout, void* rout,
-                              int from_b, int residual, int M, int s0, int s1,
-                              void* stream) {
-  return launch<float>(x, b, invd, ke, mask, xout, rout, from_b, residual, M, s0, s1,
-                       stream);
+// Entry points: every pointer is a device pointer, ``stream`` a cudaStream_t;
+// the argument structs are read on the host and passed to the kernel by
+// value. Each returns cudaGetLastError() (or the launch's error) after its
+// one launch.
+extern "C" int fct_chain_f32(const FctChain* args, void* stream) {
+  return launch_chain<float>(args, stream);
 }
 
-extern "C" int fct_smooth_f64(const void* x, const void* b, const void* invd,
-                              const void* ke, const void* mask, void* xout, void* rout,
-                              int from_b, int residual, int M, int s0, int s1,
-                              void* stream) {
-  return launch<double>(x, b, invd, ke, mask, xout, rout, from_b, residual, M, s0, s1,
-                        stream);
+extern "C" int fct_chain_f64(const FctChain* args, void* stream) {
+  return launch_chain<double>(args, stream);
+}
+
+extern "C" int fct_tail_f32(const FctTail* args, void* stream) {
+  return launch_tail<float>(args, stream);
+}
+
+extern "C" int fct_tail_f64(const FctTail* args, void* stream) {
+  return launch_tail<double>(args, stream);
+}
+
+// the shared memory one block may hold on device ``dev`` (bytes), or -1
+extern "C" int fct_smem_optin(int dev) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess) {
+    return -1;
+  }
+  return v;
 }

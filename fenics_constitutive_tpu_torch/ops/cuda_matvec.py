@@ -2,21 +2,24 @@
 
 ``build_cuda_matvec(geo)`` returns ``matvec(u_gm, tangent) -> r_gm`` for the
 structured hex engine (P1, 2x2x2 Gauss, FULL constraint). On a CUDA tensor
-it launches ``csrc/matvec.cu`` (gather, strain, tangent apply and divergence
-fused per cell origin) and then sums the 24 per-corner force channels onto
-the nodes with the geometry's deterministic shifted adds. On a CPU tensor it
-runs the plain PyTorch version, ``StructuredGeometry.matvec_gm``. It never
-falls back from the kernel to the plain version: an unsupported input on
-the card raises.
+it makes ONE launch of ``csrc/matvec.cu`` (gather, strain, tangent apply and
+divergence fused per cell, and the sum of the 8 cells' corner forces onto
+each node in the order of the plain version's shifted adds), which writes
+the node values ``[3, M]``; no op runs after it. On a CPU tensor it runs the
+plain PyTorch version, ``StructuredGeometry.matvec_gm``. It never falls back
+from the kernel to the plain version: an unsupported input on the card
+raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ._cuda_build import entry_point, launch_check
+from . import mandel
 from .packed import IsotropicTangent
 from .structured import StructuredGeometry
 
@@ -26,7 +29,7 @@ __all__ = ["build_cuda_matvec", "hex_corner_layout", "launches", "matvec_plain"]
 launches = 0
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P] * 8 + [ctypes.c_double] * 3 + [ctypes.c_int] * 4 + [_P]
+_ARGTYPES = [_P] * 8 + [ctypes.c_double] * 4 + [ctypes.c_int] * 7 + [_P]
 _SYMBOL = {torch.float32: "fct_matvec_f32", torch.float64: "fct_matvec_f64"}
 _entries: dict = {}
 
@@ -82,22 +85,44 @@ def matvec_plain(geo: StructuredGeometry, u_gm: torch.Tensor, tangent) -> torch.
     return geo.matvec_gm(u_gm, tangent)
 
 
+def brick(node_grid) -> tuple[int, int, int]:
+    """The brick of nodes one block of the kernel owns: 4 x 8 across, and
+    along z the fewest runs of at most 17 nodes. Its (b0+1)(b1+1)(b2+1)
+    cells' forces fill 77.8 KB (float32) or 155.5 KB (float64) of shared
+    memory at 4 x 8 x 17. Within 3% of the best brick of chip_smoke.py's
+    sweep (phase 3) on the H100 at 50^3: 0.0312 ms float32 and 0.0617 ms
+    float64 on the card, against 0.0404 and 0.0801 ms for 8 x 8 x 13."""
+    n0, n1, n2 = node_grid
+    runs = -(-n2 // 17)
+    return min(4, n0), min(8, n1), -(-n2 // runs)
+
+
 def _is_scalar(x) -> bool:
     return not isinstance(x, torch.Tensor) or x.numel() == 1
 
 
-def build_cuda_matvec(geo: StructuredGeometry):
+def build_cuda_matvec(geo: StructuredGeometry, *, brick_nodes=None):
     """Return ``matvec(u_gm, tangent) -> r_gm`` (see module docstring).
 
     ``tangent`` is an IsotropicTangent in the engine's layout: beta, gamma
     [Q, M] and n [6, Q, M], or a uniform tangent (scalar beta and gamma, n of
     6 values). kappa is passed at each call, so a new tangent needs no
     rebuild. Nothing is compiled until the first call on a CUDA tensor.
+    ``brick_nodes`` overrides ``brick`` (for a sweep on the card only).
     """
     M, Q = geo.M, geo.n_qp
-    s0 = s1 = 0
+    node_grid = tuple(g + 1 for g in geo.grid)
+    tables = {}
     if hot_path_geometry(geo):
-        s0, s1 = geo.offsets[1], geo.offsets[2]
+        # the cells' gradient table [q][a][i], the weights and the Mandel
+        # shear factor of the constraint, in the geometry's dtype and device
+        tables = {
+            "dn": torch.as_tensor(np.ascontiguousarray(np.transpose(geo.dN_host, (2, 0, 1))),
+                                  dtype=geo.dtype, device=geo.device),
+            "w": torch.as_tensor(geo.w_host, dtype=geo.dtype, device=geo.device),
+            "c": float(mandel._mandel_matrix_map(geo.constraint)[3, 0, 1]),
+            "brick": tuple(brick_nodes) if brick_nodes else brick(node_grid),
+        }
 
     def matvec(u_gm: torch.Tensor, tangent: IsotropicTangent) -> torch.Tensor:
         global launches
@@ -124,17 +149,17 @@ def build_cuda_matvec(geo: StructuredGeometry):
             gamma = gamma.expand(Q, M).contiguous()
             nf = tangent.n.expand(6, Q, M).contiguous()
         check_cuda_args(geo, beta, gamma, nf)
-        F = torch.empty((24, M), dtype=dtype, device=dev)
+        r = torch.empty(3 * M, dtype=dtype, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = _entry(dtype)(
                 u_gm.data_ptr(), beta.data_ptr(), gamma.data_ptr(), nf.data_ptr(),
-                geo.mask.data_ptr(), geo.KEPS_c.data_ptr(), geo.KDIV_c.data_ptr(),
-                F.data_ptr(), float(tangent.kappa), beta_u, gamma_u, int(uniform),
-                M, s0, s1, stream,
+                geo.mask.data_ptr(), tables["dn"].data_ptr(), tables["w"].data_ptr(),
+                r.data_ptr(), float(tangent.kappa), beta_u, gamma_u, tables["c"],
+                int(uniform), *node_grid, *tables["brick"], stream,
             )
         launch_check("matvec", rc)
         launches += 1
-        return geo._scatter_corners(F).reshape(-1)
+        return r
 
     return matvec

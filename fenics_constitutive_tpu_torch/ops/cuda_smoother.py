@@ -1,5 +1,5 @@
-"""Fused multigrid smoothing chains: hand-written CUDA kernel (K3) and its
-plain twin.
+"""Fused multigrid smoothing: hand-written CUDA kernels (K3) and their plain
+twins.
 
 ``build_fused_smoother(geo, ke, inv_d, mask, nu=, zero_start=, emit_residual=)``
 returns one level's damped-Jacobi chain ``x <- x + inv_d * (b - A x)``, ``nu``
@@ -8,49 +8,245 @@ sweeps of the constant-coefficient elastic operator ``A`` (element matrix
 free-masked residual ``[inv_d != 0] * (b - A x)``. The semantics are those of
 the JAX package's ``ops/pallas_smoother.py::build_fused_smoother``:
 
-* ``inv_d`` is zero at Dirichlet dofs, so ``x`` stays zero there;
+* ``inv_d`` is zero at Dirichlet dofs, so ``x`` stays zero there and ``b``
+  is never read there;
 * a zero start makes the first sweep ``inv_d * b``, with no operator apply;
 * cells are masked by ``mask`` on the gathered corner values.
 
-On CUDA tensors each sweep (and the residual) is one launch of
-``csrc/smoother.cu``, ping-ponging between two buffers; a zero-start chain's
-first sweep is folded into the next launch. On CPU tensors the chain runs in
-plain PyTorch (``smoother_plain``). It never falls back from the kernel to
-the plain version: an unsupported input on the card raises.
+``FusedVcycle`` runs a whole V-cycle of such chains with the transfers (R =
+P^T trilinear, the free masks) and the coarse solve, through three entries:
+
+* ``pre_restrict(lvl, b) -> (x, b_coarse)``: the pre-chain, its residual and
+  the residual's restriction to the next level's right-hand side;
+* ``prolong_post(lvl, x, b, xc) -> x``: ``x + [free] P xc``, then the
+  post-chain;
+* ``tail(b, lvl) -> x``: the V-cycle from level ``lvl`` down, coarse solve
+  included.
+
+On CUDA tensors each of them, and each ``FusedChain`` call, is ONE launch of
+``csrc/smoother.cu``: a cooperative launch with grid-wide barriers between
+the sweeps for a fine level's chain, one block in shared memory for the tail.
+The V-cycle runs ``pre_restrict`` on the levels above the tail's first level
+(``tail_start``, from the level sizes, the type and the shared memory the
+card holds per block), one ``tail``, then ``prolong_post`` upwards: 5 launches
+on the 50^3 hierarchy. On CPU tensors every entry runs its plain PyTorch twin
+(``*_plain``, and ``plain`` for the tail and the whole cycle), and on the card
+nothing calls the twins: an unsupported input there raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
 
-from ._cuda_build import entry_point, launch_check
+from ._cuda_build import entry_point, launch_check, load_library
 from .cuda_matvec import hex_corner_layout
 from .structured import StructuredGeometry, _matmul
 
 __all__ = [
     "FusedChain",
+    "FusedVcycle",
     "build_fused_smoother",
+    "coarse_len",
+    "entry_launches",
     "launches",
+    "pattern_stencils",
+    "prolong_gm",
+    "restrict_gm",
     "smoother_geometry_ok",
     "smoother_plain",
+    "tail_bytes",
+    "tail_start",
 ]
 
-#: number of kernel launches made by the chains of this module
+#: number of kernel launches made by this module (every entry)
 launches = 0
+#: the same launches per entry point
+entry_launches = dict.fromkeys(("chain", "pre_restrict", "prolong_post", "tail"), 0)
+
+#: levels the one-block tail can hold (``kMaxTail`` of csrc/smoother.cu)
+MAX_TAIL_LEVELS = 8
+#: vectors of 3 M values each tail level keeps in shared memory: x, b, scratch
+TAIL_VECTORS = 3
+
+
+# -- transfers (grid-major [vs, *grid] vectors) ------------------------------------
+
+
+def coarse_len(L: int) -> int:
+    return (L - 1) // 2 + 1
+
+
+def _restrict_last(x: torch.Tensor) -> torch.Tensor:
+    """1D restriction along the last axis: out[i] = x[2i-1]/2 + x[2i] + x[2i+1]/2
+    (zero outside), of length (L - 1)//2 + 1."""
+    L = x.shape[-1]
+    out = x[..., 0::2].clone()
+    odd = 0.5 * x[..., 1::2]  # odd[i] = x[2i+1] / 2
+    n_odd = odd.shape[-1]
+    out[..., :n_odd] += odd
+    out[..., 1 : 1 + n_odd] += odd[..., : coarse_len(L) - 1]
+    return out
+
+
+def _prolong_last(x: torch.Tensor, Lf: int) -> torch.Tensor:
+    """1D trilinear interpolation along the last axis onto Lf nodes:
+    out[2i] = x[i], out[2i+1] = (x[i] + x[i+1]) / 2 with x past the end read
+    as 0. On a non-nested level (Lf = 2 Lc) the last fine node is x[-1]/2,
+    the extra row of the JAX package's (1, Lf - 2 Lc + 2) padding."""
+    Lc = x.shape[-1]
+    out = x.new_zeros((*x.shape[:-1], Lf))
+    out[..., 0::2] = x[..., : (Lf + 1) // 2]
+    half = 0.5 * x
+    n_odd = Lf // 2
+    out[..., 1::2] = half[..., :n_odd]
+    out[..., 1 : 2 * (Lc - 1) : 2] += half[..., 1:Lc]
+    return out
+
+
+def restrict_gm(x: torch.Tensor, fine_grid) -> torch.Tensor:
+    """Restriction R = P^T of a grid-major vector on the node grid
+    ``fine_grid`` to the next coarser grid (no 1/2^d scaling: residuals are
+    integrated functionals)."""
+    g = x.reshape((-1, *fine_grid))
+    for d in range(1, g.dim()):
+        g = _restrict_last(g.movedim(d, -1)).movedim(-1, d)
+    return g.reshape(-1)
+
+
+def prolong_gm(xc: torch.Tensor, coarse_grid, fine_grid) -> torch.Tensor:
+    """Trilinear prolongation of a grid-major vector from ``coarse_grid`` onto
+    ``fine_grid`` (nested, Lf = 2 Lc - 1, or not, Lf = 2 Lc, per axis)."""
+    g = xc.reshape((-1, *coarse_grid))
+    for d, Lf in enumerate(fine_grid, start=1):
+        g = _prolong_last(g.movedim(d, -1), Lf).movedim(-1, d)
+    return g.reshape(-1)
+
+
+# -- level data of the kernels -------------------------------------------------------
+
+
+def _corner_offset(a: int) -> np.ndarray:
+    return np.array([a & 1, (a >> 1) & 1, (a >> 2) & 1])
+
+
+#: values of one pattern's stencil: [k][d][j] with 27 x 3 per k padded to 84
+STENCIL_K = 84
+STENCIL_VALUES = 3 * STENCIL_K
+
+
+def pattern_stencils(ke, mask, node_grid):
+    """The 27-point stencils of 3 x 3 blocks of the level's nodes, for a cell
+    mask of 0 and 1.
+
+    A node's pattern is the set of its 8 cells (corner a: the cell at origin
+    n - off_a) that exist and have mask 1; its stencil sums Ke's blocks over
+    those cells, coef[k][d][j] = sum_a sum_{bb: off_bb - off_a = d}
+    Ke[a*3+j, bb*3+k], so A x at the node is the stencil applied to its 27
+    neighbours (float64 on the host). A box has at most 27 patterns, and 8
+    cells at most 256. Returns (pid uint8 [M]: each node's pattern; table
+    float64 [P * STENCIL_VALUES])."""
+    ke = np.asarray(ke, np.float64)
+    n0, n1, n2 = node_grid
+    cells = np.zeros((n0 + 1, n1 + 1, n2 + 1))  # cell values at origin + 1, 0 outside
+    cells[1:n0, 1:n1, 1:n2] = np.asarray(mask, np.float64).reshape(node_grid)[:-1, :-1, :-1]
+    bits = np.zeros(node_grid, np.int64)
+    for a in range(8):
+        o = _corner_offset(a)
+        m = cells[1 - o[0] : 1 - o[0] + n0, 1 - o[1] : 1 - o[1] + n1, 1 - o[2] : 1 - o[2] + n2]
+        bits |= (m == 1.0).astype(np.int64) << a
+    used, pid = np.unique(bits, return_inverse=True)
+    table = np.zeros((len(used), 3, STENCIL_K))
+    for p, pattern in enumerate(used):
+        coef = np.zeros((3, 27, 3))  # [k][d][j]
+        for a in range(8):
+            if not (pattern >> a) & 1:
+                continue
+            for bb in range(8):
+                d0, d1, d2 = _corner_offset(bb) - _corner_offset(a) + 1
+                coef[:, 9 * d0 + 3 * d1 + d2, :] += ke[3 * a : 3 * a + 3, 3 * bb : 3 * bb + 3].T
+        table[p, :, :81] = coef.reshape(3, 81)
+    return pid.reshape(-1).astype(np.uint8), table.reshape(-1)
+
+
+def tail_bytes(node_grids, patterns, itemsize: int, first: int, vs: int = 3) -> int:
+    """Shared memory the one-block tail needs from level ``first`` down: x, b
+    and a scratch vector and the ``patterns[l]`` stencils of every level
+    (``tail_level_values`` of csrc/smoother.cu)."""
+    return sum((TAIL_VECTORS * vs * math.prod(g) + p * STENCIL_VALUES) * itemsize
+               for g, p in zip(node_grids[first:], patterns[first:]))
+
+
+def tail_start(node_grids, patterns, itemsize: int, smem_bytes: int, vs: int = 3) -> int:
+    """The first level of the one-block tail: the finest level from which the
+    tail's levels (at most ``MAX_TAIL_LEVELS``) fit in ``smem_bytes`` of
+    shared memory. Raises if not even the coarsest level fits."""
+    L = len(node_grids)
+    first = L
+    for lvl in range(L - 1, max(L - MAX_TAIL_LEVELS, 0) - 1, -1):
+        if tail_bytes(node_grids, patterns, itemsize, lvl, vs) > smem_bytes:
+            break
+        first = lvl
+    if first == L:
+        msg = (f"the coarsest multigrid level {tuple(node_grids[-1])} needs "
+               f"{tail_bytes(node_grids, patterns, itemsize, L - 1, vs)} bytes of shared "
+               f"memory for the one-block tail, the card holds {smem_bytes} per block")
+        raise ValueError(msg)
+    return first
+
+
+# -- the C interface ---------------------------------------------------------------------
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P] * 7 + [ctypes.c_int] * 5 + [_P]
-_SYMBOL = {torch.float32: "fct_smooth_f32", torch.float64: "fct_smooth_f64"}
+_I = ctypes.c_int
+
+
+class _Level(ctypes.Structure):
+    _fields_ = [("invd", _P), ("pid", _P), ("st", _P), ("n0", _I), ("n1", _I), ("n2", _I),
+                ("nu", _I), ("n_pat", _I)]
+
+
+class _Chain(ctypes.Structure):
+    _fields_ = [("lv", _Level), ("x", _P), ("b", _P), ("xc", _P), ("xout", _P), ("tmp", _P),
+                ("r", _P), ("bc", _P), ("c0", _I), ("c1", _I), ("c2", _I),
+                ("zero_start", _I), ("residual", _I), ("prolong", _I), ("restrict_to", _I)]
+
+
+class _Tail(ctypes.Structure):
+    _fields_ = [("lv", _Level * MAX_TAIL_LEVELS), ("n_levels", _I), ("coarse_inv", _P),
+                ("b", _P), ("xout", _P)]
+
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _entries: dict = {}
+_smem: dict = {}
 
 
-def _entry(dtype: torch.dtype):
-    if dtype not in _entries:
-        _entries[dtype] = entry_point("smoother", _SYMBOL[dtype], _ARGTYPES)
-    return _entries[dtype]
+def _entry(kind: str, dtype: torch.dtype):
+    key = (kind, dtype)
+    if key not in _entries:
+        _entries[key] = entry_point("smoother", f"fct_{kind}_{_SUFFIX[dtype]}", [_P, _P])
+    return _entries[key]
+
+
+def smem_optin(device: torch.device) -> int:
+    """Shared memory one block may hold on the card (bytes), as it reports."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _smem:
+        fn = load_library("smoother").fct_smem_optin
+        fn.argtypes, fn.restype = [_I], _I
+        _smem[index] = int(fn(index))
+        if _smem[index] <= 0:
+            msg = f"cudaDeviceGetAttribute(MaxSharedMemoryPerBlockOptin) failed on cuda:{index}"
+            raise RuntimeError(msg)
+    return _smem[index]
+
+
+# -- one chain ---------------------------------------------------------------------------
 
 
 def smoother_geometry_ok(geo: StructuredGeometry) -> bool:
@@ -94,13 +290,39 @@ def _check(geo, t: torch.Tensor, name: str) -> None:
         raise ValueError(msg)
 
 
+def _check_card_level(chain) -> None:
+    """Raise unless the K3 kernels take this chain's level."""
+    geo = chain.geo
+    if geo.gdim == 2:
+        msg = (
+            "the K3 kernel takes 3D hex levels; 2D quad levels on the card are "
+            "not ported yet (ROADMAP.md Queue 1, K3 on 2D quad levels)"
+        )
+        raise NotImplementedError(msg)
+    if not smoother_geometry_ok(geo):
+        msg = "the K3 kernel supports the 3D P1 hex corner layout only"
+        raise ValueError(msg)
+    if geo.dtype not in _SUFFIX:
+        msg = f"the K3 kernel takes float32 or float64, got {geo.dtype}"
+        raise TypeError(msg)
+    if chain.st is None:
+        msg = "the K3 kernel takes a cell mask of 0 and 1 only"
+        raise ValueError(msg)
+
+
 class FusedChain:
     """One level's chain (see ``build_fused_smoother``); ``plain`` runs the
     plain PyTorch version on the same level data whatever the device."""
 
-    def __init__(self, geo, ke, inv_d, mask, *, nu, zero_start, emit_residual):
+    def __init__(self, geo, ke, inv_d, mask, *, nu, zero_start, emit_residual, st=None,
+                 pid=None):
         self.geo, self.ke, self.inv_d, self.mask = geo, ke, inv_d, mask
         self.nu, self.zero_start, self.emit_residual = nu, zero_start, emit_residual
+        #: the kernel's pattern stencils and uint8 [M] pattern ids
+        #: (``pattern_stencils``; None unless a 3D hex level with a 0/1 mask)
+        self.st, self.pid = st, pid
+        self.grid = tuple(g + 1 for g in geo.grid)
+        self._level = None
 
     def _opts(self) -> dict:
         return dict(nu=self.nu, zero_start=self.zero_start, emit_residual=self.emit_residual)
@@ -112,11 +334,31 @@ class FusedChain:
         x, b = self._split(args)
         if not b.is_cuda:
             return self.plain(*args)
-        return _chain_kernel(self.geo, self.ke, self.inv_d, self.mask, x, b, **self._opts())
+        return self._kernel(x, b)
 
     def plain(self, *args):
         x, b = self._split(args)
         return smoother_plain(self.geo, self.ke, self.inv_d, self.mask, x, b, **self._opts())
+
+    @property
+    def n_patterns(self) -> int:
+        """Stencils in ``st`` (the level's patterns of cells)."""
+        return self.st.numel() // STENCIL_VALUES
+
+    def level(self) -> _Level:
+        """The level's constant data for the C interface (built once)."""
+        if self._level is None:
+            self._level = _Level(self.inv_d.data_ptr(), self.pid.data_ptr(), self.st.data_ptr(),
+                                 *self.grid, self.nu, self.n_patterns)
+        return self._level
+
+    def _kernel(self, x, b):
+        _check_card_level(self)
+        _check(self.geo, b, "b")
+        if not self.zero_start:
+            _check(self.geo, x, "x")
+        xout, r, _ = _launch(self, "chain", x=x, b=b, residual=self.emit_residual)
+        return (xout, r) if self.emit_residual else xout
 
 
 def build_fused_smoother(geo: StructuredGeometry, ke, inv_d, mask, *, nu: int,
@@ -138,62 +380,199 @@ def build_fused_smoother(geo: StructuredGeometry, ke, inv_d, mask, *, nu: int,
     CUDA tensor.
     """
     dtype, device = geo.dtype, geo.device
-    ke_t = torch.as_tensor(np.asarray(ke, np.float64), dtype=dtype, device=device)
+    ke64 = np.asarray(ke, np.float64)
+    ke_t = torch.as_tensor(ke64, dtype=dtype, device=device)
     inv_d = torch.as_tensor(inv_d, dtype=dtype, device=device).reshape(-1).contiguous()
     mask = torch.as_tensor(mask, dtype=dtype, device=device).reshape(-1).contiguous()
     if ke_t.shape != (geo.n_nodes * geo.vs,) * 2 or inv_d.numel() != geo.vs * geo.M:
         msg = "build_fused_smoother: ke or inv_d does not fit the level"
         raise ValueError(msg)
+    st = pid = None
+    mask_host = mask.cpu().numpy()
+    if smoother_geometry_ok(geo) and np.isin(mask_host, (0.0, 1.0)).all():
+        grid = tuple(g + 1 for g in geo.grid)
+        pid, table = pattern_stencils(ke64, mask_host, grid)
+        st = torch.as_tensor(table, dtype=dtype, device=device)
+        pid = torch.as_tensor(pid, device=device)
     return FusedChain(geo, ke_t.contiguous(), inv_d, mask, nu=nu, zero_start=zero_start,
-                      emit_residual=emit_residual)
+                      emit_residual=emit_residual, st=st, pid=pid)
 
 
-def _chain_kernel(geo, ke, inv_d, mask, x, b, *, nu, zero_start, emit_residual):
-    if geo.gdim == 2:
-        msg = (
-            "the K3 kernel takes 3D hex levels; 2D quad levels on the card are "
-            "not ported yet (ROADMAP.md Queue 1, K3 on 2D quad levels)"
-        )
-        raise NotImplementedError(msg)
-    if not smoother_geometry_ok(geo):
-        msg = "the K3 kernel supports the 3D P1 hex corner layout only"
-        raise ValueError(msg)
-    if geo.dtype not in _SYMBOL:
-        msg = f"the K3 kernel takes float32 or float64, got {geo.dtype}"
-        raise TypeError(msg)
-    _check(geo, b, "b")
-    M, s0, s1 = geo.M, geo.offsets[1], geo.offsets[2]
-    entry = _entry(b.dtype)
-    stream = torch.cuda.current_stream(b.device).cuda_stream
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
-    def launch(src, xout, rout, from_b, residual):
-        global launches
-        rc = entry(
-            src.data_ptr(), b.data_ptr(), inv_d.data_ptr(), ke.data_ptr(),
-            mask.data_ptr(), None if xout is None else xout.data_ptr(),
-            None if rout is None else rout.data_ptr(), int(from_b), int(residual),
-            M, s0, s1, stream,
-        )
-        launch_check("smoother", rc)
-        launches += 1
 
-    # src: the current iterate; from_b: it is x1 = inv_d * b, not yet written
-    if zero_start:
-        src, from_b = (b, True) if nu >= 1 else (torch.zeros_like(b), False)
-        sweeps = max(nu - 1, 0)
-    else:
-        _check(geo, x, "x")
-        src, from_b, sweeps = x, False, nu
+def _count(kind: str) -> None:
+    global launches
+    launches += 1
+    entry_launches[kind] += 1
+
+
+def _launch(chain: FusedChain, kind: str, *, x, b, residual: bool, xc=None, coarse=None,
+            restrict: bool = False):
+    """One cooperative launch of a chain: the first write (inv_d * b, or x
+    with ``xc`` prolonged, masked and added), the sweeps, and with
+    ``residual`` the residual and with ``restrict`` its restriction onto the
+    grid ``coarse``. Returns (x, r or None, b_coarse or None)."""
+    sweeps = max(chain.nu - 1, 0) if chain.zero_start else chain.nu
+    xout = torch.empty_like(b)
+    tmp = torch.empty_like(b) if sweeps else None
+    r = torch.empty_like(b) if residual else None
+    bc = b.new_empty(3 * math.prod(coarse)) if restrict else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    a = _Chain(chain.level(), ptr(x), ptr(b), ptr(xc), ptr(xout), ptr(tmp), ptr(r), ptr(bc),
+               *(coarse or (0, 0, 0)), int(chain.zero_start), int(residual),
+               int(xc is not None), int(restrict))
     with torch.cuda.device(b.device):
-        bufs = [torch.empty_like(b) for _ in range(min(sweeps, 2))]
-        for i in range(sweeps):
-            out = bufs[i % 2]
-            launch(src, out, None, from_b, False)
-            src, from_b = out, False
-        if emit_residual:
-            r = torch.empty_like(b)
-            xout = torch.empty_like(b) if from_b else None
-            launch(src, xout, r, from_b, True)
-            return (src if xout is None else xout), r
-    # a one-sweep zero-start chain applies no operator: x1 = inv_d * b
-    return inv_d * b if from_b else src
+        rc = _entry("chain", b.dtype)(ctypes.byref(a), _stream(b))
+    launch_check("smoother", rc)
+    _count(kind)
+    return xout, r, bc
+
+
+# -- the V-cycle -------------------------------------------------------------------------
+
+
+class FusedVcycle:
+    """The fused V-cycle over per-level chains (see the module docstring).
+
+    ``chains``: one dict per level, {"pre", "post"} above the coarsest and
+    {"coarse"} at it (the coarse chain runs unless ``coarse_inv``, the dense
+    inverse of the coarsest constrained operator, is given). ``node_grids``:
+    the levels' node grids. The chains are baked at the build's moduli,
+    dtype and device.
+    """
+
+    def __init__(self, chains, node_grids, coarse_inv=None):
+        self.chains = tuple(chains)
+        self.node_grids = tuple(tuple(g) for g in node_grids)
+        self.coarse_inv = coarse_inv
+        self.n_levels = len(self.chains)
+        self._tail_start: dict = {}
+
+    def _chain(self, lvl: int) -> FusedChain:
+        """A chain of level ``lvl`` (the level data are the same in each)."""
+        c = self.chains[lvl]
+        return c["coarse"] if "coarse" in c else c["pre"]
+
+    def patterns(self) -> list:
+        """Each level's number of stencils (patterns of cells)."""
+        return [self._chain(t).n_patterns for t in range(self.n_levels)]
+
+    def tail_start(self, device) -> int:
+        """The first level of the tail on this card (``tail_start``)."""
+        key = torch.device(device).index
+        if key not in self._tail_start:
+            itemsize = self._chain(0).inv_d.element_size()
+            self._tail_start[key] = tail_start(self.node_grids, self.patterns(), itemsize,
+                                               smem_optin(device))
+        return self._tail_start[key]
+
+    # -- the plain twins ---------------------------------------------------------------
+
+    def pre_restrict_plain(self, lvl: int, b: torch.Tensor):
+        x, r = self.chains[lvl]["pre"].plain(b)
+        return x, restrict_gm(r, self.node_grids[lvl])
+
+    def prolong_post_plain(self, lvl: int, x, b, xc):
+        post = self.chains[lvl]["post"]
+        fine = prolong_gm(xc, self.node_grids[lvl + 1], self.node_grids[lvl])
+        x = x + torch.where(post.inv_d != 0.0, fine, torch.zeros_like(fine))
+        return post.plain(x, b)
+
+    def coarse_plain(self, b: torch.Tensor) -> torch.Tensor:
+        chain = self.chains[-1]["coarse"]
+        if self.coarse_inv is None:
+            return chain.plain(b)
+        free, zero = chain.inv_d != 0.0, b.new_zeros(())
+        z = _matmul(self.coarse_inv.to(b.dtype), torch.where(free, b, zero))
+        return torch.where(free, z, zero)
+
+    def plain(self, b: torch.Tensor, lvl: int = 0) -> torch.Tensor:
+        """The V-cycle from level ``lvl`` down in plain PyTorch: the twin of
+        ``tail`` and of the whole cycle."""
+        if lvl == self.n_levels - 1:
+            return self.coarse_plain(b)
+        x, bc = self.pre_restrict_plain(lvl, b)
+        return self.prolong_post_plain(lvl, x, b, self.plain(bc, lvl + 1))
+
+    # -- the kernel entries ------------------------------------------------------------
+
+    def pre_restrict(self, lvl: int, b: torch.Tensor):
+        """Pre-chain, residual and restriction: (x, b of level lvl + 1)."""
+        if not b.is_cuda:
+            return self.pre_restrict_plain(lvl, b)
+        pre = self.chains[lvl]["pre"]
+        _check_card_level(pre)
+        _check(pre.geo, b, "b")
+        x, _, bc = _launch(pre, "pre_restrict", x=None, b=b, residual=True,
+                           coarse=self.node_grids[lvl + 1], restrict=True)
+        return x, bc
+
+    def prolong_post(self, lvl: int, x, b, xc):
+        """x + [free] P xc, then the post-chain."""
+        if not b.is_cuda:
+            return self.prolong_post_plain(lvl, x, b, xc)
+        post = self.chains[lvl]["post"]
+        _check_card_level(post)
+        _check(post.geo, b, "b")
+        _check(post.geo, x, "x")
+        _check(self._chain(lvl + 1).geo, xc, "xc")
+        xout, _, _ = _launch(post, "prolong_post", x=x, b=b, residual=False, xc=xc,
+                             coarse=self.node_grids[lvl + 1])
+        return xout
+
+    def tail(self, b: torch.Tensor, lvl: int) -> torch.Tensor:
+        """The V-cycle from level ``lvl`` down in one block."""
+        if not b.is_cuda:
+            return self.plain(b, lvl)
+        levels = [self._chain(t) for t in range(lvl, self.n_levels)]
+        for c in levels:
+            _check_card_level(c)
+        _check(levels[0].geo, b, "b")
+        need = tail_bytes(self.node_grids, self.patterns(), b.element_size(), lvl)
+        smem = smem_optin(b.device)
+        if need > smem or len(levels) > MAX_TAIL_LEVELS:
+            msg = (f"the one-block tail from level {lvl} (node grids {self.node_grids[lvl:]}) "
+                   f"needs {need} bytes of shared memory and {len(levels)} levels; the card "
+                   f"holds {smem} bytes per block and the kernel {MAX_TAIL_LEVELS} levels")
+            raise ValueError(msg)
+        xout = torch.empty_like(b)
+        a = _Tail()
+        for t, c in enumerate(levels):
+            a.lv[t] = c.level()
+        a.n_levels = len(levels)
+        cinv = None
+        if self.coarse_inv is not None:
+            cinv = self.coarse_inv
+            if cinv.dtype != b.dtype or cinv.device != b.device or not cinv.is_contiguous():
+                msg = "coarse_inv must be a contiguous tensor of the level's dtype and device"
+                raise ValueError(msg)
+        a.coarse_inv = None if cinv is None else cinv.data_ptr()
+        a.b, a.xout = b.data_ptr(), xout.data_ptr()
+        with torch.cuda.device(b.device):
+            rc = _entry("tail", b.dtype)(ctypes.byref(a), _stream(b))
+        launch_check("smoother", rc)
+        _count("tail")
+        return xout
+
+    def __call__(self, b: torch.Tensor, lvl: int = 0) -> torch.Tensor:
+        """One V-cycle from level ``lvl``: the kernels on CUDA tensors (one
+        launch per level above the tail, one tail, one per level on the way
+        up), the plain twins on CPU tensors."""
+        if not b.is_cuda:
+            return self.plain(b, lvl)
+        first = max(lvl, self.tail_start(b.device))
+        xs, bs = [], []
+        for level in range(lvl, first):
+            x, bc = self.pre_restrict(level, b)
+            xs.append(x)
+            bs.append(b)
+            b = bc
+        x = self.tail(b, first)
+        for level in reversed(range(lvl, first)):
+            x = self.prolong_post(level, xs[level - lvl], bs[level - lvl], x)
+        return x

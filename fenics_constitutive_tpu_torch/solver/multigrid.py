@@ -11,8 +11,9 @@ A matrix-free V-cycle on the node grid:
     slices per axis: no convolution, so no cuDNN and no TF32;
   * smoother: damped Jacobi with the level's constant elastic diagonal, or
     Chebyshev on the Jacobi-preconditioned operator (``smoother=
-    "chebyshev"``); with ``fused_smoothing`` each level's Jacobi chain runs
-    as the K3 kernel (ops/cuda_smoother.py) on a CUDA device;
+    "chebyshev"``); with ``fused_smoothing`` the whole V-cycle (chains,
+    transfers, coarse solve) runs as ops/cuda_smoother.py's FusedVcycle:
+    the K3 kernels on a CUDA device, a handful of launches per cycle;
   * Dirichlet dofs are carried to the coarse levels by injection;
   * coarsest level: damped Jacobi sweeps, or a dense inverse
     (``coarse_direct``) rescaled by kappa0/kappa under ``with_moduli``.
@@ -28,41 +29,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.cuda_smoother import coarse_len, prolong_gm, restrict_gm
 from ..ops.packed import IsotropicTangent
 from ..ops.structured import StructuredGeometry, _matmul
 
 __all__ = ["MultigridPreconditioner", "build_multigrid"]
-
-
-def _coarse_len(L: int) -> int:
-    return (L - 1) // 2 + 1
-
-
-def _restrict_last(x: torch.Tensor) -> torch.Tensor:
-    """1D restriction along the last axis: out[i] = x[2i-1]/2 + x[2i] + x[2i+1]/2
-    (zero outside), of length (L - 1)//2 + 1."""
-    L = x.shape[-1]
-    out = x[..., 0::2].clone()
-    odd = 0.5 * x[..., 1::2]  # odd[i] = x[2i+1] / 2
-    n_odd = odd.shape[-1]
-    out[..., :n_odd] += odd
-    out[..., 1 : 1 + n_odd] += odd[..., : _coarse_len(L) - 1]
-    return out
-
-
-def _prolong_last(x: torch.Tensor, Lf: int) -> torch.Tensor:
-    """1D trilinear interpolation along the last axis onto Lf nodes:
-    out[2i] = x[i], out[2i+1] = (x[i] + x[i+1]) / 2 with x past the end read
-    as 0. On a non-nested level (Lf = 2 Lc) the last fine node is x[-1]/2,
-    the extra row of the JAX package's (1, Lf - 2 Lc + 2) padding."""
-    Lc = x.shape[-1]
-    out = x.new_zeros((*x.shape[:-1], Lf))
-    out[..., 0::2] = x[..., : (Lf + 1) // 2]
-    half = 0.5 * x
-    n_odd = Lf // 2
-    out[..., 1::2] = half[..., :n_odd]
-    out[..., 1 : 2 * (Lc - 1) : 2] += half[..., 1:Lc]
-    return out
 
 
 class MultigridPreconditioner(nn.Module):
@@ -73,7 +44,9 @@ class MultigridPreconditioner(nn.Module):
 
     ``mu``/``kappa`` are floats or 0-d tensors (``with_moduli``); ``fused``
     holds the per-level K3 chains ({"pre", "post"} or {"coarse"}), baked at
-    the build-time moduli, dtype and device, or None.
+    the build-time moduli, dtype and device, or None; ``fused_cycle`` the
+    FusedVcycle over them, which runs every cycle that smooths the
+    constant-coefficient operator on level 0.
     """
 
     def __init__(
@@ -95,6 +68,7 @@ class MultigridPreconditioner(nn.Module):
         smoother: str = "jacobi",
         lmax: tuple = (),
         fused: tuple | None = None,
+        fused_cycle=None,
     ):
         super().__init__()
         self.geos = nn.ModuleList(geos)
@@ -122,13 +96,14 @@ class MultigridPreconditioner(nn.Module):
         #: per-level upper bounds on lambda_max(D^-1 A) from the build
         self.lmax = tuple(lmax)
         self.fused = fused
+        self.fused_cycle = fused_cycle
 
     def with_moduli(self, mu, kappa) -> MultigridPreconditioner:
         """A preconditioner with new moduli (floats or 0-d tensors, never read
         back to the host), sharing the level data. The fused chains are
         dropped: their element matrices are baked at the build-time moduli."""
         new = copy.copy(self)
-        new.mu, new.kappa, new.fused = mu, kappa, None
+        new.mu, new.kappa, new.fused, new.fused_cycle = mu, kappa, None, None
         return new
 
     def free(self, lvl: int) -> torch.Tensor:
@@ -153,45 +128,33 @@ class MultigridPreconditioner(nn.Module):
     def restrict(self, x_fine: torch.Tensor, lvl: int) -> torch.Tensor:
         """fine level lvl -> coarse level lvl+1, R = P^T exactly (residuals
         are integrated functionals, so no 1/2^d scaling)."""
-        g = x_fine.reshape((self.vs, *self.node_grids[lvl]))
-        for d in range(1, g.dim()):
-            g = _restrict_last(g.movedim(d, -1)).movedim(-1, d)
-        return g.reshape(-1)
+        return restrict_gm(x_fine, self.node_grids[lvl])
 
     def prolong(self, x_coarse: torch.Tensor, lvl: int) -> torch.Tensor:
         """coarse level lvl+1 -> fine level lvl (trilinear interpolation)."""
-        g = x_coarse.reshape((self.vs, *self.node_grids[lvl + 1]))
-        for d, Lf in enumerate(self.node_grids[lvl], start=1):
-            g = _prolong_last(g.movedim(d, -1), Lf).movedim(-1, d)
-        return g.reshape(-1)
+        return prolong_gm(x_coarse, self.node_grids[lvl + 1], self.node_grids[lvl])
 
     # -- cycles ---------------------------------------------------------------------
 
     def vcycle(self, lvl: int, b: torch.Tensor, fine_tangent=None, fine_diag=None):
         """One V-cycle from level ``lvl``. With ``fine_tangent`` (and its
         grid-major Jacobi diagonal ``fine_diag``) level 0 smooths the given
-        consistent tangent with damped Jacobi (see ``prepared``)."""
+        consistent tangent with damped Jacobi (see ``prepared``). With the
+        fused chains every other cycle (and the levels below a true-tangent
+        level 0) runs as the FusedVcycle, which masks b itself and reads no
+        diagonal of this module."""
+        true_tangent = lvl == 0 and fine_tangent is not None
+        if self.fused_cycle is not None and not true_tangent:
+            return self.fused_cycle(b, lvl)
         geo = self.geos[lvl]
         free = self.free(lvl)
         zero, one = b.new_zeros(()), b.new_ones(())
-        true_tangent = lvl == 0 and fine_tangent is not None
         if true_tangent:
             diag = torch.where(free, fine_diag, one)
         else:
             diag = torch.where(free, self._diag(lvl).to(b.dtype), one)
         inv_d = self.omega / diag
         b = torch.where(free, b, zero)
-
-        # K3 chains on the constant-coefficient levels
-        fused = self.fused[lvl] if self.fused is not None and not true_tangent else None
-        if fused is not None:
-            if lvl < self.n_levels - 1:
-                x, r = fused["pre"](b)
-                xc = self.vcycle(lvl + 1, self.restrict(r, lvl))
-                x = x + torch.where(free, self.prolong(xc, lvl), zero)
-                return fused["post"](x, b)
-            if self.coarse_inv is None:
-                return fused["coarse"](b)
 
         if lvl == 0 and self.fine_matvec is not None:
             tg = fine_tangent if true_tangent else self._tangent(b.dtype, b.device)
@@ -328,10 +291,12 @@ def build_multigrid(
     keeps each level's operator nonsingular.
     ``smoother``: "jacobi" or "chebyshev" (per-level lmax by 50 power
     iterations at the build-time moduli).
-    ``fused_smoothing``: run each level's Jacobi chain (pre: sweeps and
-    residual; post: sweeps; coarsest without ``coarse_direct``: sweeps) as
-    one K3 chain (ops/cuda_smoother.py), with the element matrix baked at the
-    build-time moduli. It takes the Jacobi smoother and no ``fine_matvec``.
+    ``fused_smoothing``: run the V-cycle as ops/cuda_smoother.py's
+    FusedVcycle over one K3 chain per level and pass (pre: sweeps and
+    residual; post: sweeps; coarsest without ``coarse_direct``: sweeps),
+    with the transfers and the coarse solve, the element matrices baked at
+    the build-time moduli. It takes the Jacobi smoother and no
+    ``fine_matvec``.
     """
     from ..fem.mesh import unit_cube_mesh, unit_square_mesh
     from ..fem.spaces import FunctionSpace
@@ -350,7 +315,7 @@ def build_multigrid(
     vs, gdim = geo.vs, geo.gdim
     node_grids = [tuple(g + 1 for g in geo.grid)]
     while min(node_grids[-1]) > min_size + 1:
-        node_grids.append(tuple(_coarse_len(L) for L in node_grids[-1]))
+        node_grids.append(tuple(coarse_len(L) for L in node_grids[-1]))
     cell_grids = [tuple(L - 1 for L in ng) for ng in node_grids]
 
     def synth_geo(cells):
@@ -416,9 +381,9 @@ def build_multigrid(
         A = torch.stack(cols, dim=1).cpu().numpy().astype(np.float64)
         coarse_inv = torch.as_tensor(np.linalg.inv(A), dtype=dtype, device=device)
 
-    fused = None
+    fused = fused_cycle = None
     if fused_smoothing:
-        from ..ops.cuda_smoother import build_fused_smoother
+        from ..ops.cuda_smoother import FusedVcycle, build_fused_smoother
 
         entries = []
         for lvl, g in enumerate(geos):
@@ -439,6 +404,7 @@ def build_multigrid(
             else:
                 entries.append({"pre": mk(lvl_nu, True, True), "post": mk(lvl_nu, False, False)})
         fused = tuple(entries)
+        fused_cycle = FusedVcycle(fused, node_grids, coarse_inv)
 
     return MultigridPreconditioner(
         geos=geos,
@@ -457,4 +423,5 @@ def build_multigrid(
         smoother=smoother,
         lmax=lmax,
         fused=fused,
+        fused_cycle=fused_cycle,
     )

@@ -145,7 +145,8 @@ def test_quad_level_on_the_card_is_not_ported():
     g = build_structured_geometry(V, 2, Constraint.PLANE_STRAIN, device="cpu", dtype=F64)
     ke = np.eye(8)
     z = torch.zeros(V.ndofs, dtype=F64)
+    chain = cuda_smoother.build_fused_smoother(g, ke, z, g.mask, nu=2, zero_start=True,
+                                               emit_residual=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cuda_smoother._chain_kernel(g, torch.tensor(ke), z, g.mask, None, z, nu=2,
-                                    zero_start=True, emit_residual=False)
+        chain._kernel(None, z)
     assert not cuda_smoother.smoother_geometry_ok(g)
