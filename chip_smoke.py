@@ -16,9 +16,14 @@ exits non-zero before the last line:
      bit-equal across two launches; its call time, its kernel's time on the
      card (torch.profiler), its device ops per apply (must be 1), and a
      sweep of the node brick one block owns.
-  4. K2, the fused VonMises3D eval + assembly, against its plain version at
-     50^3 from a plastic pre-state, every output, float64 and float32; its
-     call time and its kernel's time on the card.
+  4. K2, the fused VonMises3D eval + assembly (one cooperative launch that
+     writes the new state and the residual's node values), against its plain
+     version from a plastic pre-state, every output, float64 and float32, at
+     50^3, on an 11 x 10 x 10 box and on a 3 x 2 x 400 box (z-lines longer
+     than a block's run of nodes), bit-equal across two launches; its call
+     time, its kernel's time on the card, its device ops per call (must be
+     1), and a replay of one call from a CUDA graph, which must be
+     bit-equal.
   5. the benchmark workload on the port (1M quadrature points, float32,
      max_newton=1, fixed-9 CG, V(3,3) multigrid with a direct coarse solve,
      both kernels): three warm-up load steps, a timed window of 48 steps,
@@ -112,7 +117,7 @@ and counts one V-cycle's device ops both ways, and prints no JSON.
 
     python3 chip_smoke.py --ab PARENT CHANGE
 
-runs phases 3, 11 and 12, the box profile, and phases 7-9 from two
+runs phases 3, 4, 11 and 12, the box profile, and phases 7-9 from two
 checkouts of the repository (e.g. `git archive`s of the parent commit and of
 the change) in turns, parent, change, change, parent, each in its own
 process on the same card, and prints no JSON.
@@ -445,61 +450,140 @@ def phase_k1(results: dict) -> None:
     print("phase 3 K1 vs plain at 50^3: " + "; ".join(line))
 
 
-def phase_k2(results: dict) -> None:
-    from fenics_constitutive_tpu_torch.models import Constraint, VonMises3D
-    from fenics_constitutive_tpu_torch.ops import cuda_eval
+def k2_case(V, law, dtype, seed: int):
+    """A K2 input on V's box: a plastic pre-state (one plain eval from zero)
+    and an increment, their nodal amplitudes scaled by the cell size h so
+    that the strains are a few percent, past yield (7.2e-4 and 2.4e-4 on
+    h = 1/50). Returns (geometry, (du, stress, history))."""
+    from fenics_constitutive_tpu_torch.models import Constraint
     from fenics_constitutive_tpu_torch.ops.structured import build_structured_geometry
+
+    geo = build_structured_geometry(V, 2, Constraint.FULL, device="cuda", dtype=dtype)
+    h = 1.0 / max(geo.grid)
+    rng = np.random.default_rng(seed)
+    sig1, _, hist1 = plastic_tangent(geo, law, rng, 0.036 * h)
+    if float(hist1["alpha"].max()) <= 0:
+        fail("K2 pre-state is not plastic")
+    du = torch.as_tensor(rng.normal(size=V.ndofs) * 0.012 * h, dtype=dtype, device="cuda")
+    return geo, (du, sig1, hist1)
+
+
+def k2_outputs(out) -> dict:
+    """K2's outputs by name."""
+    r, stress, (beta, gamma, n), hist = out
+    return {"r": r, "stress": stress, "beta": beta, "gamma": gamma, "n": n,
+            "eps_n": hist["eps_n"], "alpha": hist["alpha"]}
+
+
+def check_k2(label: str, fused, args, ref, dtype, tol) -> dict:
+    """K2 against the plain outputs ``ref``: every output finite, of the plain
+    shape, bit-equal across two launches and within tol normwise. Returns
+    {output: (max abs error, rel)}."""
+    got, again, want = k2_outputs(fused(*args)), k2_outputs(fused(*args)), k2_outputs(ref)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, b in want.items():
+        a = got[name]
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            fail(f"K2 {label} {dtype} {name}: shape {tuple(a.shape)} vs {tuple(b.shape)} or "
+                 "non-finite values")
+        if not torch.equal(a, again[name]):
+            fail(f"K2 {label} {dtype} {name} differs between two launches")
+        errs[name] = normwise(a, b)
+        if errs[name][1] > tol:
+            fail(f"K2 {label} {dtype} {name} disagrees with the plain version: rel "
+                 f"{errs[name][1]:.3e} > {tol:g}")
+    return errs
+
+
+def k2_graph_replay(fused, args) -> str:
+    """Capture one K2 call (a cooperative launch) in a CUDA graph and replay
+    it: the replay must be bit-equal to a direct launch. A capture or a
+    replay that fails fails the phase: a graph of the whole step rests on
+    it."""
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused(*args)  # warm-up on the capture stream, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    try:
+        with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+            out_g = fused(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        graph.replay()
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        fail(f"K2 in a CUDA graph: capture or replay failed: {err}")
+    again = k2_outputs(fused(*args))
+    if not all(torch.equal(a, again[k]) for k, a in k2_outputs(out_g).items()):
+        fail("K2 replayed from a CUDA graph differs from a direct launch")
+    return "one call captured in a CUDA graph replays bit-equal"
+
+
+#: K2's small boxes (cells): brick edges in every direction, and z-lines of
+#: 401 nodes, longer than the 256-node run a block sums at a time plus one,
+#: whose two windows skip the cells between their two planes
+K2_BOXES = ((11, 10, 10), (3, 2, 400))
+
+
+def phase_k2(results: dict) -> None:
+    """K2 against its plain version, every output, float64 and float32: on
+    the 50^3 box and the K2_BOXES, two launches bit-equal; its call time,
+    its kernel's time on the card, its device ops per call (must be 1) and
+    a replay of one call captured in a CUDA graph (float32)."""
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace, unit_cube_mesh
+    from fenics_constitutive_tpu_torch.models import VonMises3D
+    from fenics_constitutive_tpu_torch.ops import cuda_eval
 
     V, _ = box(N_BENCH)
     law = VonMises3D(MAT)
+    small = {"x".join(map(str, c)): FunctionSpace(unit_cube_mesh(*c, "hex"), 1, 3)
+             for c in K2_BOXES}
     for dtype, tol in ((torch.float64, TOL_F64_K2), (torch.float32, TOL_F32_K2)):
-        geo = build_structured_geometry(V, 2, Constraint.FULL, device="cuda", dtype=dtype)
-        rng = np.random.default_rng(0)
-        sig1, _, hist1 = plastic_tangent(geo, law, rng, 7.2e-4)
-        if float(hist1["alpha"].max()) <= 0:
-            fail("K2 pre-state is not plastic")
-        du = torch.as_tensor(rng.normal(size=V.ndofs) * 2.4e-4, dtype=dtype, device="cuda")
+        name = str(dtype)[6:]
+        geo, args = k2_case(V, law, dtype, 0)
         fused = cuda_eval.build_cuda_eval(geo, law)
-        out_k = fused(du, sig1, hist1)
-        torch.cuda.synchronize()
-        out_p = cuda_eval.eval_plain(geo, law, du, sig1, hist1)
-        fields = {
-            "F": (out_k[0], out_p[0]),
-            "stress": (out_k[1], out_p[1]),
-            "beta": (out_k[2][0], out_p[2][0]),
-            "gamma": (out_k[2][1], out_p[2][1]),
-            "n": (out_k[2][2], out_p[2][2]),
-            "eps_n": (out_k[3]["eps_n"], out_p[3]["eps_n"]),
-            "alpha": (out_k[3]["alpha"], out_p[3]["alpha"]),
-        }
-        parts, worst = [], 0.0
-        for name, (a, b) in fields.items():
-            if a.shape != b.shape or not torch.isfinite(a).all():
-                fail(f"K2 {name}: shape {tuple(a.shape)} vs {tuple(b.shape)} or non-finite")
-            err, rel = normwise(a, b)
-            worst = max(worst, rel)
-            parts.append(f"{name} {rel:.2e}")
-        plastic = float((out_p[3]["alpha"] > hist1["alpha"]).double().mean())
-        print(f"phase 4 K2 vs plain at 50^3 {str(dtype)[6:]} (plastic share {plastic:.3f}), "
-              f"rel err per field: " + ", ".join(parts) + f" (tol {tol:g})")
-        if worst > tol:
-            fail(f"K2 {dtype} disagrees with the plain version: rel {worst:.3e} > {tol:g}")
+        ref = cuda_eval.eval_plain(geo, law, *args)
+        errs = check_k2("50^3", fused, args, ref, dtype, tol)
+        plastic = float((ref[3]["alpha"] > args[2]["alpha"]).double().mean())
+        line = [f"50^3 (plastic share {plastic:.3f}) rel err per output: "
+                + ", ".join(f"{k} {rel:.2e}" for k, (_, rel) in errs.items())]
+        for seed, (label, V_s) in enumerate(small.items(), start=5):
+            geo_s, args_s = k2_case(V_s, law, dtype, seed)
+            ref_s = cuda_eval.eval_plain(geo_s, law, *args_s)
+            errs_s = check_k2(label, cuda_eval.build_cuda_eval(geo_s, law), args_s, ref_s,
+                              dtype, tol)
+            line.append(f"{label} (nodes {'x'.join(str(g + 1) for g in geo_s.grid)}) worst rel "
+                        f"{max(rel for _, rel in errs_s.values()):.2e}")
         if dtype == torch.float32:
-            ms = cuda_ms(lambda: fused(du, sig1, hist1))
-            dev = device_ms(lambda: fused(du, sig1, hist1))
-            plain_ms = cuda_ms(lambda: cuda_eval.eval_plain(geo, law, du, sig1, hist1))
-            err_f, _ = normwise(out_k[0], out_p[0])
-            # du, stress, eps_n, alpha, mask in (108 M values); F, stress,
-            # beta, gamma, n, eps_n, alpha out (192 M). Operations: the strain
-            # and divergence products and ~100 per Gauss point for the trial
-            # state, not counting the local Newton trips (a lower bound)
+            ms = cuda_ms(lambda: fused(*args))
+            dev = device_ms(lambda: fused(*args))
+            k2_launches, others, counted = kernel_ops(lambda: fused(*args), cuda_eval,
+                                                      ("eval_kernel",))
+            ops = k2_launches + others
+            plain_ms = cuda_ms(lambda: cuda_eval.eval_plain(geo, law, *args))
+            # du 3, stress 48, eps_n 48, alpha 8, mask 1 in; r 3, stress 48,
+            # eps_n 48, n 48, alpha 8, beta 8, gamma 8 out: 279 M values.
+            # Operations: per valid cell the gradient-structured strain and
+            # divergence (2 x 576 multiply-adds) and ~100 per Gauss point for
+            # the trial state, not counting the local Newton trips; the node
+            # sums (a lower bound)
             M, cells = geo.M, float(geo.mask.sum())
-            bound, by = bound_ms(4 * 300 * M, cells * (4 * 1152 + 8 * 100), dtype)
-            results["K2"] = {"max_abs_err": err_f, "ms": ms, "plain_ms": plain_ms,
+            bound, by = bound_ms(4 * 279 * M, cells * (4 * 576 + 8 * 100) + 21 * M, dtype)
+            results["K2"] = {"max_abs_err": errs["r"][0], "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound, "bound_by": by, "library_ms": None,
-                             "device_ms": dev}
-            print(f"phase 4 K2 f32 time: {ms:.4f} ms/call (kernel on the card {dev:.4f}) vs "
-                  f"plain {plain_ms:.4f} ms (bound {bound:.4f} ms, {by})")
+                             "device_ms": dev, "device_ops": ops}
+            line.append(f"f32 {ms:.4f} ms/call (kernel on the card {dev:.4f}, {ops:g} device ops "
+                        f"per call, other ops by the {counted}) vs plain {plain_ms:.4f} ms (bound "
+                        f"{bound:.4f} ms, {by})")
+            if ops != 1:
+                fail(f"K2 takes {ops:g} device ops per call, expected 1")
+            line.append(k2_graph_replay(fused, args))
+        else:
+            line.append(f"f64 kernel on the card {device_ms(lambda: fused(*args)):.4f} ms")
+        print(f"phase 4 K2 vs plain {name} (tol {tol:g}; every output bit-equal across two "
+              f"launches): " + "; ".join(line))
 
 
 def bench_setup(n: int, dtype, device, fused: bool = False):
@@ -1657,7 +1741,7 @@ def profiler_check(reps: int = 25, iters: int = 20) -> None:
           f"aten count {aten_device_ops(lambda: mg(r))}")
 
 
-#: phases 3, 11 and 12 (the box, with the box profile) and 7-9 (the tets), as
+#: phases 3, 4, 11 and 12 (the box, with the box profile) and 7-9 (the tets), as
 #: both the parent commit's and this script's checkouts have them
 AB_PHASES = """
 import pathlib, tempfile, torch, chip_smoke as c
@@ -1665,6 +1749,7 @@ c.phase_device()
 c.phase_build()
 results = {}
 c.timed("phase 3", c.phase_k1, results)
+c.timed("phase 4", c.phase_k2, results)
 c.timed("phase 11", c.phase_k3, results)
 box = {"mg": c.bench_setup(c.N_BENCH, torch.float32, "cuda")[3], "ms_step": float("nan")}
 c.timed("phase 12", c.phase_bench_fused, box)
@@ -1678,7 +1763,7 @@ c.timed("phase 9", c.phase_tet_bench, tet)
 
 
 def ab(parent: str, change: str) -> None:
-    """``--ab PARENT CHANGE``: phases 3, 11, 12, the box profile and phases 7-9
+    """``--ab PARENT CHANGE``: phases 3, 4, 11, 12, the box profile and phases 7-9
     from two checkouts in turns (parent, change, change, parent), each in its
     own process on the same card."""
     import sys

@@ -42,7 +42,6 @@ namespace {
 using namespace fct;
 
 constexpr int kThreadsMv = 256;
-constexpr int kTab = kQ * kNodes * 3;  // dN table [q][a][i]
 
 // the 24 corner forces of the valid cell at origin n (mask m != 0); dq is
 // the gradient table [q][a][i] and wq the weights [q], in shared memory
@@ -59,23 +58,8 @@ __device__ __forceinline__ void cell_forces(const T* __restrict__ u, const T* __
 #pragma unroll 1
   for (int q = 0; q < kQ; ++q) {
     const T* d = dq + q * kNodes * 3;
-    T H[3][3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) H[i][j] = T(0);
-    }
-#pragma unroll
-    for (int a = 0; a < kNodes; ++a) {
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-#pragma unroll
-        for (int j = 0; j < 3; ++j) H[i][j] += d[a * 3 + i] * U[a * kVs + j];
-      }
-    }
-    // Mandel strain of the FULL constraint: e3..e5 = (H_ij + H_ji) / sqrt 2
-    const T e[kS] = {H[0][0] * m, H[1][1] * m, H[2][2] * m, c * (H[0][1] + H[1][0]) * m,
-                     c * (H[0][2] + H[2][0]) * m, c * (H[1][2] + H[2][1]) * m};
+    T e[kS];
+    strain_at(d, U, c, m, e);
 
     T b, g, nq[kS];
     if (uniform) {
@@ -104,21 +88,7 @@ __device__ __forceinline__ void cell_forces(const T* __restrict__ u, const T* __
       if (s < 3) v += corr;
       sig[s] = v * m;
     }
-    // T = w_q Mandel^T(sig), symmetric
-    const T w = wq[q], wc = w * c;
-    const T Tm[3][3] = {{w * sig[0], wc * sig[3], wc * sig[4]},
-                        {wc * sig[3], w * sig[1], wc * sig[5]},
-                        {wc * sig[4], wc * sig[5], w * sig[2]}};
-#pragma unroll
-    for (int a = 0; a < kNodes; ++a) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        T acc = Fa[a * kVs + j];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) acc += d[a * 3 + i] * Tm[i][j];
-        Fa[a * kVs + j] = acc;
-      }
-    }
+    add_divergence(d, wq[q], c, sig, Fa);
   }
 }
 
@@ -133,9 +103,7 @@ matvec_kernel(const T* __restrict__ u, const T* __restrict__ beta,
   T* dq = reinterpret_cast<T*>(smem_raw);
   T* wq = dq + kTab;
   T* Fs = wq + kQ;  // [24][cells]
-  for (int i = threadIdx.x; i < kTab; i += blockDim.x) dq[i] = dn[i];
-  for (int i = threadIdx.x; i < kQ; i += blockDim.x) wq[i] = w[i];
-  __syncthreads();
+  load_tables(dn, w, dq, wq);
 
   const int M = n0 * n1 * n2, s1 = n2, s0 = n1 * n2;
   const int h1n = b1 + 1, h2n = b2 + 1, cells = (b0 + 1) * h1n * h2n;
@@ -194,15 +162,11 @@ int launch(const void* u, const void* beta, const void* gamma, const void* nfiel
            const void* mask, const void* dn, const void* w, void* r, double kappa,
            double beta_u, double gamma_u, double c, int uniform, int n0, int n1, int n2, int b0,
            int b1, int b2, void* stream) {
-  // above 48 KB only as opted-in dynamic shared memory
+  // above 48 KB only as opted-in dynamic shared memory, once per device
   const size_t bytes = smem_bytes<T>(b0, b1, b2);
-  static size_t opted = 0;
-  if (bytes > opted) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        matvec_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    opted = bytes;
-  }
+  static size_t opted[kMaxDevices] = {};
+  const cudaError_t e = opt_in_smem(matvec_kernel<T>, bytes, opted);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((n2 + b2 - 1) / b2, (n1 + b1 - 1) / b1, (n0 + b0 - 1) / b0);
   matvec_kernel<T><<<grid, kThreadsMv, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(u), static_cast<const T*>(beta), static_cast<const T*>(gamma),

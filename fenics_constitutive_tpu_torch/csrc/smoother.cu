@@ -462,22 +462,21 @@ __global__ void __launch_bounds__(kTailThreads) tail_kernel(FctTail a) {
 template <typename T>
 int launch_chain(const FctChain* args, void* stream) {
   // the persistent grid: as many blocks as the SMs hold at once with this
-  // many stencils in shared memory, once per device and pattern count
-  constexpr int kDevs = 16, kPats = 257;
-  static int cap[kDevs][kPats] = {};
-  static size_t opted = 0;
+  // many stencils in shared memory, once per device and pattern count; the
+  // shared-memory opt-in once per device
+  constexpr int kPats = 257;
+  static int cap[fct::kMaxDevices][kPats] = {};
+  static size_t opted[fct::kMaxDevices] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_pat = args->lv.n_pat;
-  if (dev >= kDevs || n_pat < 1 || n_pat >= kPats) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = static_cast<size_t>(n_pat) * kStencilValues * sizeof(T);
-  if (bytes > opted) {
-    e = cudaFuncSetAttribute(chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    opted = bytes;
+  if (dev >= fct::kMaxDevices || n_pat < 1 || n_pat >= kPats) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const size_t bytes = static_cast<size_t>(n_pat) * kStencilValues * sizeof(T);
+  e = fct::opt_in_smem(chain_kernel<T>, bytes, opted);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (cap[dev][n_pat] == 0) {
     int per_sm = 0, sms = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_kernel<T>, kChainThreads,

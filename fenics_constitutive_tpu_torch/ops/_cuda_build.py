@@ -60,8 +60,9 @@ def _source_hash(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its library is missing, then load it.
+def load_library(name: str, src: Path | None = None) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` (or ``src``, a source outside the package
+    that includes ``common.cuh``) if its library is missing, then load it.
 
     Each library has its own lock, so threads may build several at once.
     """
@@ -70,7 +71,7 @@ def load_library(name: str) -> ctypes.CDLL:
     with lock:
         if name in _libs:
             return _libs[name]
-        src = CSRC / f"{name}.cu"
+        src = src or CSRC / f"{name}.cu"
         out = BUILD_DIR / f"lib{name}_{_source_hash(src)}.so"
         seconds, log = 0.0, ""
         if not out.exists():

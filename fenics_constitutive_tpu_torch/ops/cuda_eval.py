@@ -2,17 +2,21 @@
 plain twin.
 
 ``build_cuda_eval(geo, model)`` returns
-``eval_assemble(du_gm, stress, history) -> (F_corner, stress', (beta, gamma,
-n), history')`` for ``VonMises3D`` on the structured hex engine. ``F_corner``
-is the [24, M] per-corner force field (the caller sums it onto the nodes with
-``geo._scatter_corners``), the tangent fields are beta, gamma [Q, M] and n
-[6, Q, M] (kappa is the model's bulk modulus), and the history is
-``{"eps_n": [6, Q, M], "alpha": [1, Q, M]}``.
+``eval_assemble(du_gm, stress, history) -> (r_gm, stress', (beta, gamma, n),
+history')`` for ``VonMises3D`` on the structured hex engine. ``r_gm`` is the
+assembled residual [3*M] (grid-major), the tangent fields are beta, gamma
+[Q, M] and n [6, Q, M] (kappa is the model's bulk modulus), and the history
+is ``{"eps_n": [6, Q, M], "alpha": [1, Q, M]}``.
 
-On a CUDA tensor it launches ``csrc/eval.cu``; on a CPU tensor it runs the
-plain PyTorch version (``eval_plain``: strain_gm -> the SoA radial return ->
-the masked divergence). It never falls back from the kernel to the plain
-version: an unsupported input on the card raises.
+On a CUDA tensor it makes ONE cooperative launch of ``csrc/eval.cu``: every
+cell's corner gather, strain, radial return and new state, a grid-wide
+barrier, then each node's sum of its 8 cells' corner forces (formed from
+the new stress) in the order of the plain version's shifted adds. It writes
+the node values and every state output; no op runs after it. On a
+CPU tensor it runs the plain PyTorch version (``eval_plain``: strain_gm ->
+the SoA radial return -> residual_gm, the plain step's own computation). It
+never falls back from the kernel to the plain version: an unsupported input
+on the card raises.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 from ..models.mises import VonMises3D
 from ..models.packed_models import newton_controls
 from ._cuda_build import entry_point, launch_check
-from .cuda_matvec import check_cuda_args, hot_path_geometry
+from .cuda_matvec import check_cuda_args, hex_tables, hot_path_geometry
 from .structured import StructuredGeometry
 
 __all__ = ["build_cuda_eval", "eval_plain", "launches"]
@@ -34,7 +38,7 @@ launches = 0
 
 _P = ctypes.c_void_p
 _ARGTYPES = (
-    [_P] * 14 + [ctypes.c_double] * 7 + [ctypes.c_int, ctypes.c_double]
+    [_P] * 14 + [ctypes.c_double] * 7 + [ctypes.c_int] + [ctypes.c_double] * 2
     + [ctypes.c_int] * 3 + [_P]
 )
 _SYMBOL = {torch.float32: "fct_eval_f32", torch.float64: "fct_eval_f64"}
@@ -52,13 +56,12 @@ def eval_plain(geo: StructuredGeometry, model, du_gm, stress, history):
     Q, M = geo.n_qp, geo.M
     eps = geo.strain_gm(du_gm)
     s_new, tg, h_new = model.evaluate_packed(0.0, 1.0, eps, stress, history)
-    F = geo._corner_forces(s_new)
     fields = (
         torch.as_tensor(tg.beta).expand(Q, M),
         torch.as_tensor(tg.gamma).expand(Q, M),
         tg.n.expand(6, Q, M),
     )
-    return F, s_new, fields, h_new
+    return geo.residual_gm(s_new), s_new, fields, h_new
 
 
 def build_cuda_eval(geo: StructuredGeometry, model: VonMises3D):
@@ -71,9 +74,8 @@ def build_cuda_eval(geo: StructuredGeometry, model: VonMises3D):
         msg = f"the fused eval implements VonMises3D, got {type(model).__name__}"
         raise TypeError(msg)
     M, Q = geo.M, geo.n_qp
-    s0 = s1 = 0
-    if hot_path_geometry(geo):
-        s0, s1 = geo.offsets[1], geo.offsets[2]
+    node_grid = tuple(g + 1 for g in geo.grid)
+    tables = hex_tables(geo) if hot_path_geometry(geo) else {}
 
     def eval_assemble(du_gm, stress, history):
         global launches
@@ -95,7 +97,7 @@ def build_cuda_eval(geo: StructuredGeometry, model: VonMises3D):
         def empty(*shape):
             return torch.empty(shape, dtype=dtype, device=dev)
 
-        F = empty(24, M)
+        r = empty(3 * M)
         s_new, e_new, n_new = empty(6, Q, M), empty(6, Q, M), empty(6, Q, M)
         a_new, beta, gamma = empty(1, Q, M), empty(Q, M), empty(Q, M)
         p = model.params
@@ -104,15 +106,16 @@ def build_cuda_eval(geo: StructuredGeometry, model: VonMises3D):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = _entry(dtype)(
                 du_gm.data_ptr(), stress.data_ptr(), eps_n.data_ptr(),
-                alpha.data_ptr(), geo.mask.data_ptr(), geo.KEPS_c.data_ptr(),
-                geo.KDIV_c.data_ptr(), F.data_ptr(), s_new.data_ptr(),
+                alpha.data_ptr(), geo.mask.data_ptr(), tables["dn"].data_ptr(),
+                tables["w"].data_ptr(), r.data_ptr(), s_new.data_ptr(),
                 e_new.data_ptr(), a_new.data_ptr(), beta.data_ptr(),
                 gamma.data_ptr(), n_new.data_ptr(),
                 p["p_ka"], p["p_mu"], p["p_y0"], p["p_y00"], p["p_w"],
-                tol, rtol, max_it, torch.finfo(dtype).eps, M, s0, s1, stream,
+                tol, rtol, max_it, torch.finfo(dtype).eps, tables["c"],
+                *node_grid, stream,
             )
         launch_check("eval", rc)
         launches += 1
-        return F, s_new, (beta, gamma, n_new), {"eps_n": e_new, "alpha": a_new}
+        return r, s_new, (beta, gamma, n_new), {"eps_n": e_new, "alpha": a_new}
 
     return eval_assemble

@@ -23,7 +23,9 @@ from . import mandel
 from .packed import IsotropicTangent
 from .structured import StructuredGeometry
 
-__all__ = ["build_cuda_matvec", "hex_corner_layout", "launches", "matvec_plain"]
+__all__ = [
+    "build_cuda_matvec", "hex_corner_layout", "hex_tables", "launches", "matvec_plain",
+]
 
 #: number of kernel launches made by the wrappers of this module
 launches = 0
@@ -85,6 +87,19 @@ def matvec_plain(geo: StructuredGeometry, u_gm: torch.Tensor, tangent) -> torch.
     return geo.matvec_gm(u_gm, tangent)
 
 
+def hex_tables(geo: StructuredGeometry) -> dict:
+    """What the brick kernels (K1, K2) read of a hot-path geometry, in its
+    dtype and device: the cells' gradient table ``dn`` [q][a][i], the
+    quadrature weights ``w`` and the Mandel shear factor ``c`` of the
+    constraint."""
+    dn = np.ascontiguousarray(np.transpose(geo.dN_host, (2, 0, 1)))
+    return {
+        "dn": torch.as_tensor(dn, dtype=geo.dtype, device=geo.device),
+        "w": torch.as_tensor(geo.w_host, dtype=geo.dtype, device=geo.device),
+        "c": float(mandel._mandel_matrix_map(geo.constraint)[3, 0, 1]),
+    }
+
+
 def brick(node_grid) -> tuple[int, int, int]:
     """The brick of nodes one block of the kernel owns: 4 x 8 across, and
     along z the fewest runs of at most 17 nodes. Its (b0+1)(b1+1)(b2+1)
@@ -114,15 +129,8 @@ def build_cuda_matvec(geo: StructuredGeometry, *, brick_nodes=None):
     node_grid = tuple(g + 1 for g in geo.grid)
     tables = {}
     if hot_path_geometry(geo):
-        # the cells' gradient table [q][a][i], the weights and the Mandel
-        # shear factor of the constraint, in the geometry's dtype and device
-        tables = {
-            "dn": torch.as_tensor(np.ascontiguousarray(np.transpose(geo.dN_host, (2, 0, 1))),
-                                  dtype=geo.dtype, device=geo.device),
-            "w": torch.as_tensor(geo.w_host, dtype=geo.dtype, device=geo.device),
-            "c": float(mandel._mandel_matrix_map(geo.constraint)[3, 0, 1]),
-            "brick": tuple(brick_nodes) if brick_nodes else brick(node_grid),
-        }
+        tables = {**hex_tables(geo),
+                  "brick": tuple(brick_nodes) if brick_nodes else brick(node_grid)}
 
     def matvec(u_gm: torch.Tensor, tangent: IsotropicTangent) -> torch.Tensor:
         global launches

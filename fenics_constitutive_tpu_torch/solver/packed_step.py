@@ -310,9 +310,9 @@ def make_packed_step(
         if id(model) not in kernel_evals:
             kernel_evals[id(model)] = (model, build_cuda_eval(geo, model))
         fused = kernel_evals[id(model)][1]
-        F, s_new, (beta, gmm, nf), h_new = fused(du, stress, history)
+        r, s_new, (beta, gmm, nf), h_new = fused(du, stress, history)
         tg = IsotropicTangent(kappa=model.params["p_ka"], beta=beta, gamma=gmm, n=nf)
-        return geo._scatter_corners(F).reshape(-1), s_new, tg, h_new
+        return r, s_new, tg, h_new
 
     def eval_assemble(models, u_w, u_prev_w, stresses, hists, t, f_ext_w, dt):
         """Per-law strain -> evaluate -> residual, summed with -f_ext."""

@@ -154,7 +154,7 @@ def test_import_and_build_never_call_nvcc(box, tets, mat, monkeypatch):
     mv = cuda_matvec.build_cuda_matvec(geos[0])
     ev = cuda_eval.build_cuda_eval(geos[0], models[0])
     u = torch.zeros(geos[0].ndofs, dtype=torch.float64)
-    F, s, (beta, gamma, n), h = ev(u, state.stress[0], state.histories[0])
+    r, s, (beta, gamma, n), h = ev(u, state.stress[0], state.histories[0])
     from fenics_constitutive_tpu_torch.ops import IsotropicTangent
 
     mv(u, IsotropicTangent(mat["p_ka"], beta, gamma, n))
