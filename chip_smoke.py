@@ -92,6 +92,32 @@ around them:
      trip into a second simulation (one more step on both, bit-equal), and a
      traction on the x = 1 face with symmetry planes and max_subdivisions=2.
 
+Several laws on the imported mesh, and the whole model library:
+
+ 14. PackedSimulation on phase 9's imported 35^3 mesh with two laws, a
+     viscoelastic layer over a frictional base: DruckerPrager3D (associated;
+     the generic adapter, a dense tangent) on the cells with midpoint
+     z < 0.5, SpringMaxwellModel (FULL, factored) above, with default
+     options (it must resolve to the windowed engine and AMG), float64,
+     del_t 0.5, solve_schedule over 3 steps of the stretch 0.0004 k; every
+     step must converge, and K4, K5 and K6 must each launch. First K4 and K5
+     on each law's own plan (its cells, B and Rn, the shared M_pad) against
+     their plain versions in float64: K4 bit-equal, K5 within its normwise
+     tolerance. Prints ms per
+     step, Newton iterations, launches per step, the DP return map's trips,
+     the device memory peak, and the parts of a step timed apart (each
+     law's eval with its local Newton's active points per trip, the
+     operator apply, the V-cycle, K4-K6 on the card).
+ 15. Every FULL law of the JAX package's production-path test on the card
+     against the same run on the CPU (plain versions), float64, 2 steps of
+     0.004 k: on a 6^3 shuffled tet mesh (windowed engine, AMG) and on a 6^3
+     hex box, where the factored laws must launch K1 and Drucker-Prager
+     must not; on the tets also phase 14's two laws (Drucker-Prager below
+     z = 0.5, SpringMaxwellModel above), whose summed step must agree with
+     its CPU run the same way; then DenseTangent.apply/quad_diag and
+     jacobi_diag_gm in
+     float32 must be bit-equal with TF32 on and off.
+
 A kernel's time on the card and a device-op count come from torch.profiler.
 CUPTI now and then delivers a short profile on the H100, so such a profile
 is taken again, three times in all; after that the time is taken by CUDA
@@ -99,8 +125,10 @@ events behind a sleep kernel (gated_ms) and the ops other than the port's
 kernels are counted as aten ops (aten_device_ops). A line before the JSON
 says how often that happened.
 
-Then one JSON line of per-kernel results (launches on the path's run,
-times, plain and library times, the bound) and, last, the device JSON line.
+Then one JSON line of per-kernel results (launches on the path's run, for
+K4-K6 also on phase 14's 3-step run, times, plain and library times, the
+bound)
+and, last, the device JSON line.
 
     python3 chip_smoke.py --profile
 
@@ -1304,6 +1332,315 @@ def phase_tet_simulation(tet: dict) -> None:
         fail("PackedSimulation on the imported mesh did not launch K4, K5 and K6")
 
 
+# -- several laws on the imported mesh, and the whole model library -----------------
+
+#: the JAX package's Drucker-Prager (associated) and standard-linear-solid
+#: parameters (tests/solver/test_simulation.py)
+DP_PARAMS = {"mu": 80769.0, "kappa": 175000.0, "a": 1000.0, "b": 0.15, "b_flow": 0.15}
+SLS_PARAMS = {"E0": 42000.0, "E1": 10000.0, "tau": 2.0, "nu": 0.3}
+STRETCH_STEP = 0.0004  # phase 14's load step, phase 10's
+N_LIBRARY = 6  # phase 15's tet and hex boxes
+# phase 15: card (kernels) against CPU (plain versions), converged float64
+# steps (Newton to 1e-11 of r0, CG to 1e-12): normwise on u and stress
+TOL_LIBRARY = 1e-8
+
+
+def library_laws() -> dict:
+    """The 7 FULL laws of the JAX package's production-path test
+    (tests/solver/test_simulation.py), same parameters."""
+    from fenics_constitutive_tpu_torch import models as m
+
+    return {
+        "elastic": lambda: m.LinearElasticityModel({"E": 42000.0, "nu": 0.3}, m.Constraint.FULL),
+        "mises-exp": lambda: m.VonMises3D(MAT),
+        "mises-lin": lambda: m.MisesPlasticityLinearHardening3D(
+            {"mu": 80769.0, "kappa": 175000.0, "y_0": 1200.0, "h": 5000.0}),
+        "kelvin": lambda: m.SpringKelvinModel(SLS_PARAMS, m.Constraint.FULL),
+        "maxwell": lambda: m.SpringMaxwellModel(SLS_PARAMS, m.Constraint.FULL),
+        "dp": lambda: m.DruckerPrager3D(DP_PARAMS),
+        "dp-hyp": lambda: m.DruckerPragerHyperbolic3D({**DP_PARAMS, "d": 0.1}),
+    }
+
+
+def two_layer_laws(V) -> list:
+    """A viscoelastic layer over a frictional base: DruckerPrager3D
+    (associated) on the cells with midpoint z < 0.5, SpringMaxwellModel (FULL)
+    above."""
+    from fenics_constitutive_tpu_torch.models import (
+        Constraint,
+        DruckerPrager3D,
+        SpringMaxwellModel,
+    )
+
+    z = V.mesh.cell_midpoints()[:, 2]
+    return [(DruckerPrager3D(DP_PARAMS), np.flatnonzero(z < 0.5)),
+            (SpringMaxwellModel(SLS_PARAMS, Constraint.FULL), np.flatnonzero(z >= 0.5))]
+
+
+def phase_multilaw(tet: dict) -> dict:
+    """PackedSimulation with two laws on the imported 35^3 mesh (default
+    options: the windowed engine and AMG), float64. First the one-time
+    set-up of the first Drucker-Prager eval and the parts of a step, timed
+    apart on the first Newton iterate of step 1; then the 3-step schedule,
+    with the launch counts set to 0 just before it; then one more step
+    timed alone and one under torch.profiler. Before all that, K4 and K5 on
+    each law's own plan against their plain versions."""
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace, combine_bcs
+    from fenics_constitutive_tpu_torch.ops import cuda_window
+    from fenics_constitutive_tpu_torch.solver import PackedSimulation
+
+    V = FunctionSpace(tet["mesh"], 1, 3)
+    bcs = bench_bcs(V)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = PackedSimulation(two_layer_laws(V), V, bcs, 2, del_t=0.5, device=CARD,
+                           dtype=torch.float64)
+    build_s = time.perf_counter() - t0
+    if (sim.engine, sim.preconditioner) != ("windowed", "amg"):
+        fail(f"two-law PackedSimulation resolved to {sim.engine} + {sim.preconditioner}")
+    geos, models, state, g0 = sim._geos, sim._models, sim.state, sim._geos[0]
+    if sum(g.n_cells for g in geos) != tet["mesh"].num_cells:
+        fail("the two laws do not cover the mesh")
+
+    # K4 and K5 at the shapes this path gives them: each law's own plan (its
+    # cells, B and Rn, on the shared M_pad), float64, against the plain
+    # versions (K4 bit-equal, K5 normwise)
+    rng = np.random.default_rng(14)
+    held = []
+    for i, g in enumerate(geos):
+        ex = g.ex
+        u2 = torch.as_tensor(rng.normal(size=(3, ex.M_pad)), dtype=torch.float64, device=CARD)
+        f = torch.as_tensor(rng.normal(size=(ex.B, 3, ex.Rn)), dtype=torch.float64, device=CARD)
+        if not torch.equal(cuda_window.windowed_gather(ex, u2), cuda_window.gather_plain(ex, u2)):
+            fail(f"phase 14 K4 on law {i}'s plan is not bit-equal to its plain version")
+        y = cuda_window.windowed_scatter(ex, f)
+        err, rel = normwise(y, cuda_window.scatter_plain(ex, f))
+        if rel > TOL_K5[torch.float64] or not torch.isfinite(y).all():
+            fail(f"phase 14 K5 on law {i}'s plan disagrees with its plain version: rel "
+                 f"{rel:.3e} > {TOL_K5[torch.float64]:g}")
+        held.append(f"law {i} (B {ex.B}, Rn {ex.Rn}): K4 bit-equal, K5 max_abs_err {err:.3e} "
+                    f"rel {rel:.3e}")
+
+    # the parts of a step on the first Newton iterate of step 1 (the first
+    # stretch increment on the x = 1 face alone, where DP yields): each law's
+    # eval (strain, update, residual), the two-law operator apply with those
+    # tangents, one AMG V-cycle, and K4-K6 on the card
+    bcs[1].value = STRETCH_STEP
+    bc_dofs, bc_vals = combine_bcs(bcs)
+    du = torch.zeros_like(state.u)
+    du[g0.bc_internal(torch.as_tensor(bc_dofs, device=CARD))] = torch.as_tensor(
+        bc_vals, dtype=du.dtype, device=CARD)
+
+    def law_eval(i, d=du):
+        s_new, tg, _ = models[i].evaluate_packed(state.t, sim.del_t, geos[i].strain(d),
+                                                 state.stress[i], state.histories[i])
+        return geos[i].residual(s_new), tg
+
+    # one-time set-up on first use: the batched solver's library, then the
+    # rest of the first DP eval (torch.func's first vmap/jacfwd among it)
+    t0 = time.perf_counter()
+    torch.linalg.solve(torch.eye(8, dtype=torch.float64, device=CARD).expand(4, 8, 8),
+                       torch.ones((4, 8), dtype=torch.float64, device=CARD))
+    torch.cuda.synchronize()
+    solver_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tangents = [law_eval(0)[1]]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    trips = list(models[0].last_active_per_trip)
+    tangents.append(law_eval(1)[1])
+    eval_ms = [cuda_ms(lambda i=i: law_eval(i), iters=3, warmup=1) for i in range(len(geos))]
+    # and on an elastic iterate (no displacement increment), as the later
+    # Newton iterates of a converging step are at this load
+    zero = torch.zeros_like(du)
+    elastic_ms = [cuda_ms(lambda i=i: law_eval(i, zero), iters=3, warmup=1)
+                  for i in range(len(geos))]
+    v = torch.as_tensor(np.random.default_rng(3).normal(size=g0.ndofs_int),
+                        dtype=torch.float64, device=CARD)
+    mv_ms = cuda_ms(lambda: sum(g.matvec(v, tg) for g, tg in zip(geos, tangents)), iters=10)
+    pc = sim._mg.wrap_internal(g0.ex.M_pad)
+    before = cuda_window.launches["bsr_matvec"]
+    pc(v)
+    k6_cycle = cuda_window.launches["bsr_matvec"] - before
+    vc_ms = cuda_ms(lambda: pc(v), iters=10)
+    # K4 + K5 on the card for one eval or apply of every law (each gathers
+    # and scatters once per law), by torch.profiler (or gated_ms); K6 from a
+    # profile of one V-cycle
+    win_call = 0.0
+    for g in geos:
+        ex = g.ex
+        u2 = v.reshape(3, ex.M_pad)
+        f = torch.zeros((ex.B, 3, ex.Rn), dtype=torch.float64, device=CARD)
+        win_call += (device_ms(lambda ex=ex, u2=u2: cuda_window.windowed_gather(ex, u2))
+                     + device_ms(lambda ex=ex, f=f: cuda_window.windowed_scatter(ex, f)))
+    evs = profiled(lambda: pc(v), 3)
+    k6_cycle_ms = None if evs is None else sum(
+        e.self_device_time_total for e in evs if "bsr_rows_kernel" in e.key) / 1e3 / 3
+
+    # the schedule: this slice's path, its launches counted from 0
+    vals = []
+    for k in (1, 2, 3):
+        bcs[1].value = STRETCH_STEP * k
+        vals.append(combine_bcs(bcs)[1])
+    K = len(vals)
+    for key in cuda_window.launches:
+        cuda_window.launches[key] = 0
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    stats = sim.solve_schedule(np.stack(vals))
+    ev1.record()
+    ev1.synchronize()
+    counts = dict(cuda_window.launches)
+    ms_step = ev0.elapsed_time(ev1) / K
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if not stats["converged"].all():
+        fail(f"the two-law schedule on the imported mesh did not converge: {stats}")
+    for name, c in counts.items():
+        if c <= 0:
+            fail(f"the two-law run never launched {name}")
+    stress = sim.stress
+    if stress.shape != (tet["mesh"].num_cells, 4, 6) or not np.isfinite(stress).all():
+        fail(f"two-law stress has shape {stress.shape} or non-finite values")
+    if not torch.isfinite(sim.u).all():
+        fail("two-law displacement has non-finite values")
+    evals = float(stats["newton_iters"].sum()) + K  # one per Newton iteration, one at start
+    per_law = counts["scatter"] / len(geos)  # each eval and each apply scatters once per law
+    applies = per_law - evals
+    cycles = counts["bsr_matvec"] / k6_cycle
+    # a step's first eval as the first iterate's, the later ones as elastic
+    parts = {"eval": K * sum(eval_ms) + (evals - K) * sum(elastic_ms),
+             "operator": applies * mv_ms, "AMG": cycles * vc_ms}
+    rest = K * ms_step - sum(parts.values())
+
+    # one more step alone (host clock), and one under torch.profiler
+    def next_step():
+        bcs[1].value += STRETCH_STEP
+        return sim.solve()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    niter4, conv4 = next_step()
+    torch.cuda.synchronize()
+    step4_ms = (time.perf_counter() - t0) * 1e3
+    evs = profiled(next_step, 1)
+    dev = "not measured (three empty profiles)"
+    if evs is not None:
+        dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+        top = sorted(evs, key=lambda e: -e.self_device_time_total)[:4]
+        dev = (f"{dev_ms:.1f} ms on the card in {sum(e.count for e in evs)} device ops (busy "
+               f"{dev_ms / step4_ms:.1%} of the step alone); top: " + "; ".join(
+                   f"{short_name(e.key)} x{e.count} {e.self_device_time_total / 1e3:.1f} ms"
+                   for e in top))
+    if not conv4:
+        fail("the two-law step after the schedule did not converge")
+    print(f"phase 14 two laws on the imported {N_TET}^3 mesh f64 (DruckerPrager3D z < 0.5 "
+          f"on {geos[0].n_cells} cells, N {geos[0].N}; SpringMaxwellModel above on "
+          f"{geos[1].n_cells} cells, N {geos[1].N}; {sim.engine} + {sim.preconditioner}, build "
+          f"{build_s:.1f} s; first use: batched solve {solver_s:.2f} s, first DP eval "
+          f"{first_s:.2f} s): solve_schedule 3 steps of {STRETCH_STEP} k, {ms_step:.1f} ms/step "
+          f"(CUDA events), newton {stats['newton_iters'].tolist()}, cg_last "
+          f"{stats['cg_iters_last'].tolist()}, r " + ", ".join(f"{r:.2e}" for r in stats["r_norm"])
+          + f"; launches per step K4 {counts['gather'] / K:g} K5 {counts['scatter'] / K:g} K6 "
+          f"{counts['bsr_matvec'] / K:g}; device memory peak {peak_gib:.2f} GiB")
+    print(f"phase 14 K4/K5 vs plain on each law's plan (f64, tol K5 {TOL_K5[torch.float64]:g}): "
+          + "; ".join(held))
+    print(f"phase 14 parts on the first iterate of step 1: eval ms DP {eval_ms[0]:.2f} (local "
+          f"Newton active per trip {trips}), Maxwell {eval_ms[1]:.2f}; on an elastic iterate DP "
+          f"{elastic_ms[0]:.2f}, Maxwell {elastic_ms[1]:.2f}; two-law operator apply "
+          f"{mv_ms:.3f} ms; V-cycle {vc_ms:.3f} ms ({k6_cycle} K6); per step {evals / K:g} "
+          f"evals, {applies / K:g} applies, {cycles / K:g} V-cycles: eval "
+          f"{parts['eval'] / K:.1f} ms, operator {parts['operator'] / K:.1f} ms, AMG "
+          f"{parts['AMG'] / K:.1f} ms, the rest (CG vectors, Newton, host) {rest / K:.1f} ms; "
+          f"on the card K4+K5 {per_law * win_call / K:.2f} ms/step, K6 "
+          + ("not measured" if k6_cycle_ms is None else f"{cycles * k6_cycle_ms / K:.2f} ms/step")
+          + f"; step 4 alone newton {niter4}, {step4_ms:.1f} ms (host clock); step 5 profiled: "
+          + dev)
+    return counts
+
+
+def phase_library() -> None:
+    """Every FULL law on the card against the same run on the CPU: a 6^3
+    shuffled tet mesh (windowed engine, AMG) and a 6^3 hex box (K1 for the
+    factored laws, the plain operator for DP), float64, 2 steps of 0.004 k,
+    and on the tets also phase 14's two laws (DP below z = 0.5, Maxwell
+    above); then the dense-tangent and Jacobi-diagonal products with TF32
+    on."""
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace
+    from fenics_constitutive_tpu_torch.ops import DenseTangent, cuda_matvec, cuda_window
+    from fenics_constitutive_tpu_torch.ops.structured import build_structured_geometry
+    from fenics_constitutive_tpu_torch.models import Constraint
+    from fenics_constitutive_tpu_torch.solver import PackedSimulation
+
+    tet_mesh = imported_mesh(N_LIBRARY)
+    worst, line = 0.0, []
+    for kind in ("tet", "box"):
+        cases = list(library_laws().items())
+        if kind == "tet":
+            cases.append(("dp+maxwell", two_layer_laws))
+        for name, make in cases:
+            runs = {}
+            for device in (CARD, "cpu"):
+                V = FunctionSpace(tet_mesh, 1, 3) if kind == "tet" else box(N_LIBRARY)[0]
+                bcs = bench_bcs(V)
+                k1 = cuda_matvec.launches
+                win = sum(cuda_window.launches.values())
+                laws = make(V) if make is two_layer_laws else make()
+                sim = PackedSimulation(laws, V, bcs, 2, del_t=0.5, engine="windowed",
+                                       device=device, dtype=torch.float64,
+                                       newton_rtol=1e-11, newton_atol=1e-10, cg_rtol=1e-12)
+                iters = []
+                for k in (1, 2):
+                    bcs[1].value = 0.004 * k
+                    niter, conv = sim.solve()
+                    if not conv:
+                        fail(f"phase 15 {kind} {name} on {device}: step {k} did not converge")
+                    iters.append(niter)
+                runs[device] = (sim.u.cpu(), torch.as_tensor(sim.stress), iters,
+                                cuda_matvec.launches - k1,
+                                sum(cuda_window.launches.values()) - win)
+            (u_c, s_c, it_c, k1_c, win_c), (u_h, s_h, it_h, _, _) = runs[CARD], runs["cpu"]
+            rel = max(normwise(u_c, u_h)[1], normwise(s_c, s_h)[1])
+            worst = max(worst, rel)
+            factored = not name.startswith("dp")
+            if rel > TOL_LIBRARY or not (torch.isfinite(u_c).all() and torch.isfinite(s_c).all()):
+                fail(f"phase 15 {kind} {name}: card vs CPU rel {rel:.2e} > {TOL_LIBRARY:g}")
+            if kind == "box" and (k1_c > 0) != factored:
+                fail(f"phase 15 box {name}: {k1_c} K1 launches, expected "
+                     + ("some" if factored else "none (a DenseTangent law runs 'plain')"))
+            if kind == "tet" and win_c <= 0:
+                fail(f"phase 15 tet {name} never launched the window kernels")
+            line.append(f"{kind} {name} newton {it_c} (CPU {it_h}) rel {rel:.1e}"
+                        + (f" K1 {k1_c}" if kind == "box" else f" K4-K6 {win_c}"))
+
+    # the products that must not run in TF32: float32, TF32 on vs off
+    rng = np.random.default_rng(8)
+    V, _ = box(N_LIBRARY)
+    geo = build_structured_geometry(V, 2, Constraint.FULL, device=CARD, dtype=torch.float32)
+    A = torch.as_tensor(rng.normal(size=(6, 6, 8, geo.M)), dtype=torch.float32, device=CARD)
+    tg = DenseTangent(A)
+    eps = torch.as_tensor(rng.normal(size=(6, 8, geo.M)), dtype=torch.float32, device=CARD)
+    B = torch.as_tensor(rng.normal(size=(6, 3, 8, 1)), dtype=torch.float32, device=CARD)
+    flags = torch.backends.cuda.matmul
+    saved = flags.allow_tf32
+    outs = []
+    try:
+        for tf32 in (False, True):
+            flags.allow_tf32 = tf32
+            outs.append((tg.apply(eps), tg.quad_diag(B), geo.jacobi_diag_gm(tg)))
+    finally:
+        flags.allow_tf32 = saved
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    print(f"phase 15 every law on the card vs the CPU ({N_LIBRARY}^3 tets windowed + AMG, "
+          f"{N_LIBRARY}^3 hex box; f64, 2 steps of 0.004 k; tol {TOL_LIBRARY:g} normwise on u "
+          f"and stress): max rel {worst:.2e}; " + "; ".join(line)
+          + f"; DenseTangent apply/quad_diag and jacobi_diag_gm in f32 with TF32 on "
+          f"{'bit-equal to' if same else 'DIFFER from'} TF32 off")
+    if not same:
+        fail("a dense-tangent or Jacobi-diagonal product changed under TF32")
+
+
 # -- K3: the fused multigrid smoothing chains ---------------------------------------
 
 
@@ -1606,6 +1943,8 @@ def main() -> None:
     fused_bench = timed("phase 12", phase_bench_fused, box_bench)
     with tempfile.TemporaryDirectory() as tmp:
         timed("phase 13", phase_multimat, Path(tmp))
+    two_law = timed("phase 14", phase_multilaw, tet)
+    timed("phase 15", phase_library)
     print(f"profiler: {PROFILER_MISSES['profiles']} short profiles taken again, "
           f"{PROFILER_MISSES['fallbacks']} measures by the fallback (gated_ms, aten_device_ops)")
     counts = box_bench["counts"]
@@ -1623,13 +1962,16 @@ def main() -> None:
           for kind, name in K3_ENTRIES.items()),
         {"name": "windowed_gather", "route": "cuda", "source": src + "window.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:89",
-         "launches": tet_counts["gather"], **results["K4"]},
+         "launches": tet_counts["gather"], "launches_two_law_run": two_law["gather"],
+         **results["K4"]},
         {"name": "windowed_scatter", "route": "cuda", "source": src + "window.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:153",
-         "launches": tet_counts["scatter"], **results["K5"]},
+         "launches": tet_counts["scatter"], "launches_two_law_run": two_law["scatter"],
+         **results["K5"]},
         {"name": "windowed_bsr_matvec", "route": "cuda", "source": src + "window.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:235",
-         "launches": tet_counts["bsr_matvec"], **results["K6"]},
+         "launches": tet_counts["bsr_matvec"], "launches_two_law_run": two_law["bsr_matvec"],
+         **results["K6"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

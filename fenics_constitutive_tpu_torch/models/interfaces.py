@@ -1,26 +1,38 @@
-"""The constitutive-model protocol of the packed (SoA) engines.
+"""The constitutive-model protocol.
 
 A model owns its material parameters (``params``, a dict of Python floats,
 so they follow the dtype of the fields they meet), its stress-strain
 ``constraint`` and the per-QP shape of its history variables
-(``history_dim``). The engines call
+(``history_dim``: an int for a vector entry, a ``(rows, cols)`` tuple for a
+matrix entry). Every model implements the AoS update
+
+    evaluate(t, dt, grad_del_u [Q, g, g], stress [Q, s], history {k: [Q, ...]})
+        -> (stress' [Q, s], tangent [Q, s, s], history')
+
+and the engines call the packed (SoA) update
 
     evaluate_packed(t, dt, eps [s, *qp], stress [s, *qp], history {k: [d, *qp]})
         -> (stress' [s, *qp], tangent, history')
 
-where ``eps`` is the Mandel strain increment and ``tangent`` a factored
-representation (ops.packed.IsotropicTangent). Stress is Mandel notation
-(shear x sqrt2). Nothing is mutated: the committed state is whichever
-tensors the caller keeps.
+where ``eps`` is the Mandel strain increment. The hot models override
+``evaluate_packed`` with SoA twins that return a factored
+``ops.packed.IsotropicTangent``; every other model runs through the generic
+adapter below, which reshapes to the AoS ``evaluate`` and wraps its dense
+tangent as an ``ops.packed.DenseTangent``. Stress is Mandel notation (shear
+x sqrt2). Nothing is mutated: the committed state is whichever tensors the
+caller keeps.
 """
 
 from __future__ import annotations
 
 import abc
+import math
 
 import torch
 
+from ..ops import mandel
 from ..ops.mandel import Constraint
+from ..ops.packed import DenseTangent
 
 __all__ = ["Constraint", "History", "IncrSmallStrainModel"]
 
@@ -31,23 +43,99 @@ class IncrSmallStrainModel(abc.ABC):
     """Base class for incremental small strain models."""
 
     params: dict[str, float]
+    #: True when ``evaluate_packed`` returns an ``IsotropicTangent`` (a hot
+    #: model's SoA twin), the tangent the CUDA operator of
+    #: ``ops/cuda_matvec.py`` applies; the generic adapter's is dense
+    factored_tangent: bool = False
 
     @abc.abstractmethod
-    def evaluate_packed(
+    def evaluate(
         self,
         t: float | torch.Tensor,
         del_t: float | torch.Tensor,
-        eps: torch.Tensor,
+        grad_del_u: torch.Tensor,
         stress: torch.Tensor,
         history: History,
-    ):
-        """Return ``(stress_new, tangent, history_new)`` for one increment."""
+    ) -> tuple[torch.Tensor, torch.Tensor, History]:
+        r"""Evaluate the model over a batch of quadrature points.
+
+        Args:
+            t: time :math:`t_n` at the start of the increment.
+            del_t: time increment.
+            grad_del_u: ``[Q, g, g]`` gradients of the displacement increment,
+                ``grad[i, j] = d(delta u_j)/dx_i``.
+            stress: ``[Q, s]`` Mandel stress at :math:`t_n`.
+            history: committed history ``{name: [Q, ...]}`` or None.
+
+        Returns:
+            ``(stress_new, tangent [Q, s, s], history_new)``, the tangent
+            consistent with the stress update.
+        """
 
     @property
     @abc.abstractmethod
     def constraint(self) -> Constraint: ...
 
     @property
+    def stress_strain_dim(self) -> int:
+        return self.constraint.stress_strain_dim
+
+    @property
+    def geometric_dim(self) -> int:
+        return self.constraint.geometric_dim
+
+    @property
     @abc.abstractmethod
-    def history_dim(self) -> dict[str, int] | None:
-        """Name -> number of per-QP components of each history variable."""
+    def history_dim(self) -> dict[str, int | tuple[int, int]] | None:
+        """Name -> per-QP shape of each history variable: an int for a
+        vector entry, a ``(rows, cols)`` tuple for a matrix entry."""
+
+    def init_history(self, n_qp: int, *, dtype=torch.float64, device="cpu") -> History:
+        """Zero history for ``n_qp`` points in the AoS layout: ``[Q, d]`` for
+        a vector entry, ``[Q, rows, cols]`` for a matrix entry."""
+        hd = self.history_dim
+        if hd is None:
+            return None
+        return {
+            name: torch.zeros((n_qp, dim) if isinstance(dim, int) else (n_qp, *dim),
+                              dtype=dtype, device=device)
+            for name, dim in hd.items()
+        }
+
+    def evaluate_packed(self, t, del_t, eps, stress, history):
+        """The generic SoA adapter: any model on the packed engines.
+
+        Reshapes the packed fields to the AoS ``evaluate`` contract and wraps
+        its dense tangent as a ``DenseTangent`` [s, s, *qp]. The gradient
+        handed to ``evaluate`` is the SYMMETRIC tensor rebuilt from the Mandel
+        strain increment (``mandel_to_matrix``); a small-strain model reads
+        only the symmetric part, so this is exact. Packed history entries
+        are ``[d, *qp]`` with a matrix entry flattened to ``d = rows * cols``.
+        """
+        c = self.constraint
+        s = c.stress_strain_dim
+        qp_shape = tuple(eps.shape[1:])
+        n = math.prod(qp_shape)
+        grad = mandel.mandel_to_matrix(eps.reshape(s, n).T, c)
+        stress_aos = stress.reshape(s, n).T
+        hd = self.history_dim or {}
+
+        def unpack(k, v):  # packed [d, *qp] -> AoS [n, *entry]
+            aos = v.reshape(v.shape[0], n).T
+            return aos if isinstance(hd[k], int) else aos.reshape(n, *hd[k])
+
+        def pack(v):  # AoS [n, *entry] -> packed [d, *qp]
+            flat = v.reshape(n, -1)
+            return flat.T.reshape(flat.shape[1], *qp_shape)
+
+        hist_aos = None if history is None else {k: unpack(k, v) for k, v in history.items()}
+        s_new, tg, h_new = self.evaluate(t, del_t, grad, stress_aos, hist_aos)
+        s_out = s_new.T.reshape(s, *qp_shape)
+        tangent = DenseTangent(tg.permute(1, 2, 0).reshape(s, s, *qp_shape))
+        h_out = None if h_new is None else {k: pack(v) for k, v in h_new.items()}
+        return s_out, tangent, h_out
+
+
+def flat_history_dim(dim: int | tuple[int, int]) -> int:
+    """Components of one history entry in the packed layout ``[d, *qp]``."""
+    return dim if isinstance(dim, int) else math.prod(dim)

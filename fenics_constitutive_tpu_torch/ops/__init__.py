@@ -3,7 +3,7 @@ windowed engines, the windowed BSR level format and the CUDA kernels
 (compiled on first use, never at import)."""
 
 from .mandel import Constraint
-from .packed import IsotropicTangent
+from .packed import DenseTangent, IsotropicTangent
 from .structured import StructuredGeometry, build_structured_geometry
 from .windowed import (
     WindowedExchange,
@@ -16,6 +16,7 @@ from .windowed_bsr import WindowedBsr, build_windowed_bsr
 
 __all__ = [
     "Constraint",
+    "DenseTangent",
     "IsotropicTangent",
     "StructuredGeometry",
     "WindowedBsr",

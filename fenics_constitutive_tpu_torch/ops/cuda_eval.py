@@ -71,8 +71,8 @@ def build_cuda_eval(geo: StructuredGeometry, model: VonMises3D):
     rebuild. Nothing is compiled until the first call on a CUDA tensor.
     """
     if not isinstance(model, VonMises3D):
-        msg = f"the fused eval implements VonMises3D, got {type(model).__name__}"
-        raise TypeError(msg)
+        msg = f"the fused eval implements VonMises3D, got {type(model).__name__}: use 'plain'"
+        raise ValueError(msg)
     M, Q = geo.M, geo.n_qp
     node_grid = tuple(g + 1 for g in geo.grid)
     tables = hex_tables(geo) if hot_path_geometry(geo) else {}

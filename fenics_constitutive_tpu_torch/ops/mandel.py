@@ -1,10 +1,12 @@
-"""Mandel-notation constants: the stress-strain constraint, the host maps
-the engines fold into their element matrices, and the elastic tangent the
-AMG hierarchy is built from.
+"""Mandel notation: the stress-strain constraint, the host maps the engines
+fold into their element matrices, the elastic tangents, and the pointwise
+maps and invariants the constitutive models use.
 
 Shear components carry a factor of sqrt(2); a strain computed from a
 displacement gradient therefore carries 1/sqrt(2) on the symmetrised shear.
-Everything here is a numpy host constant, built once per geometry; the same
+The constants are numpy host arrays, built once; the pointwise functions
+take tensors ``[..., s]`` (or ``[..., g, g]``) and are written as broadcast
+multiplies and sums, so none of them runs in TF32 on the card. The same
 convention as ``fenics_constitutive_tpu.ops.mandel``.
 """
 
@@ -15,14 +17,27 @@ import math
 from functools import lru_cache
 
 import numpy as np
+import torch
 
 __all__ = [
     "Constraint",
+    "StressStrainConstraint",
+    "deviatoric",
     "get_elastic_tangent",
+    "get_identity",
+    "i1_j2_dev",
+    "isotropic_elastic_tangent",
+    "isotropic_elastic_tangent_inv",
     "lame_parameters",
+    "mandel_to_matrix",
+    "matrix_to_mandel",
+    "mises_norm",
     "projection_dev",
     "projection_vol",
+    "strain_from_grad_u",
     "sym_identity",
+    "trace",
+    "vol_dev",
 ]
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
@@ -56,6 +71,10 @@ class Constraint(enum.Enum):
             Constraint.PLANE_STRESS: 2,
             Constraint.FULL: 3,
         }[self]
+
+
+#: the reference's name of the constraint enum
+StressStrainConstraint = Constraint
 
 
 # Mandel slots 3, 4, 5 of the FULL constraint are the symmetrised
@@ -139,3 +158,101 @@ def get_elastic_tangent(E: float, nu: float, constraint: Constraint) -> np.ndarr
     else:  # UNIAXIAL_STRESS
         D = np.array([[E]])
     return D
+
+
+def get_identity(constraint: Constraint) -> np.ndarray:
+    """Second-order identity in Mandel notation per constraint (PLANE_STRESS
+    has no zz slot in it)."""
+    I2 = np.zeros(constraint.stress_strain_dim)
+    n_ones = {
+        Constraint.FULL: 3,
+        Constraint.PLANE_STRAIN: 3,
+        Constraint.PLANE_STRESS: 2,
+        Constraint.UNIAXIAL_STRAIN: 1,
+        Constraint.UNIAXIAL_STRESS: 1,
+    }[constraint]
+    I2[:n_ones] = 1.0
+    return I2
+
+
+def strain_from_grad_u(grad_u: torch.Tensor, constraint: Constraint) -> torch.Tensor:
+    """Mandel strain ``[..., s]`` from a (generally non-symmetric)
+    displacement gradient ``[..., g, g]``; the plane constraints' zz slot is
+    zero."""
+    g = constraint.geometric_dim
+    if tuple(grad_u.shape[-2:]) != (g, g):
+        msg = f"grad_u trailing shape {tuple(grad_u.shape[-2:])} != ({g},{g}) for {constraint}"
+        raise ValueError(msg)
+    if constraint in (Constraint.UNIAXIAL_STRAIN, Constraint.UNIAXIAL_STRESS):
+        return grad_u[..., 0, 0:1]
+    if constraint in (Constraint.PLANE_STRAIN, Constraint.PLANE_STRESS):
+        return torch.stack(
+            [
+                grad_u[..., 0, 0],
+                grad_u[..., 1, 1],
+                torch.zeros_like(grad_u[..., 0, 0]),
+                _INV_SQRT2 * (grad_u[..., 0, 1] + grad_u[..., 1, 0]),
+            ],
+            dim=-1,
+        )
+    comps = [grad_u[..., 0, 0], grad_u[..., 1, 1], grad_u[..., 2, 2]]
+    for i, j in _SHEAR_PAIRS_3D:
+        comps.append(_INV_SQRT2 * (grad_u[..., i, j] + grad_u[..., j, i]))
+    return torch.stack(comps, dim=-1)
+
+
+def mandel_to_matrix(mandel: torch.Tensor, constraint: Constraint) -> torch.Tensor:
+    """Mandel vector ``[..., s]`` -> symmetric tensor ``[..., g, g]``."""
+    T = torch.as_tensor(_mandel_matrix_map(constraint), dtype=mandel.dtype,
+                        device=mandel.device)
+    return (mandel[..., :, None, None] * T).sum(dim=-3)
+
+
+def matrix_to_mandel(tensor: torch.Tensor, constraint: Constraint) -> torch.Tensor:
+    """Symmetric tensor ``[..., g, g]`` -> Mandel vector ``[..., s]``; the
+    inverse of ``mandel_to_matrix`` on symmetric input."""
+    return strain_from_grad_u(tensor, constraint)
+
+
+def trace(mandel: torch.Tensor) -> torch.Tensor:
+    """First invariant I1 = tr(sigma) of ``[..., s]``, s in {1, 4, 6}."""
+    return mandel[..., : min(3, mandel.shape[-1])].sum(dim=-1)
+
+
+def deviatoric(mandel: torch.Tensor) -> torch.Tensor:
+    """Deviatoric part in Mandel notation."""
+    n = min(3, mandel.shape[-1])
+    vol = trace(mandel)[..., None] / 3.0
+    return torch.cat([mandel[..., :n] - vol, mandel[..., n:]], dim=-1)
+
+
+def vol_dev(mandel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(volumetric scalar tr/3, deviatoric vector)."""
+    return trace(mandel) / 3.0, deviatoric(mandel)
+
+
+def i1_j2_dev(mandel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(I1, J2, dev) with J2 = dev:dev / 2, a plain dot in Mandel notation."""
+    dev = deviatoric(mandel)
+    return trace(mandel), 0.5 * (dev * dev).sum(dim=-1), dev
+
+
+def mises_norm(mandel: torch.Tensor) -> torch.Tensor:
+    """sqrt(3 J2)."""
+    return torch.sqrt(3.0 * i1_j2_dev(mandel)[1])
+
+
+def isotropic_elastic_tangent(mu: float, kappa: float, sdim: int = 6, *, dtype=torch.float64,
+                              device=None) -> torch.Tensor:
+    """2 mu P_dev + 3 kappa P_vol in Mandel notation, ``[sdim, sdim]``."""
+    pdev = torch.as_tensor(projection_dev(sdim), dtype=dtype, device=device)
+    pvol = torch.as_tensor(projection_vol(sdim), dtype=dtype, device=device)
+    return 2.0 * mu * pdev + 3.0 * kappa * pvol
+
+
+def isotropic_elastic_tangent_inv(mu: float, kappa: float, sdim: int = 6, *,
+                                  dtype=torch.float64, device=None) -> torch.Tensor:
+    """The closed-form inverse of ``isotropic_elastic_tangent``: the same form
+    at (1 / (4 mu), 1 / (9 kappa))."""
+    return isotropic_elastic_tangent(1.0 / (4.0 * mu), 1.0 / (9.0 * kappa), sdim,
+                                     dtype=dtype, device=device)

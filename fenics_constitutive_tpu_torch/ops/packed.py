@@ -1,8 +1,11 @@
-"""Factored isotropic tangents on SoA quadrature fields.
+"""Tangent representations on SoA quadrature fields.
 
-The structured engine never forms a dense [6, 6, N] tangent: every model on
-the main path returns its consistent tangent in the closed form below, and
-the CG operator applies it pointwise.
+The hot models return their consistent tangent in a factored isotropic form
+(``IsotropicTangent``), so the CG operator never touches a dense [6, 6, N]
+field; every other law reaches the engines through the generic
+``evaluate_packed`` adapter (models/interfaces.py) with a ``DenseTangent``.
+Both apply pointwise, as broadcast multiplies and sums: no product here
+runs in TF32 on the card, whatever the process-wide setting.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["IsotropicTangent"]
+__all__ = ["DenseTangent", "IsotropicTangent"]
 
 
 @dataclass(frozen=True)
@@ -49,3 +52,29 @@ class IsotropicTangent:
             + self.beta * (BB - trB**2 / 3.0)
             + self.gamma * ndotB**2
         )
+
+
+@dataclass(frozen=True)
+class DenseTangent:
+    """A general tangent C [s, s, *qp] (row s, column t), for laws without
+    the factored form. ``apply`` and ``quad_diag`` sum over the component
+    axes one term at a time, so no [s, s, vs, *qp] temporary is formed."""
+
+    C: torch.Tensor
+
+    def apply(self, eps: torch.Tensor) -> torch.Tensor:
+        """[s, *qp] -> [s, *qp]: sum_t C[:, t] eps[t]."""
+        out = self.C[:, 0] * eps[0]
+        for t in range(1, self.C.shape[1]):
+            out = out + self.C[:, t] * eps[t]
+        return out
+
+    def quad_diag(self, B: torch.Tensor) -> torch.Tensor:
+        """B^T C B for B [s, vs, *qp] -> [vs, *qp] (qp axes broadcastable)."""
+        out = None
+        for s in range(self.C.shape[0]):
+            # (C B)[s] = sum_t C[s, t] B[t]
+            cb = (self.C[s][:, None] * B).sum(dim=0)
+            term = B[s] * cb
+            out = term if out is None else out + term
+        return out

@@ -209,7 +209,9 @@ class StructuredGeometry(nn.Module):
         return self._scatter_corners(_matmul(Ke, U)).reshape(-1)
 
     def jacobi_diag_gm(self, tangent) -> torch.Tensor:
-        """diag(A) in grid-major layout via per-corner B^T C B."""
+        """diag(A) in grid-major layout via per-corner B^T C B, for an
+        IsotropicTangent or a DenseTangent. The small contractions are
+        broadcast multiplies and sums, so none runs in TF32 on the card."""
         dtype, device = self.dtype, self.device
         M_map = torch.as_tensor(
             mandel._mandel_matrix_map(self.constraint), dtype=dtype, device=device
@@ -218,8 +220,9 @@ class StructuredGeometry(nn.Module):
         w = torch.as_tensor(self.w_host, dtype=dtype, device=device)  # [Q]
         rows = []
         for a in range(self.n_nodes):
-            # B_a [s, vs, Q, 1] broadcasts against tangent fields [Q, M]
-            B_a = torch.einsum("sij,iq->sjq", M_map, dN[a])[..., None]
+            # B_a[s, j, q] = sum_i M[s, i, j] dN[a, i, q]; [s, vs, Q, 1]
+            # broadcasts against tangent fields [Q, M]
+            B_a = (M_map[:, :, :, None] * dN[a][None, :, None, :]).sum(dim=1)[..., None]
             q = tangent.quad_diag(B_a) * w[:, None]
             q = q.expand(self.vs, self.n_qp, self.M)
             rows.append(q.sum(dim=1) * self.mask)

@@ -485,25 +485,31 @@ def build_windowed_geometry(
     space,
     q_degree: int,
     constraint: Constraint,
+    cells: np.ndarray | None = None,
     *,
     device,
     dtype: torch.dtype,
     tile: int = 1024,
     perm: np.ndarray | None = None,
 ) -> WindowedGeometry:
-    """Tabulate the windowed SoA geometry (host-side, once per mesh).
+    """Tabulate the windowed SoA geometry (host-side, once per mesh or law).
 
-    ``perm``: an optional precomputed node ordering (old -> new); by default
-    the RCM of the mesh.
+    ``cells``: the mesh cells of one law (default: every cell); the plan
+    holds those cells only, and ``slot_of_cell``/``extract_cells`` index them
+    in the given order. ``perm``: a precomputed node ordering (old -> new),
+    the whole mesh's RCM that several laws share; by default the RCM of the
+    plan's cells. The internal layout spans every node of the space either
+    way, so laws built on one ``perm`` share ``M_pad``.
     """
     from ..fem.elements import tabulate_element
     from ..fem.kinematics import _geometry_grad_at
 
     mesh = space.mesh
     elem, quad = tabulate_element(mesh.cell_type, space.degree, q_degree)
-    C = mesh.num_cells
+    cell_ids = np.arange(mesh.num_cells) if cells is None else np.asarray(cells, np.int64)
+    C = len(cell_ids)
     Q = quad.points.shape[0]
-    cell_nodes = space.cell_dof_nodes  # [C, n] dof-node ids
+    cell_nodes = space.cell_dof_nodes[cell_ids]  # [C, n] dof-node ids
     M = space.n_dof_nodes
 
     t0 = time.perf_counter()
@@ -513,7 +519,7 @@ def build_windowed_geometry(
     ex = build_windowed_exchange(cell_nodes, M, device=device, tile=tile, perm=perm)
     t2 = time.perf_counter()
 
-    verts = mesh.nodes[mesh.cells]
+    verts = mesh.nodes[mesh.cells[cell_ids]]
     geom_dN = _geometry_grad_at(mesh.cell_type, quad.points)  # [Q, nv, r]
     J = np.einsum("cvi,qvj->cqij", verts, geom_dN)
     detJ = np.abs(np.linalg.det(J))

@@ -4,8 +4,9 @@
 for a box of hexes or quads (grid-major dof vectors), the windowed exchange
 engine (ops/windowed.py) for a general imported mesh. ``make_packed_step``
 builds ``step(models, state, bc_dofs, bc_vals, f_ext, dt) -> (state', stats)``
-for one law on either, or several laws on cell subsets of a box (masked
-views of one grid). The whole Newton loop runs on the engine's working
+for one law or several laws on cell subsets, on either engine (masked views
+of one grid on a box; plans of the cell subsets on one shared RCM order on
+a general mesh). The whole Newton loop runs on the engine's working
 layout: grid-major vectors on the structured engine, converted from the
 node-major public layout once at the step boundary; on the windowed engine
 ``state.u`` and ``f_ext`` already live in the internal layout (RCM-permuted,
@@ -21,19 +22,24 @@ back once per iteration to decide whether to go on.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..models.interfaces import IncrSmallStrainModel
-from ..ops.packed import IsotropicTangent
+from ..models.interfaces import IncrSmallStrainModel, flat_history_dim
+from ..ops.packed import DenseTangent, IsotropicTangent
 from ..ops.structured import (
     StructuredGeometry,
     build_structured_geometry,
     restrict_structured_geometry,
 )
-from ..ops.windowed import WindowedGeometry, build_windowed_geometry
+from ..ops.windowed import (
+    WindowedGeometry,
+    build_windowed_geometry,
+    reverse_cuthill_mckee,
+)
 from . import linear
 
 __all__ = [
@@ -73,41 +79,6 @@ def _is_box(mesh) -> bool:
     return mesh.structured_shape is not None and mesh.cell_type in ("hex", "quad")
 
 
-def _build_geometry(space, law, q_degree: int, engine: str, *, device, dtype):
-    mesh = space.mesh
-    if _is_box(mesh):
-        # box meshes of hexes/quads keep the structured engine whatever
-        # ``engine`` says, as in the JAX package
-        return build_structured_geometry(
-            space, q_degree, law.constraint, device=device, dtype=dtype
-        )
-    if mesh.structured_shape is not None and space.degree == 1 and mesh.cell_type in (
-        "tetra", "triangle"
-    ):
-        msg = (
-            "a Kuhn simplex box (mesh.structured_shape set) runs on the JAX "
-            "package's structured tet engine, which is not ported yet (ROADMAP.md "
-            "Queue 1); build the mesh without structured_shape to use the "
-            "windowed engine"
-        )
-        raise NotImplementedError(msg)
-    use_windowed = engine == "windowed" or (
-        engine == "auto"
-        and mesh.num_cells >= WINDOWED_MIN_CELLS
-        and mesh.cell_type != "interval"
-    )
-    if not use_windowed:
-        msg = (
-            f"this general mesh ({mesh.num_cells} {mesh.cell_type} cells, "
-            f"engine={engine!r}) would run on the JAX package's gather engine, "
-            "which is not ported yet (ROADMAP.md Queue 1); pass engine='windowed'"
-        )
-        raise NotImplementedError(msg)
-    return build_windowed_geometry(
-        space, q_degree, law.constraint, device=device, dtype=dtype
-    )
-
-
 def build_packed_problem(
     space, laws, q_degree: int, *, device="cuda", dtype: torch.dtype, engine: str = "auto"
 ):
@@ -116,9 +87,9 @@ def build_packed_problem(
     ``laws``: a model (on every cell) or a list of ``(model, cells)``. On a
     box of hexes or quads every law gets a masked view of ONE shared
     StructuredGeometry (``ops.structured.restrict_structured_geometry``), so
-    all laws run on the same grid-major vectors; on a general mesh one law
-    only (several laws on the windowed engine are not ported, ROADMAP.md
-    Queue 1).
+    all laws run on the same grid-major vectors. On a general mesh every law
+    gets a WindowedGeometry of its own cells on ONE whole-mesh RCM order,
+    computed once, so all laws share the internal layout (``M_pad``, ``vs``).
 
     ``engine``: "auto" takes the structured engine on a box of hexes or
     quads and the windowed engine on a general mesh of at least
@@ -127,8 +98,9 @@ def build_packed_problem(
     structured engine. The JAX package's other engines (gather, structured
     tet, lattice) are not ported, and a mesh that would need one raises.
 
-    Returns ``(geos, models, state0)``, one entry per law; on the windowed
-    engine ``state0.u`` is in the internal layout.
+    History entries with a ``(rows, cols)`` shape are stored flattened,
+    ``[rows * cols, *qp]``. Returns ``(geos, models, state0)``, one entry per
+    law; on the windowed engine ``state0.u`` is in the internal layout.
     """
     if engine not in ("auto", "windowed", "gather"):
         msg = f"engine must be 'auto', 'windowed' or 'gather', got {engine!r}"
@@ -138,34 +110,70 @@ def build_packed_problem(
     if not laws:
         msg = "build_packed_problem needs at least one law"
         raise ValueError(msg)
-    whole = len(laws) == 1 and len(laws[0][1]) == space.mesh.num_cells
-    if not whole and not _is_box(space.mesh):
-        msg = (
-            "laws on cell subsets need a box of hexes or quads (structured "
-            "engine); several laws on the windowed engine are not ported yet "
-            "(ROADMAP.md Queue 1)"
-        )
-        raise NotImplementedError(msg)
+    mesh = space.mesh
     models = tuple(m for m, _ in laws)
-    full = _build_geometry(space, models[0], q_degree, engine, device=device, dtype=dtype)
-    geos = tuple(
-        full if len(cells) == space.mesh.num_cells
-        else restrict_structured_geometry(full, cells)
-        for _, cells in laws
-    )
-    sdim = models[0].constraint.stress_strain_dim
+    constraint = models[0].constraint
+    if _is_box(mesh):
+        # box meshes of hexes/quads keep the structured engine whatever
+        # ``engine`` says, as in the JAX package
+        full = build_structured_geometry(space, q_degree, constraint, device=device,
+                                         dtype=dtype)
+        geos = tuple(
+            full if len(cells) == mesh.num_cells else restrict_structured_geometry(full, cells)
+            for _, cells in laws
+        )
+    else:
+        if mesh.structured_shape is not None and space.degree == 1 and mesh.cell_type in (
+            "tetra", "triangle"
+        ):
+            msg = (
+                "a Kuhn simplex box (mesh.structured_shape set) runs on the JAX "
+                "package's structured tet engine, which is not ported yet (ROADMAP.md "
+                "Queue 1); build the mesh without structured_shape to use the "
+                "windowed engine"
+            )
+            raise NotImplementedError(msg)
+        use_windowed = engine == "windowed" or (
+            engine == "auto"
+            and mesh.num_cells >= WINDOWED_MIN_CELLS
+            and mesh.cell_type != "interval"
+        )
+        if not use_windowed:
+            msg = (
+                f"this general mesh ({mesh.num_cells} {mesh.cell_type} cells, "
+                f"engine={engine!r}) would run on the JAX package's gather engine, "
+                "which is not ported yet (ROADMAP.md Queue 1); pass engine='windowed'"
+            )
+            raise NotImplementedError(msg)
+        # one whole-mesh RCM order for every law's plan
+        t0 = time.perf_counter()
+        perm = reverse_cuthill_mckee(space.cell_dof_nodes, space.n_dof_nodes)
+        rcm_s = time.perf_counter() - t0
+        geos = tuple(
+            build_windowed_geometry(
+                space, q_degree, constraint,
+                None if len(cells) == mesh.num_cells else np.asarray(cells, np.int64),
+                device=device, dtype=dtype, perm=perm,
+            )
+            for _, cells in laws
+        )
+        for g in geos:  # each plan's build seconds name the shared order's
+            g.build_seconds["rcm"] = rcm_s
+    sdim = constraint.stress_strain_dim
 
-    def zeros(k):
-        return torch.zeros(full.qp_shape(k), dtype=dtype, device=device)
+    def zeros(geo, k):
+        return torch.zeros(geo.qp_shape(k), dtype=dtype, device=device)
 
     histories = tuple(
-        None if m.history_dim is None else {k: zeros(d) for k, d in m.history_dim.items()}
-        for m in models
+        None if m.history_dim is None
+        else {k: zeros(g, flat_history_dim(d)) for k, d in m.history_dim.items()}
+        for m, g in zip(models, geos)
     )
-    n_u = full.ndofs_int if isinstance(full, WindowedGeometry) else space.ndofs
+    geo = geos[0]
+    n_u = geo.ndofs_int if isinstance(geo, WindowedGeometry) else space.ndofs
     state = PackedState(
         u=torch.zeros(n_u, dtype=dtype, device=device),
-        stress=tuple(zeros(sdim) for _ in models),
+        stress=tuple(zeros(g, sdim) for g in geos),
         histories=histories,
         t=torch.zeros((), dtype=dtype, device=device),
     )
@@ -185,6 +193,8 @@ def _select(cond: torch.Tensor, new, old):
             *(_select(cond, getattr(new, f), getattr(old, f))
               for f in ("kappa", "beta", "gamma", "n"))
         )
+    if isinstance(new, DenseTangent):
+        return DenseTangent(torch.where(cond, new.C, old.C))
     if new is None or isinstance(new, float):
         return new
     msg = f"cannot select between values of type {type(new).__name__}"
@@ -196,6 +206,18 @@ def _require_cuda(geo) -> None:
         msg = (
             "matvec_impl/eval_impl='kernel' launch CUDA kernels; the geometry "
             f"lives on {geo.device}. Use 'plain' off the card."
+        )
+        raise ValueError(msg)
+
+
+def require_factored(model) -> None:
+    """Raise unless the law declares a factored tangent (``factored_tangent``),
+    the only kind the CUDA operator applies."""
+    if not model.factored_tangent:
+        msg = (
+            "matvec_impl='kernel' applies a factored (IsotropicTangent) tangent; "
+            f"{type(model).__name__} returns a DenseTangent on the engines: use "
+            "'plain' or 'auto'"
         )
         raise ValueError(msg)
 
@@ -218,20 +240,25 @@ def make_packed_step(
     """Build ``step(models, state, bc_dofs, bc_vals, f_ext, dt) -> (state', stats)``.
 
     ``geos``: one geometry per law, as ``build_packed_problem`` returns them:
-    StructuredGeometry views of one grid (one or several laws), or one
-    WindowedGeometry. Several laws run the grid-major loop with per-law
-    strain -> evaluate -> residual sweeps, summed, and a per-law operator sum.
+    StructuredGeometry views of one grid, or WindowedGeometry plans of cell
+    subsets on one shared node order (one or several laws either way).
+    Several laws run per-law strain -> evaluate -> residual sweeps, summed,
+    and per-law operator and Jacobi-diagonal sums. A law's tangent is an
+    IsotropicTangent (the hot laws' SoA twins) or a DenseTangent (the
+    generic adapter); the plain operators take either.
     ``preconditioner``: optional callable M^-1 on the engine's working
     vectors (structured: grid-major, a MultigridPreconditioner or its
     ``bpx``; windowed: internal, e.g. ``WindowedAmgPreconditioner.
     wrap_internal``); None = Jacobi (the per-law diagonals summed).
     ``matvec_impl``: "plain" (StructuredGeometry.matvec_gm) or "kernel" (the
     CUDA operator of ops/cuda_matvec.py; the geometry must be on a CUDA
-    device). ``eval_impl``: "plain" (strain -> model.evaluate_packed ->
-    residual) or "kernel" (the fused VonMises3D kernel of ops/cuda_eval.py,
-    CUDA only). Both kernels serve one law on the structured engine; the
-    windowed engine takes "plain" and launches its own kernels (gather,
-    scatter, BSR SpMV) whenever its tensors are on a CUDA device.
+    device; the law must declare a factored tangent, or the step raises
+    ValueError). ``eval_impl``: "plain" (strain ->
+    model.evaluate_packed -> residual) or "kernel" (the fused VonMises3D
+    kernel of ops/cuda_eval.py, CUDA only). Both kernels serve one law on the
+    structured engine; the windowed engine takes "plain" and launches its
+    own kernels (gather, scatter, BSR SpMV) whenever its tensors are on a
+    CUDA device.
     ``cg_flexible``/``cg_reduce_dtype``/``cg_fixed_iters``: see
     solver.linear.cg_solve.
 
@@ -247,14 +274,17 @@ def make_packed_step(
             msg = f"{name} must be 'plain' or 'kernel', got {impl!r}"
             raise ValueError(msg)
     geo = geos[0] if geos else None
-    windowed = isinstance(geo, WindowedGeometry)
+    windowed = all(isinstance(g, WindowedGeometry) for g in geos) and (
+        len({(g.ex.M_pad, g.vs) for g in geos}) == 1
+    )
     structured = all(isinstance(g, StructuredGeometry) for g in geos) and (
         len({(g.M, g.vs) for g in geos}) == 1
     )
-    if not geos or not (structured or (windowed and len(geos) == 1)):
+    if not geos or not (structured or windowed):
         msg = (
-            "make_packed_step supports StructuredGeometry views of one grid or one "
-            "WindowedGeometry"
+            "make_packed_step supports StructuredGeometry views of one grid or "
+            "WindowedGeometry plans on one shared node order (the same (M_pad, vs); "
+            "build several laws through build_packed_problem)"
         )
         raise ValueError(msg)
     if "kernel" in (matvec_impl, eval_impl):
@@ -279,7 +309,7 @@ def make_packed_step(
         def boundary(bc_dofs):
             return geo.bc_internal(bc_dofs), geo.free_internal(bc_dofs)
 
-        ops = [(geo.strain, geo.residual, geo.matvec, geo.jacobi_diag)]
+        ops = [(g.strain, g.residual, g.matvec, g.jacobi_diag) for g in geos]
     else:
         M, vs, ndofs = geo.M, geo.vs, geo.ndofs
         to_work, from_work = geo.to_grid_major, geo.to_node_major
@@ -381,6 +411,8 @@ def make_packed_step(
                 models, u_w, u_prev_w, state.stress, state.histories, state.t, f_ext_w, dt
             )
 
+        if kernel_mv is not None:
+            require_factored(models[0])
         r, s, tg, h = evaluate(u)
         r0_norm = fnorm(r)
         thresh = torch.clamp(newton_rtol * r0_norm, min=newton_atol)

@@ -4,10 +4,10 @@ Mutable BC values and external load, ``solve() -> (niter, converged)`` per
 load step (with optional adaptive substepping), ``solve_schedule`` for a
 whole load path, checkpoints of the committed state and observation
 properties; each step runs ``make_packed_step``. On a box of hexes it runs
-the structured engine (one law, or several on cell subsets) with an optional
-multigrid or BPX preconditioner and, on a CUDA device, the fused CUDA
-kernels; on a general (imported) mesh the windowed engine with the
-smoothed-aggregation AMG.
+the structured engine with an optional multigrid or BPX preconditioner and,
+on a CUDA device, the fused CUDA kernels; on a general (imported) mesh the
+windowed engine with the smoothed-aggregation AMG. Either takes one law or
+several on cell subsets.
 
 Example::
 
@@ -35,7 +35,7 @@ from ..ops.structured import build_structured_geometry
 from ..ops.windowed import WindowedGeometry
 from .amg import build_amg
 from .multigrid import build_multigrid
-from .packed_step import PackedState, build_packed_problem, make_packed_step
+from .packed_step import PackedState, build_packed_problem, make_packed_step, require_factored
 
 __all__ = ["PackedSimulation"]
 
@@ -45,9 +45,10 @@ class PackedSimulation:
     (windowed engine).
 
     Args:
-        laws: a model, or a list of ``(model, cells)`` on a box mesh (every
-            law a masked view of one grid; the preconditioner is one
-            whole-grid hierarchy with the first law's moduli).
+        laws: a model, or a list of ``(model, cells)``: on a box mesh every
+            law is a masked view of one grid, on a general mesh a plan of its
+            cells on one shared RCM order; the preconditioner is one
+            whole-mesh hierarchy with the first law's moduli.
         space: displacement FunctionSpace.
         bcs: Dirichlet BCs (values may be mutated between steps).
         q_degree: quadrature degree.
@@ -60,8 +61,11 @@ class PackedSimulation:
             Elastic moduli come from ``elastic_moduli`` or the (first)
             law's parameters.
         matvec_impl: "plain", "kernel" or "auto": the CUDA operator on a
-            CUDA device for one law on the 3D hex hot path, the plain one
-            elsewhere. With the kernel, the V-cycle's fine level applies it
+            CUDA device for one law that declares a factored tangent
+            (``factored_tangent``: an IsotropicTangent) on the 3D hex hot
+            path, the plain one elsewhere (a DenseTangent law, e.g.
+            Drucker-Prager or a non-FULL law, takes "plain"; "kernel" raises
+            for it). With the kernel, the V-cycle's fine level applies it
             too, unless ``mg_options["fused_smoothing"]`` is set: then every
             level smooths with the K3 chains and the CG operator alone
             follows ``matvec_impl``.
@@ -155,7 +159,11 @@ class PackedSimulation:
         if matvec_impl == "auto":
             on_card = self.device.type == "cuda"
             single = len(geos) == 1 and not windowed
-            matvec_impl = "kernel" if on_card and single and hot_path_geometry(geo) else "plain"
+            matvec_impl = "kernel" if (
+                on_card and single and hot_path_geometry(geo) and models[0].factored_tangent
+            ) else "plain"
+        elif matvec_impl == "kernel" and not windowed:
+            require_factored(models[0])
 
         pc = mg = None
         if preconditioner is not None:

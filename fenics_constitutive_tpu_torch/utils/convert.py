@@ -8,6 +8,10 @@ displacements; on the windowed engine stress [6, N], history [h, N] in the
 plan's slot order and displacements in the internal layout [vs * M_pad].
 The geometry is not carried: the port rebuilds it from the same mesh, and
 both packages build identical plans (RCM order, blocks, slots) from it.
+
+Models are carried by ``model_from_jax``: the port's model of the same
+class, built from the JAX model's parameters (read as attributes, so this
+module imports nothing of the JAX package).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 
 from ..solver.packed_step import PackedState
 
-__all__ = ["params_from_numpy", "state_from_numpy"]
+__all__ = ["model_from_jax", "params_from_numpy", "state_from_numpy"]
 
 
 def state_from_numpy(u, stress, histories, t, *, device, dtype: torch.dtype) -> PackedState:
@@ -45,3 +49,32 @@ def params_from_numpy(params) -> dict[str, float]:
     """Model parameters as Python floats from a JAX model's ``params`` (0-d
     arrays or numpy scalars); pass the result to the port's model class."""
     return {k: float(np.asarray(v).reshape(())) for k, v in params.items()}
+
+
+#: local Newton controls a model instance may carry (class defaults otherwise)
+_NEWTON_CONTROLS = ("newton_tol", "newton_rtol", "newton_max_iter", "newton_atol",
+                    "newton_maxit")
+
+
+def model_from_jax(model):
+    """The port's model of the same class as the JAX package's ``model``,
+    with the same parameters, constraint and local Newton controls; a
+    conversion wrapper is carried with its inner model."""
+    from .. import models
+
+    name = type(model).__name__
+    cls = getattr(models, name, None)
+    if cls is None or name in ("Constraint", "StressStrainConstraint", "IncrSmallStrainModel"):
+        msg = f"the port has no model class {name}"
+        raise TypeError(msg)
+    if name in ("UniaxialStrainFrom3D", "PlaneStrainFrom3D"):
+        return cls(model_from_jax(model.model))
+    params = params_from_numpy(model.params)
+    if name in ("LinearElasticityModel", "SpringKelvinModel", "SpringMaxwellModel"):
+        out = cls(params, models.Constraint[model.constraint.name])
+    else:
+        out = cls(params)
+    for key in _NEWTON_CONTROLS:
+        if key in vars(model):
+            setattr(out, key, vars(model)[key])
+    return out

@@ -40,7 +40,9 @@ def test_port_never_imports_jax():
     scanned = {str(f.relative_to(PKG)) for f in files}
     for module in ("fem/io.py", "fem/kinematics.py", "ops/windowed.py", "ops/windowed_bsr.py",
                    "ops/cuda_window.py", "solver/amg.py", "ops/cuda_smoother.py",
-                   "fem/facets.py", "models/linear_elasticity.py", "utils/checkpoint.py"):
+                   "fem/facets.py", "models/linear_elasticity.py", "utils/checkpoint.py",
+                   "models/drucker_prager.py", "models/plasticity_general.py",
+                   "models/viscoelasticity.py", "models/conversions.py", "utils/convert.py"):
         assert module in scanned, module
     bad = {
         str(f.relative_to(PKG)): name
