@@ -118,6 +118,38 @@ Several laws on the imported mesh, and the whole model library:
      jacobi_diag_gm in
      float32 must be bit-equal with TF32 on and off.
 
+Every P1 mesh the JAX package accepts, on its own engine:
+
+ 16. the structured-tet engine on scripts/bench_tet.py's workload: a 35^3
+     Kuhn tet box (structured_shape set; 1,029,000 QPs), VonMises3D, the
+     bench's stretch, float32, max_newton=1, fixed-14 CG with V(3,3)
+     multigrid (nu_coarse 2, direct coarsest solve) below the tet fine
+     level: fused (K3 on the tet level and the hex levels below) and eager,
+     each timed over 16 steps at 2.0 + 1e-4 + 0.05 i after warm-up scales
+     0.5/1.0/1.5 and held to a fixed-40 re-run within 1.02x; K3's entries on
+     the tet hierarchy against their plain twins; K1 and K2 never launch.
+     Then PackedSimulation with two laws on the box (linear elasticity
+     below z = 0.5, VonMises3D above), float64, the V-cycle with K3, 3
+     converged steps of 0.0004 k.
+ 17. the gather engine with the AMG on phase 9's mesh: written with
+     write_gmsh41_binary and read back (nodes, cells and cell sets equal to
+     the ASCII read), PackedSimulation(engine="gather", preconditioner=
+     "amg") (1,029,000 QPs unpadded; on the card its AMG levels are the
+     windowed ones, which K6 applies), phase 9's protocol (fixed-3 PCG with
+     AMG V(3,3), held to fixed-9 and fixed-18), one step run twice bit for
+     bit, K6 launches a step, the set-up split (read, gather_idx, AMG host
+     build, freeze, upload); the ELL levels of the same hierarchy
+     (build_amg(spmv="ell")) beside the windowed ones: one V-cycle each on
+     one vector, which must agree, and the same schedule; and the
+     displacement and stress through write_vtu/read_vtu, bit-equal.
+ 18. small meshes on the card against the CPU, float64, 2 steps of 0.004 k
+     with equal Newton counts and u and stress within 1e-10: a 6^3
+     shuffled tet mesh ("auto" picks the gather engine), a bar of intervals
+     with LinearElasticityModel UNIAXIAL_STRAIN and UNIAXIAL_STRESS and
+     UniaxialStrainFrom3D(VonMises3D), the 6^3 hex box with the AMG
+     (grid-major; K6 on the card, the ELL levels on the CPU), a 6^3 Kuhn
+     box with two laws and the K3 V-cycle.
+
 A kernel's time on the card and a device-op count come from torch.profiler.
 CUPTI now and then delivers a short profile on the H100, so such a profile
 is taken again, three times in all; after that the time is taken by CUDA
@@ -126,16 +158,17 @@ kernels are counted as aten ops (aten_device_ops). A line before the JSON
 says how often that happened.
 
 Then one JSON line of per-kernel results (launches on the path's run, for
-K4-K6 also on phase 14's 3-step run, times, plain and library times, the
-bound)
-and, last, the device JSON line.
+K3 also on phase 16's tet run, for K4-K6 also on phase 14's 3-step run, for
+K6 also on phase 17's timed run, times, plain and library times, the
+bound) and, last, the device JSON line.
 
     python3 chip_smoke.py --profile
 
-instead profiles 3 steps of the bench workload with the unfused and the
-fused V-cycle, and 3 steps of the general-tet bench (torch.profiler: device
-time per step, busy share, device ops per step, the costliest kernels), and
-prints no JSON.
+instead profiles 3 steps each of the bench workload with the unfused and
+the fused V-cycle, the general-tet bench, phase 16's Kuhn box (fused and
+eager) and phase 17's gather engine (torch.profiler: device time per step,
+busy share, device ops per step, the costliest kernels), and prints no
+JSON.
 
     python3 chip_smoke.py --profiler-check
 
@@ -961,7 +994,7 @@ def tet_setup(workdir: Path) -> dict:
     geo = geos[0]
     if geo.N != N_QP_TET:
         fail(f"the tet bench has {geo.N} quadrature points, expected {N_QP_TET}")
-    amg = build_amg(V, MU, KAPPA, free_mask(V, bcs), q_degree=2, nu=3,
+    amg = build_amg(V, MU, KAPPA, free_mask(V, bcs), q_degree=2, nu=3, spmv="windowed",
                     node_perm=geo.ex.perm, device=CARD, dtype=torch.float32)
     return {"mesh": mesh, "V": V, "bcs": bcs, "geos": geos, "models": models,
             "state": state, "amg": amg, "io_s": io_s}
@@ -1206,8 +1239,8 @@ def tet_reference() -> float:
         geos, models, state = build_packed_problem(
             V, VonMises3D(MAT), 2, device=device, dtype=torch.float64, engine="windowed"
         )
-        amg = build_amg(V, MU, KAPPA, free_mask(V, bcs), nu=3, node_perm=geos[0].ex.perm,
-                        device=device, dtype=torch.float64)
+        amg = build_amg(V, MU, KAPPA, free_mask(V, bcs), nu=3, spmv="windowed",
+                        node_perm=geos[0].ex.perm, device=device, dtype=torch.float64)
         step = tet_step(geos, amg.wrap_internal(geos[0].ex.M_pad), None, max_newton=8,
                         newton_rtol=1e-10, newton_atol=1e-10, cg_rtol=1e-10, cg_maxiter=300)
         args = tet_args(geos[0], bcs, torch.float64, device)
@@ -1255,6 +1288,7 @@ def phase_tet_bench(tet: dict) -> dict:
     host_s = time.perf_counter() - h0
     counts = dict(cuda_window.launches)
     ms_step = ev0.elapsed_time(ev1) / K
+    tet["bench_ms_step"] = ms_step  # phase 17 prints it beside the gather engine's
     if not (torch.isfinite(probes).all() and torch.isfinite(out_state.u).all()):
         fail("tet bench run produced non-finite values")
     if out_state.stress[0].shape != (6, N_QP_TET):
@@ -1916,6 +1950,424 @@ def phase_k3(results: dict) -> None:
             results["K3_vcycle"] = {"ops": ops, "ms": vf_ms, "unfused_ms": vp_ms}
 
 
+# -- every P1 mesh: the structured-tet and gather engines, the AMG's two formats -------
+
+N_TET_BOX = 35  # phase 16's Kuhn box: 35^3 cubes of 6 tets
+N_QP_TET_BOX = 1_029_000  # 257,250 tets x 4 points, unpadded (phases 16 and 17)
+TET_BOX_FIXED, TET_BOX_VERIFY, TET_BOX_STEPS = 14, 40, 16  # scripts/bench_tet.py
+# phase 18: card against CPU, converged float64 steps, normwise on u and stress
+TOL_SMALL = 1e-10
+
+
+def kuhn_box_setup(dtype):
+    """The 35^3 Kuhn tet box (structured_shape set) with the bench's BCs, on
+    the structured-tet engine (VonMises3D), and its V(3,3) hierarchy with
+    nu_coarse 2 and a direct coarsest solve, fused (K3) and eager."""
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace, unit_cube_mesh
+    from fenics_constitutive_tpu_torch.models import VonMises3D
+    from fenics_constitutive_tpu_torch.ops import StructuredTetGeometry
+    from fenics_constitutive_tpu_torch.solver import build_multigrid, build_packed_problem
+
+    t0 = time.perf_counter()
+    V = FunctionSpace(unit_cube_mesh(N_TET_BOX, N_TET_BOX, N_TET_BOX, "tetra"), 1, 3)
+    bcs = bench_bcs(V)
+    t1 = time.perf_counter()
+    geos, models, state = build_packed_problem(V, VonMises3D(MAT), 2, device=CARD, dtype=dtype)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if not isinstance(geos[0], StructuredTetGeometry) or geos[0].N != N_QP_TET_BOX:
+        fail(f"the Kuhn box resolved to {type(geos[0]).__name__} with {geos[0].N} QPs, "
+             f"expected the structured-tet engine with {N_QP_TET_BOX:,}")
+    free0 = torch.as_tensor(free_mask(V, bcs))
+    mgs, mg_s = {}, {}
+    for fused in (True, False):
+        t = time.perf_counter()
+        mgs[fused] = build_multigrid(geos[0], MU, KAPPA, free0, device=CARD, dtype=dtype, nu=3,
+                                     nu_coarse=2, coarse_direct=True, fused_smoothing=fused)
+        torch.cuda.synchronize()
+        mg_s[fused] = time.perf_counter() - t
+    args = tet_box_args(V, bcs, dtype)
+    setup = {"mesh": t1 - t0, "geometry": t2 - t1, "multigrid fused": mg_s[True],
+             "multigrid eager": mg_s[False]}
+    return V, bcs, geos, models, state, mgs, args, setup
+
+
+def tet_box_args(V, bcs, dtype):
+    from fenics_constitutive_tpu_torch.fem import combine_bcs
+
+    bc_dofs, bc_vals = combine_bcs(bcs)
+    return (torch.as_tensor(bc_dofs, dtype=torch.int64, device=CARD),
+            torch.as_tensor(bc_vals, dtype=dtype, device=CARD),
+            torch.zeros(V.ndofs, dtype=dtype, device=CARD), 1.0)
+
+
+def timed_schedule(step, models, state, args, scales):
+    """run_schedule by CUDA events: (state, r_norm probes, ms/step)."""
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    out, probes = run_schedule(step, models, state, args, scales)
+    ev1.record()
+    ev1.synchronize()
+    if not (torch.isfinite(probes).all() and torch.isfinite(out.u).all()):
+        fail("a timed schedule produced non-finite values")
+    return out, probes, ev0.elapsed_time(ev1) / len(scales)
+
+
+def phase_tet_box(results: dict) -> dict:
+    """scripts/bench_tet.py's workload on the structured-tet engine: the 35^3
+    Kuhn box, float32, max_newton=1, fixed-14 CG with the V(3,3) multigrid,
+    fused (K3 on the tet fine level and the hex levels below) and eager in
+    the same call; K3's entries on the tet hierarchy against their plain
+    twins; then two laws on the box through PackedSimulation, float64."""
+    from fenics_constitutive_tpu_torch.ops import cuda_smoother
+
+    dtype = torch.float32
+    V, bcs, geos, models, state, mgs, args, setup = kuhn_box_setup(dtype)
+    fc = mgs[True].fused_cycle
+    if not cuda_smoother.smoother_geometry_ok(geos[0]):
+        fail("K3 refuses the tet fine level, which the JAX package's fused smoothing accepts")
+
+    # K3 at the shapes this path gives it, against the plain twins
+    r = torch.as_tensor(np.random.default_rng(16).normal(size=V.ndofs), dtype=dtype, device=CARD)
+    r_gm = geos[0].to_grid_major(r)
+    held = []
+    for label, _, kernel, plain, _ in k3_entries(fc, r_gm):
+        _, rel = check_k3(f"tet {label}", kernel, plain, dtype, TOL_F32_K1)
+        held.append(f"{label} rel {rel:.1e}")
+    _, rel_v = normwise(mgs[True](r_gm), mgs[False](r_gm))
+    if rel_v > TOL_F32_K1:
+        fail(f"the fused V-cycle on the tet hierarchy disagrees with the eager one: {rel_v:.3e}")
+    t_f1, t_e1 = cuda_ms(lambda: mgs[True](r_gm), iters=10), cuda_ms(lambda: mgs[False](r_gm),
+                                                                       iters=10)
+    t_e2, t_f2 = cuda_ms(lambda: mgs[False](r_gm), iters=10), cuda_ms(lambda: mgs[True](r_gm),
+                                                                       iters=10)
+
+    scales = [2.0 + 1e-4 + 0.05 * i for i in range(TET_BOX_STEPS)]
+    runs = {}
+    for fused in (True, False):
+        step = tet_box_step(geos, mgs[fused], TET_BOX_FIXED)
+        st = state
+        for k in (0.5, 1.0, 1.5):  # warm-up, driven past yield
+            st, _ = step(models, st, args[0], args[1] * k, *args[2:])
+        torch.cuda.synchronize()
+        reset_counts()
+        out, probes, ms_step = timed_schedule(step, models, st.clone(), args, scales)
+        counts = read_counts()
+        _, probes_ref = run_schedule(tet_box_step(geos, mgs[fused], TET_BOX_VERIFY), models,
+                                     st.clone(), args, scales)
+        runs[fused] = {"ms_step": ms_step, "r": float(probes[-1]),
+                       "r_ref": float(probes_ref[-1]), "counts": counts, "state": out}
+    for fused, run in runs.items():
+        if run["r"] > R_NORM_ENVELOPE * run["r_ref"]:
+            fail(f"phase 16 {'fused' if fused else 'eager'}: settled r_norm {run['r']:.4f} "
+                 f"exceeds {R_NORM_ENVELOPE} x fixed-{TET_BOX_VERIFY} {run['r_ref']:.4f}")
+    counts = runs[True]["counts"]
+    if counts["K3"] <= 0 or counts["K1"] or counts["K2"] or runs[False]["counts"]["K3"]:
+        fail(f"phase 16 launches: fused {counts}, eager {runs[False]['counts']} (K3 on the "
+             "fused run only, K1 and K2 never on a tet geometry)")
+    if runs[True]["state"].stress[0].shape != (6, 24, (N_TET_BOX + 1) ** 3):
+        fail(f"tet box stress has shape {tuple(runs[True]['state'].stress[0].shape)}")
+    results["tet_box"] = {"counts": counts, "ms_step": runs[True]["ms_step"],
+                          "eager_ms_step": runs[False]["ms_step"]}
+    K = TET_BOX_STEPS
+    print(f"phase 16 Kuhn box {N_TET_BOX}^3 f32 ({N_QP_TET_BOX:,} QPs, structured-tet engine, "
+          f"{mgs[True].n_levels} levels {fc.node_grids}): fused V-cycle "
+          f"{runs[True]['ms_step']:.3f} ms/step, eager {runs[False]['ms_step']:.3f} ms/step "
+          f"over {K} steps (CUDA events, same call); settled r_norm fused {runs[True]['r']:.4f} "
+          f"vs fixed-{TET_BOX_VERIFY} {runs[True]['r_ref']:.4f}, eager {runs[False]['r']:.4f} vs "
+          f"{runs[False]['r_ref']:.4f} (envelope {R_NORM_ENVELOPE}); V-cycle fused "
+          f"{t_f1:.3f}/{t_f2:.3f} ms vs eager {t_e1:.3f}/{t_e2:.3f} ms, rel {rel_v:.1e}; "
+          f"launches per step K1 {counts['K1']} K2 {counts['K2']} K3 {counts['K3'] / K:g} ("
+          + ", ".join(f"{kind} {counts['K3_' + kind] / K:g}" for kind in K3_ENTRIES)
+          + "); setup s: " + ", ".join(f"{k} {v:.2f}" for k, v in setup.items()))
+    print(f"phase 16 K3 on the tet hierarchy vs plain f32 (tol {TOL_F32_K1:g}, bit-equal across "
+          f"two launches; tail from level {fc.tail_start(r_gm.device)}): " + "; ".join(held))
+    phase_tet_box_laws(V)
+    return results["tet_box"]
+
+
+def tet_box_step(geos, mg, fixed: int):
+    from fenics_constitutive_tpu_torch.solver import make_packed_step
+
+    return make_packed_step(geos, max_newton=1, newton_rtol=0.0, newton_atol=0.0, cg_rtol=1e-5,
+                            cg_maxiter=400, preconditioner=mg, cg_fixed_iters=fixed)
+
+
+def phase_tet_box_laws(V) -> None:
+    """PackedSimulation with two laws on the Kuhn box: linear elasticity
+    below z = 0.5, VonMises3D above (masked structured-tet views), float64,
+    the V-cycle with the K3 chains on one whole-grid tet hierarchy; 3
+    converged steps of 0.0004 k from the elastic start."""
+    from fenics_constitutive_tpu_torch.fem import combine_bcs
+    from fenics_constitutive_tpu_torch.models import Constraint, LinearElasticityModel, VonMises3D
+    from fenics_constitutive_tpu_torch.solver import PackedSimulation
+
+    bcs = bench_bcs(V)
+    z = V.mesh.cell_midpoints()[:, 2]
+    laws = [(LinearElasticityModel({"E": 150000.0, "nu": 0.3}, Constraint.FULL),
+             np.flatnonzero(z < 0.5)), (VonMises3D(MAT), np.flatnonzero(z >= 0.5))]
+    t0 = time.perf_counter()
+    sim = PackedSimulation(laws, V, bcs, 2, preconditioner="vcycle",
+                           mg_options={"fused_smoothing": True}, device=CARD,
+                           dtype=torch.float64)
+    build_s = time.perf_counter() - t0
+    if sim.engine != "structured_tet" or sim._mg.fused_cycle is None:
+        fail(f"the two-law Kuhn box resolved to {sim.engine}, fused cycle "
+             f"{sim._mg.fused_cycle is not None}")
+    vals = []
+    for k in (1, 2, 3):
+        bcs[1].value = STRETCH_STEP * k
+        vals.append(combine_bcs(bcs)[1])
+    reset_counts()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    stats = sim.solve_schedule(np.stack(vals))
+    ev1.record()
+    ev1.synchronize()
+    counts = read_counts()
+    stress = sim.stress
+    if not stats["converged"].all():
+        fail(f"the two-law Kuhn box schedule did not converge: {stats}")
+    if stress.shape != (V.mesh.num_cells, 4, 6) or not np.isfinite(stress).all():
+        fail(f"two-law Kuhn box stress has shape {stress.shape} or non-finite values")
+    if counts["K3"] <= 0:
+        fail("the two-law Kuhn box never launched K3")
+    print(f"phase 16 PackedSimulation two laws on the {N_TET_BOX}^3 Kuhn box f64 (elastic "
+          f"z < 0.5, VonMises3D above; {sim.engine} + vcycle with K3, build {build_s:.1f} s): "
+          f"solve_schedule 3 steps of {STRETCH_STEP} k, {ev0.elapsed_time(ev1) / 3:.1f} ms/step, "
+          f"newton {stats['newton_iters'].tolist()}, r "
+          + ", ".join(f"{r:.2e}" for r in stats["r_norm"])
+          + f"; launches K1 {counts['K1']} K2 {counts['K2']} K3 {counts['K3']}")
+
+
+def phase_gather(tet: dict, workdir: Path) -> dict:
+    """Phase 9's imported mesh written as binary Gmsh v4.1 and read back
+    (equal to the ASCII read), then PackedSimulation(engine="gather",
+    preconditioner="amg") on it: the gather engine with the AMG at 1,029,000
+    QPs, whose levels K6 applies on the card, driven by phase 9's protocol;
+    one step run twice (bit for bit); the ELL levels of the same hierarchy
+    beside them (V-cycle and step); the displacement and stress through
+    write_vtu/read_vtu. Returns the K6 launches of the timed run."""
+    from fenics_constitutive_tpu_torch.fem import (
+        FunctionSpace,
+        read_gmsh,
+        read_vtu,
+        write_gmsh41_binary,
+        write_vtu,
+    )
+    from fenics_constitutive_tpu_torch.models import VonMises3D
+    from fenics_constitutive_tpu_torch.ops import PackedGeometry, cuda_window
+    from fenics_constitutive_tpu_torch.solver import (
+        AmgPreconditioner,
+        PackedSimulation,
+        WindowedAmgPreconditioner,
+        build_amg,
+    )
+
+    ascii_mesh = tet["mesh"]
+    path = workdir / "tet35.bin.msh"
+    t0 = time.perf_counter()
+    write_gmsh41_binary(path, ascii_mesh)
+    t1 = time.perf_counter()
+    mesh = read_gmsh(path)
+    write_s, read_s = t1 - t0, time.perf_counter() - t1
+    if not (np.array_equal(mesh.nodes, ascii_mesh.nodes)
+            and np.array_equal(mesh.cells, ascii_mesh.cells)
+            and mesh.cell_sets == ascii_mesh.cell_sets is None):
+        fail("the binary read differs from the ASCII read of the same mesh")
+
+    V = FunctionSpace(mesh, 1, 3)
+    bcs = bench_bcs(V)
+    t0 = time.perf_counter()
+    sim = PackedSimulation(VonMises3D(MAT), V, bcs, 2, engine="gather", preconditioner="amg",
+                           mg_options={"nu": 3}, device=CARD, dtype=torch.float32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    geos, models, amg, geo = sim._geos, sim._models, sim._mg, sim._geos[0]
+    if (sim.engine, sim.preconditioner) != ("gather", "amg") or not isinstance(
+            geo, PackedGeometry) or not isinstance(amg, WindowedAmgPreconditioner):
+        fail(f"PackedSimulation resolved to {sim.engine} + {sim.preconditioner} with "
+             f"{type(amg).__name__}, expected gather + amg with the windowed levels")
+    if geo.N != N_QP_TET_BOX:
+        fail(f"the gather engine holds {geo.N} QPs, expected {N_QP_TET_BOX:,}")
+
+    # phase 9's protocol on the gather engine's node-major vectors
+    args = tet_box_args(V, bcs, torch.float32)
+    step = tet_step(geos, amg, TET_FIXED)
+    st = sim.state
+    for k in (0.5, 1.0, 1.5, 2.0):  # warm-up, driven past yield
+        st, _ = step(models, st, args[0], args[1] * k, *args[2:])
+    torch.cuda.synchronize()
+    once = [step(models, st, args[0], args[1] * 2.05, *args[2:])[0] for _ in range(2)]
+    repeat = torch.equal(once[0].u, once[1].u) and torch.equal(once[0].stress[0],
+                                                               once[1].stress[0])
+    if not repeat:
+        fail("two runs of one gather-engine step differ")
+    scales = [2.0 + 0.05 * (i + 1) for i in range(10)]
+    for key in cuda_window.launches:
+        cuda_window.launches[key] = 0
+    out, probes, ms_step = timed_schedule(step, models, st.clone(), args, scales)
+    counts = dict(cuda_window.launches)
+    if counts["bsr_matvec"] <= 0 or counts["gather"] or counts["scatter"]:
+        fail(f"phase 17 launches {counts}: K6 on the AMG levels, never K4 or K5")
+    refs = [float(run_schedule(tet_step(geos, amg, fk), models, st.clone(), args, scales)[1][-1])
+            for fk in TET_VERIFY]
+    r_settled = float(probes[-1])
+    if not (r_settled <= R_NORM_ENVELOPE * refs[0] and refs[0] <= R_NORM_ENVELOPE * refs[1]):
+        fail(f"gather bench settled r_norm {r_settled:.4f} is outside the {R_NORM_ENVELOPE} "
+             f"envelopes of the deep re-runs {refs}")
+    r = torch.as_tensor(np.random.default_rng(2).normal(size=V.ndofs), dtype=torch.float32,
+                        device=CARD)
+    apply_ms = cuda_ms(lambda: geo.residual(geo.strain(r)), iters=10)
+
+    # the ELL levels of the same hierarchy beside the windowed ones, on the
+    # same node-major vector and the same schedule from the same state: one
+    # V-cycle each on the card alone, and the call and the step each in
+    # turns (a, b, b, a) after an untimed run of each schedule
+    ell = build_amg(V, MU, KAPPA, free_mask(V, bcs), q_degree=2, nu=3, spmv="ell",
+                    device=CARD, dtype=torch.float32)
+    if not isinstance(ell, AmgPreconditioner):
+        fail(f"build_amg(spmv='ell') gave {type(ell).__name__}")
+    _, rel_fmt = normwise(amg(r), ell(r))
+    if rel_fmt > TOL_F32_K1:
+        fail(f"the windowed and ELL V-cycles of one hierarchy disagree: {rel_fmt:.3e}")
+    pcs = {"windowed": amg, "ELL": ell}
+    steps = {k: tet_step(geos, pc, TET_FIXED) for k, pc in pcs.items()}
+    for k in steps:
+        run_schedule(steps[k], models, st.clone(), args, scales)
+    vc_dev = {k: device_ms(lambda pc=pc: pc(r), iters=10) for k, pc in pcs.items()}
+    vc = {k: [] for k in pcs}
+    fmt_ms = {k: [] for k in pcs}
+    for k in ("windowed", "ELL", "ELL", "windowed"):
+        vc[k].append(cuda_ms(lambda k=k: pcs[k](r), iters=10))
+        fmt_ms[k].append(timed_schedule(steps[k], models, st.clone(), args, scales)[2])
+
+    # the displacement and stress through VTU, bit for bit
+    u = out.u.reshape(-1, 3).cpu().numpy()
+    s_cells = geo.extract_cells(out.stress[0]).mean(dim=1).T.cpu().numpy()  # [C, 6]
+    t0 = time.perf_counter()
+    vtu = workdir / "gather.vtu"
+    write_vtu(vtu, mesh, {"u": u}, {"stress": s_cells})
+    _, pdata, cdata = read_vtu(vtu)
+    vtu_s = time.perf_counter() - t0
+    if not (np.array_equal(pdata["u"], u.astype(np.float64))
+            and np.array_equal(cdata["stress"], s_cells.astype(np.float64))):
+        fail("the VTU round trip of the displacement and stress is not bit-equal")
+
+    K = len(scales)
+    bs_g, bs_a, bs_e = geo.build_seconds, amg.build_seconds, ell.build_seconds
+    print(f"phase 17 gather engine + AMG on the imported {N_TET}^3 mesh f32 ({geo.N:,} QPs "
+          f"unpadded, gather_idx {tuple(geo.gather_idx.shape)}, AMG {amg.n_levels} windowed "
+          f"levels; build {build_s:.1f} s): {ms_step:.3f} ms/step over {K} steps (CUDA "
+          f"events; the windowed engine on the same mesh, phase 9: "
+          f"{tet.get('bench_ms_step', float('nan')):.3f} ms/step), settled r_norm "
+          f"{r_settled:.4f} vs fixed-{TET_VERIFY[0]} {refs[0]:.4f} and fixed-{TET_VERIFY[1]} "
+          f"{refs[1]:.4f} (envelope {R_NORM_ENVELOPE} each); one step run twice bit-equal; "
+          f"K6 {counts['bsr_matvec'] / K:g} launches a step; strain + residual {apply_ms:.3f} "
+          f"ms; setup s: binary write {write_s:.2f}, read {read_s:.2f}, geometry "
+          f"{bs_g['geometry']:.2f}, gather_idx {bs_g['gather_idx']:.2f}, geometry upload "
+          f"{bs_g['upload']:.2f}, AMG host build {bs_a['hierarchy']:.2f}, windowed freeze "
+          f"{bs_a['freeze']:.2f}, upload {bs_a['upload']:.2f}; binary read equal to the ASCII "
+          f"read; VTU write + read {vtu_s:.2f} s, bit-equal")
+    print("phase 17 level formats of one hierarchy (same call, windowed/ELL/ELL/windowed): "
+          "V-cycle on the card " + ", ".join(f"{k} {v:.3f} ms" for k, v in vc_dev.items())
+          + "; V-cycle call " + ", ".join(f"{k} {v[0]:.3f}/{v[1]:.3f} ms" for k, v in vc.items())
+          + f", rel {rel_fmt:.1e}; step " + ", ".join(
+              f"{k} {v[0]:.3f}/{v[1]:.3f}" for k, v in fmt_ms.items())
+          + f" ms/step; ELL host build {bs_e['hierarchy']:.2f} s, freeze "
+          f"{bs_e['freeze']:.2f} s, upload {bs_e['upload']:.2f} s")
+    return counts
+
+
+def small_cases() -> dict:
+    """Phase 18's runs: name -> (space maker, laws maker, simulation
+    options, expected engine)."""
+    from fenics_constitutive_tpu_torch import models as m
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace, unit_cube_mesh, unit_interval_mesh
+
+    def bar():
+        return FunctionSpace(unit_interval_mesh(8), 1, 1)
+
+    def kuhn_two_laws(V):
+        z = V.mesh.cell_midpoints()[:, 2]
+        return [(m.LinearElasticityModel({"E": 150000.0, "nu": 0.3}, m.Constraint.FULL),
+                 np.flatnonzero(z < 0.5)), (m.VonMises3D(MAT), np.flatnonzero(z >= 0.5))]
+
+    uni = {"E": 42000.0, "nu": 0.3}
+    return {
+        "tets-gather": (lambda: FunctionSpace(imported_mesh(N_LIBRARY), 1, 3),
+                        lambda V: m.VonMises3D(MAT), {}, "gather"),
+        "bar-uniaxial-strain": (bar, lambda V: m.LinearElasticityModel(
+            uni, m.Constraint.UNIAXIAL_STRAIN), {}, "gather"),
+        "bar-uniaxial-stress": (bar, lambda V: m.LinearElasticityModel(
+            uni, m.Constraint.UNIAXIAL_STRESS), {}, "gather"),
+        "bar-mises-from-3d": (bar, lambda V: m.UniaxialStrainFrom3D(m.VonMises3D(MAT)), {},
+                              "gather"),
+        "box-amg": (lambda: box(N_LIBRARY)[0], lambda V: m.VonMises3D(MAT),
+                    {"preconditioner": "amg"}, "structured"),
+        "kuhn-two-laws": (lambda: FunctionSpace(unit_cube_mesh(N_LIBRARY, N_LIBRARY, N_LIBRARY,
+                                                               "tetra"), 1, 3), kuhn_two_laws,
+                          {"preconditioner": "vcycle", "mg_options": {"fused_smoothing": True}},
+                          "structured_tet"),
+    }
+
+
+def small_bcs(V):
+    from fenics_constitutive_tpu_torch.fem import DirichletBC
+
+    if V.value_size == 1:
+        return [DirichletBC(V.locate_dofs_geometrical(lambda x: np.isclose(x[:, 0], 0.0)), 0.0),
+                DirichletBC(V.locate_dofs_geometrical(lambda x: np.isclose(x[:, 0], 1.0)), 0.0)]
+    return bench_bcs(V)
+
+
+def phase_small() -> None:
+    """The small meshes on the card against the CPU, float64, 2 converged
+    steps of 0.004 k: the Newton counts must equal the CPU's and u and the
+    stress agree within TOL_SMALL normwise."""
+    from fenics_constitutive_tpu_torch.ops import cuda_window
+    from fenics_constitutive_tpu_torch.solver import PackedSimulation
+
+    line, worst = [], 0.0
+    for name, (space, laws, opts, engine) in small_cases().items():
+        runs = {}
+        for device in (CARD, "cpu"):
+            V = space()
+            bcs = small_bcs(V)
+            reset_counts()
+            cuda_window.launches["bsr_matvec"] = 0
+            sim = PackedSimulation(laws(V), V, bcs, 2, device=device, dtype=torch.float64,
+                                   newton_rtol=1e-11, newton_atol=1e-10, cg_rtol=1e-12, **opts)
+            if sim.engine != engine:
+                fail(f"phase 18 {name} on {device} resolved to {sim.engine}, expected {engine}")
+            iters = []
+            for k in (1, 2):
+                bcs[1].value = 0.004 * k
+                niter, conv = sim.solve()
+                if not conv:
+                    fail(f"phase 18 {name} on {device}: step {k} did not converge")
+                iters.append(niter)
+            runs[device] = (sim.u.cpu(), torch.as_tensor(sim.stress), iters,
+                            {**read_counts(), "K6": cuda_window.launches["bsr_matvec"]})
+        (u_c, s_c, it_c, counts), (u_h, s_h, it_h, _) = runs[CARD], runs["cpu"]
+        rel = max(normwise(u_c, u_h)[1], normwise(s_c, s_h)[1])
+        worst = max(worst, rel)
+        if it_c != it_h:
+            fail(f"phase 18 {name}: Newton counts {it_c} on the card, {it_h} on the CPU")
+        if rel > TOL_SMALL or not (torch.isfinite(u_c).all() and torch.isfinite(s_c).all()):
+            fail(f"phase 18 {name}: card vs CPU rel {rel:.2e} > {TOL_SMALL:g}")
+        if name == "kuhn-two-laws" and (counts["K3"] <= 0 or counts["K1"] or counts["K2"]):
+            fail(f"phase 18 {name}: launches {counts}, expected K3 and no K1 or K2")
+        if name == "box-amg" and counts["K6"] <= 0:
+            fail(f"phase 18 {name}: launches {counts}, expected K6 on the AMG levels")
+        line.append(f"{name} ({engine}{' + ' + opts['preconditioner'] if opts else ''}) newton "
+                    f"{it_c} rel {rel:.1e}")
+    print(f"phase 18 small meshes, card vs CPU f64 (2 steps of 0.004 k, Newton counts equal, "
+          f"tol {TOL_SMALL:g} normwise on u and stress): max rel {worst:.2e}; " + "; ".join(line))
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1945,6 +2397,10 @@ def main() -> None:
         timed("phase 13", phase_multimat, Path(tmp))
     two_law = timed("phase 14", phase_multilaw, tet)
     timed("phase 15", phase_library)
+    tet_box = timed("phase 16", phase_tet_box, results)
+    with tempfile.TemporaryDirectory() as tmp:
+        gather_counts = timed("phase 17", phase_gather, tet, Path(tmp))
+    timed("phase 18", phase_small)
     print(f"profiler: {PROFILER_MISSES['profiles']} short profiles taken again, "
           f"{PROFILER_MISSES['fallbacks']} measures by the fallback (gated_ms, aten_device_ops)")
     counts = box_bench["counts"]
@@ -1958,7 +2414,8 @@ def main() -> None:
          "launches": counts["K2"], **results["K2"]},
         *({"name": name, "route": "cuda", "source": src + "smoother.cu",
            "replaces": "fenics_constitutive_tpu/ops/pallas_smoother.py:38",
-           "launches": fused_bench["counts"][f"K3_{kind}"], **results[f"K3_{kind}"]}
+           "launches": fused_bench["counts"][f"K3_{kind}"],
+           "launches_tet_run": tet_box["counts"][f"K3_{kind}"], **results[f"K3_{kind}"]}
           for kind, name in K3_ENTRIES.items()),
         {"name": "windowed_gather", "route": "cuda", "source": src + "window.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:89",
@@ -1971,7 +2428,7 @@ def main() -> None:
         {"name": "windowed_bsr_matvec", "route": "cuda", "source": src + "window.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:235",
          "launches": tet_counts["bsr_matvec"], "launches_two_law_run": two_law["bsr_matvec"],
-         **results["K6"]},
+         "launches_gather_run": gather_counts["bsr_matvec"], **results["K6"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
@@ -2041,6 +2498,45 @@ def profile_tet() -> None:
     scales = [2.0 + 0.05 * (i + 1) for i in range(K)]
     profile_steps(f"tet {N_TET}^3 f32 AMG V(3,3), fixed-{TET_FIXED} PCG",
                   lambda: run_schedule(step, models, st.clone(), args, scales), K)
+
+
+def profile_tet_box() -> None:
+    """``--profile``: 3 steps of phase 16's workload (the 35^3 Kuhn box on
+    the structured-tet engine, fixed-14 CG), fused and eager V-cycle."""
+    _, _, geos, models, state, mgs, args, _ = kuhn_box_setup(torch.float32)
+    K = 3
+    scales = [2.0 + 0.05 * i for i in range(K)]
+    for fused in (True, False):
+        step = tet_box_step(geos, mgs[fused], TET_BOX_FIXED)
+        st = state
+        for k in (0.5, 1.0, 1.5):
+            st, _ = step(models, st, args[0], args[1] * k, *args[2:])
+        profile_steps(f"Kuhn box {N_TET_BOX}^3 f32 {'fused' if fused else 'eager'} V-cycle, "
+                      f"fixed-{TET_BOX_FIXED} CG",
+                      lambda st=st, step=step: run_schedule(step, models, st.clone(), args,
+                                                            scales), K)
+
+
+def profile_gather() -> None:
+    """``--profile``: 3 steps of phase 17's workload (the gather engine with
+    the AMG on the imported 35^3 mesh, fixed-3 PCG)."""
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace
+    from fenics_constitutive_tpu_torch.models import VonMises3D
+    from fenics_constitutive_tpu_torch.solver import PackedSimulation
+
+    V = FunctionSpace(imported_mesh(N_TET), 1, 3)
+    bcs = bench_bcs(V)
+    sim = PackedSimulation(VonMises3D(MAT), V, bcs, 2, engine="gather", preconditioner="amg",
+                           mg_options={"nu": 3}, device=CARD, dtype=torch.float32)
+    step = tet_step(sim._geos, sim._mg, TET_FIXED)
+    args = tet_box_args(V, bcs, torch.float32)
+    st = sim.state
+    for k in (0.5, 1.0, 1.5, 2.0):
+        st, _ = step(sim._models, st, args[0], args[1] * k, *args[2:])
+    K = 3
+    scales = [2.0 + 0.05 * (i + 1) for i in range(K)]
+    profile_steps(f"gather {N_TET}^3 f32 AMG V(3,3), fixed-{TET_FIXED} PCG",
+                  lambda: run_schedule(step, sim._models, st.clone(), args, scales), K)
 
 
 def profiler_check(reps: int = 25, iters: int = 20) -> None:
@@ -2129,6 +2625,8 @@ if __name__ == "__main__":
         phase_build()
         profile_box()
         profile_tet()
+        profile_tet_box()
+        profile_gather()
     elif sys.argv[1:] == ["--profiler-check"]:
         phase_device()
         phase_build()

@@ -1,10 +1,17 @@
-"""Operators: Mandel constants, factored tangents, the structured and
-windowed engines, the windowed BSR level format and the CUDA kernels
-(compiled on first use, never at import)."""
+"""Operators: Mandel constants, factored tangents, the structured,
+structured-tet, windowed and gather engines, the windowed BSR level format
+and the CUDA kernels (compiled on first use, never at import)."""
 
 from .mandel import Constraint
-from .packed import DenseTangent, IsotropicTangent
-from .structured import StructuredGeometry, build_structured_geometry
+from .packed import DenseTangent, IsotropicTangent, PackedGeometry, build_packed_geometry
+from .structured import (
+    StructuredGeometry,
+    StructuredTetGeometry,
+    build_structured_geometry,
+    build_structured_tet_geometry,
+    restrict_structured_geometry,
+    restrict_structured_tet_geometry,
+)
 from .windowed import (
     WindowedExchange,
     WindowedGeometry,
@@ -18,13 +25,19 @@ __all__ = [
     "Constraint",
     "DenseTangent",
     "IsotropicTangent",
+    "PackedGeometry",
     "StructuredGeometry",
+    "StructuredTetGeometry",
     "WindowedBsr",
     "WindowedExchange",
     "WindowedGeometry",
+    "build_packed_geometry",
     "build_structured_geometry",
+    "build_structured_tet_geometry",
     "build_windowed_bsr",
     "build_windowed_exchange",
     "build_windowed_geometry",
+    "restrict_structured_geometry",
+    "restrict_structured_tet_geometry",
     "reverse_cuthill_mckee",
 ]

@@ -21,7 +21,7 @@ import torch
 from ._cuda_build import entry_point, launch_check
 from . import mandel
 from .packed import IsotropicTangent
-from .structured import StructuredGeometry
+from .structured import StructuredGeometry, StructuredTetGeometry
 
 __all__ = [
     "build_cuda_matvec", "hex_corner_layout", "hex_tables", "launches", "matvec_plain",
@@ -55,9 +55,12 @@ def hex_corner_layout(geo: StructuredGeometry) -> bool:
 
 
 def hot_path_geometry(geo: StructuredGeometry) -> bool:
-    """True for the geometry the structured-hex kernels are written for."""
+    """True for the geometry the structured-hex kernels (K1, K2) are written
+    for. A structured-tet geometry shares the hex corner layout but not the
+    8-point hex rule the kernels assume, so it is refused whatever its n_qp."""
     return (
-        hex_corner_layout(geo) and (geo.n_qp, geo.sdim) == (8, 6) and 48 * geo.M < 2**31
+        not isinstance(geo, StructuredTetGeometry)
+        and hex_corner_layout(geo) and (geo.n_qp, geo.sdim) == (8, 6) and 48 * geo.M < 2**31
     )
 
 

@@ -35,8 +35,11 @@ from .mandel import Constraint
 
 __all__ = [
     "StructuredGeometry",
+    "StructuredTetGeometry",
     "build_structured_geometry",
+    "build_structured_tet_geometry",
     "restrict_structured_geometry",
+    "restrict_structured_tet_geometry",
 ]
 
 
@@ -73,6 +76,9 @@ class StructuredGeometry(nn.Module):
     Host constants: ``offsets`` (per-corner flat offsets), ``dN_host``
     ([n, g, Q] physical gradients) and ``w_host`` ([Q] weights).
     """
+
+    #: the engine this geometry serves (``PackedSimulation.engine``)
+    engine = "structured"
 
     KEPS_c: torch.Tensor
     KDIV_c: torch.Tensor
@@ -145,9 +151,15 @@ class StructuredGeometry(nn.Module):
     def device(self) -> torch.device:
         return self.KEPS_c.device
 
+    @property
+    def qp_layout(self) -> int:
+        """Second axis of the [k, qp_layout, M] field layout: n_qp here; the
+        structured-tet engine stacks its cell classes along it."""
+        return self.n_qp
+
     def qp_shape(self, k: int) -> tuple:
         """Shape of a k-component QP field in this engine's layout."""
-        return (k, self.n_qp, self.M)
+        return (k, self.qp_layout, self.M)
 
     # -- layout plumbing --------------------------------------------------------
 
@@ -177,16 +189,21 @@ class StructuredGeometry(nn.Module):
 
     # -- grid-major hot-path ops --------------------------------------------------
 
+    def _qp_mask(self, dtype: torch.dtype) -> torch.Tensor:
+        """Valid-QP mask broadcastable to [s, qp_layout, M]: the cell-origin
+        ``mask`` [M] here; the tet engine's subset views mask per class."""
+        return self.mask.to(dtype)
+
     def strain_gm(self, u_gm: torch.Tensor) -> torch.Tensor:
         """Mandel strain of a grid-major dof vector: [s, Q, M] (masked)."""
         U = self._corner_dofs(u_gm.reshape(self.vs, self.M))
         e = _matmul(self.KEPS_c.to(U.dtype), U)
-        return e.reshape(self.sdim, self.n_qp, self.M) * self.mask.to(U.dtype)
+        return e.reshape(self.sdim, self.qp_layout, self.M) * self._qp_mask(U.dtype)
 
     def _corner_forces(self, sigma: torch.Tensor) -> torch.Tensor:
         """sigma [s, Q, M] -> masked per-corner forces [n*vs, M] (pre-scatter)."""
-        sig = (sigma.reshape(self.sdim, self.n_qp, self.M) * self.mask.to(sigma.dtype))
-        sig = sig.reshape(self.sdim * self.n_qp, self.M)
+        sig = sigma.reshape(self.sdim, self.qp_layout, self.M) * self._qp_mask(sigma.dtype)
+        sig = sig.reshape(self.sdim * self.qp_layout, self.M)
         return _matmul(self.KDIV_c.to(sig.dtype), sig)
 
     def residual_gm(self, sigma: torch.Tensor) -> torch.Tensor:
@@ -234,6 +251,13 @@ class StructuredGeometry(nn.Module):
         """[k, Q, M] cell-at-origin field -> dense [k, Q, C] in mesh cell order."""
         return field[:, :, self.cell_index]
 
+    def insert_cells(self, dense: torch.Tensor) -> torch.Tensor:
+        """Dense [k, Q, C] per-cell field -> the [k, Q, M] cell-at-origin layout."""
+        k, Q, _ = dense.shape
+        out = dense.new_zeros((k, Q, self.M))
+        out[:, :, self.cell_index] = dense
+        return out
+
 
 def restrict_structured_geometry(geo: StructuredGeometry, cells) -> StructuredGeometry:
     """The masked view of a law on a subset of the mesh's cells.
@@ -248,24 +272,24 @@ def restrict_structured_geometry(geo: StructuredGeometry, cells) -> StructuredGe
     own = geo.cell_index.cpu().numpy()[cells]
     mask = np.zeros(geo.M)
     mask[own] = 1.0
-    return StructuredGeometry(
-        KEPS_c=geo.KEPS_c,
-        KDIV_c=geo.KDIV_c,
-        KE_I=geo.KE_I,
-        KE_V=geo.KE_V,
+    return StructuredGeometry(**_base_fields(
+        geo,
         mask=torch.as_tensor(mask, dtype=geo.dtype, device=geo.device),
         cell_index=torch.as_tensor(own, dtype=torch.int64, device=geo.device),
-        grid=geo.grid,
-        vs=geo.vs,
-        ndofs=geo.ndofs,
-        constraint=geo.constraint,
-        n_nodes=geo.n_nodes,
-        n_qp=geo.n_qp,
         n_cells=len(cells),
-        offsets=geo.offsets,
-        dN_host=geo.dN_host,
-        w_host=geo.w_host,
+    ))
+
+
+def _base_fields(geo: StructuredGeometry, **override) -> dict:
+    """The constructor arguments of ``geo``'s StructuredGeometry part."""
+    out = dict(
+        KEPS_c=geo.KEPS_c, KDIV_c=geo.KDIV_c, KE_I=geo.KE_I, KE_V=geo.KE_V, mask=geo.mask,
+        cell_index=geo.cell_index, grid=geo.grid, vs=geo.vs, ndofs=geo.ndofs,
+        constraint=geo.constraint, n_nodes=geo.n_nodes, n_qp=geo.n_qp, n_cells=geo.n_cells,
+        offsets=geo.offsets, dN_host=geo.dN_host, w_host=geo.w_host,
     )
+    out.update(override)
+    return out
 
 
 def _corner_offsets(gdim: int):
@@ -371,4 +395,253 @@ def build_structured_geometry(
         offsets=flat_offsets,
         dN_host=dN,
         w_host=w,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Kuhn simplex boxes: the structured-tet engine
+# ---------------------------------------------------------------------------
+
+
+class StructuredTetGeometry(StructuredGeometry):
+    """Gather-free engine for Kuhn-subdivided box simplex meshes (6 tets per
+    cube in 3D, 2 triangles per square in 2D).
+
+    ``unit_cube_mesh(..., "tetra")`` splits every cube into the same K
+    classes of simplex, so every simplex vertex is one of its cube's corners
+    and the mesh is translation-invariant per class. The classes fold into
+    the hex engine's corner channels: one corner gather of static slices,
+    one [s*K*Q, 2^d*vs] strain product whose rows stack the classes along
+    the QP-layout axis, one weighted divergence product and one shifted-add
+    scatter, with no gather.
+
+    Fields are [k, K*Q, M] (``qp_layout = n_classes * n_qp``) on the
+    cube-origin footprint; ``n_qp`` is the per-simplex count and ``n_cells``
+    the simplex count, so ``extract_cells``/``insert_cells`` give dense
+    per-simplex fields with simplex t = cube * K + class. ``n_nodes`` counts
+    the cube's corner channels, and ``KE_I``/``KE_V`` are the cube's element
+    matrices over them (every class folded in). Extra buffers of a subset
+    view (``restrict_structured_tet_geometry``): ``class_mask`` [K, M], 1
+    where the law owns simplex (class, cube origin), and ``tet_index`` (the
+    owned simplices in mesh order); both None on the whole mesh. Host
+    constants: ``class_dN_host`` (per class, dN/dx [gdim+1, g, Q]) and
+    ``class_channels`` (per class, the corner channel of each vertex).
+    """
+
+    #: the engine this geometry serves (``PackedSimulation.engine``)
+    engine = "structured_tet"
+
+    class_mask: torch.Tensor | None
+    tet_index: torch.Tensor | None
+
+    def __init__(self, *, n_classes: int, class_dN_host, class_channels, class_mask=None,
+                 tet_index=None, **base):
+        super().__init__(**base)
+        self.n_classes = n_classes
+        self.class_dN_host = tuple(class_dN_host)
+        self.class_channels = tuple(tuple(c) for c in class_channels)
+        self.register_buffer("class_mask", class_mask)
+        self.register_buffer("tet_index", tet_index)
+
+    @property
+    def qp_layout(self) -> int:
+        return self.n_classes * self.n_qp
+
+    def _qp_mask(self, dtype: torch.dtype) -> torch.Tensor:
+        if self.class_mask is None:
+            return self.mask.to(dtype)
+        # [K, M] ownership -> [K*Q, M] rows of the class-stacked QP layout
+        cm = self.class_mask.to(dtype)[:, None, :]
+        return cm.expand(self.n_classes, self.n_qp, self.M).reshape(self.qp_layout, self.M)
+
+    # -- observation -----------------------------------------------------------
+
+    def extract_cells(self, field: torch.Tensor) -> torch.Tensor:
+        """[k, K*Q, M] -> dense [k, Q, C] in mesh cell order (simplex t = cube
+        * K + class, cubes in the hex engine's cell order)."""
+        k = field.shape[0]
+        blk = field.reshape(k, self.n_classes, self.n_qp, self.M)[:, :, :, self.cell_index]
+        dense = blk.permute(0, 2, 3, 1).reshape(k, self.n_qp, -1)
+        return dense if self.tet_index is None else dense[:, :, self.tet_index]
+
+    def insert_cells(self, dense: torch.Tensor) -> torch.Tensor:
+        """Dense [k, Q, C] per-simplex field -> the [k, K*Q, M] layout."""
+        k, Q, _ = dense.shape
+        if self.tet_index is not None:  # a subset view: expand to every simplex
+            full = dense.new_zeros((k, Q, self.cell_index.shape[0] * self.n_classes))
+            full[:, :, self.tet_index] = dense
+            dense = full
+        d = dense.reshape(k, Q, -1, self.n_classes).permute(0, 3, 1, 2)  # [k, K, Q, Ncube]
+        out = dense.new_zeros((k, self.n_classes, Q, self.M))
+        out[:, :, :, self.cell_index] = d
+        return out.reshape(k, self.qp_layout, self.M)
+
+    def grad(self, u: torch.Tensor) -> torch.Tensor:
+        """Displacement gradient [g, vs, K*Q*M] of a node-major dof vector
+        (observation path; masked where the view owns no simplex)."""
+        dtype, device = u.dtype, u.device
+        U = self._corner_dofs(self.to_grid_major(u).reshape(self.vs, self.M))
+        U = U.reshape(self.n_nodes, self.vs, self.M)
+        parts = []
+        for kls in range(self.n_classes):
+            m = self.mask if self.class_mask is None else self.class_mask[kls]
+            dN = torch.as_tensor(self.class_dN_host[kls], dtype=dtype, device=device)
+            Uk = torch.stack([U[c] for c in self.class_channels[kls]]) * m.to(dtype)
+            # [g, vs, Q, M]: sum_a dN[a, i, q] Uk[a, j, m]
+            parts.append((dN[:, :, None, :, None] * Uk[:, None, :, None, :]).sum(dim=0))
+        return torch.stack(parts, dim=2).reshape(self.gdim, self.vs, self.qp_layout * self.M)
+
+    # -- Jacobi diagonal from the folded strain rows ----------------------------
+
+    def jacobi_diag_gm(self, tangent) -> torch.Tensor:
+        """diag(A) in grid-major layout via per-corner B^T C B, with B the
+        per-corner columns of KEPS_c (broadcast multiplies and sums)."""
+        B = self.KEPS_c.reshape(self.sdim, self.qp_layout, self.n_nodes * self.vs)
+        w = torch.as_tensor(self.w_host, dtype=self.dtype, device=self.device)  # [K*Q]
+        qpm = self._qp_mask(self.dtype)
+        rows = []
+        for a in range(self.n_nodes):
+            # B_a [s, vs, K*Q, 1] broadcasts against tangent fields [K*Q, M]
+            B_a = B[:, :, a * self.vs : (a + 1) * self.vs].permute(0, 2, 1)[..., None]
+            q = tangent.quad_diag(B_a) * w[:, None]
+            q = q.expand(self.vs, self.qp_layout, self.M) * qpm
+            rows.append(q.sum(dim=1))
+        return self._scatter_corners(torch.cat(rows, dim=0)).reshape(-1)
+
+
+def restrict_structured_tet_geometry(
+    geo: StructuredTetGeometry, cells
+) -> StructuredTetGeometry:
+    """The masked view of a law on a subset of a Kuhn box's simplices.
+
+    Simplex t = cube * K + class, so a law's cells become a per-class
+    ownership mask [K, M] over the cube origins, applied by every engine op
+    through ``_qp_mask``: the simplex analog of
+    ``restrict_structured_geometry``. The view shares every other buffer.
+    """
+    cells = np.asarray(cells, np.int64)
+    K = geo.n_classes
+    origins = geo.cell_index.cpu().numpy()
+    cm = np.zeros((K, geo.M))
+    cm[cells % K, origins[cells // K]] = 1.0
+    return StructuredTetGeometry(
+        n_classes=K,
+        class_dN_host=geo.class_dN_host,
+        class_channels=geo.class_channels,
+        class_mask=torch.as_tensor(cm, dtype=geo.dtype, device=geo.device),
+        tet_index=torch.as_tensor(cells, dtype=torch.int64, device=geo.device),
+        **_base_fields(geo, n_cells=len(cells)),
+    )
+
+
+def build_structured_tet_geometry(
+    space, q_degree: int, constraint: Constraint, *, device="cuda", dtype: torch.dtype
+) -> StructuredTetGeometry:
+    """Flat-index geometry for the Kuhn simplex boxes of unit_cube_mesh
+    ('tetra', 6 classes) and unit_square_mesh('triangle', 2 classes), with
+    mesh.structured_shape set. Raises ValueError for any other mesh,
+    including a box that is not the unit one."""
+    from ..fem.elements import tabulate_element
+    from ..fem.kinematics import _geometry_grad_at
+
+    mesh = space.mesh
+    grid = mesh.structured_shape
+    if grid is None or mesh.cell_type not in ("tetra", "triangle"):
+        msg = "the structured-tet engine needs a Kuhn box mesh of tetra or triangle cells"
+        raise ValueError(msg)
+    if space.degree != 1:
+        msg = "the structured-tet engine supports degree-1 spaces only"
+        raise ValueError(msg)
+
+    elem, quad = tabulate_element(mesh.cell_type, space.degree, q_degree)
+    geom_dN = _geometry_grad_at(mesh.cell_type, quad.points)
+    gdim = len(grid)
+    sdim = constraint.stress_strain_dim
+    Q = quad.points.shape[0]
+    vs = space.value_size
+    M_map = mandel._mandel_matrix_map(constraint)
+
+    node_grid = tuple(g + 1 for g in grid)
+    strides = [1]
+    for L in reversed(node_grid[1:]):
+        strides.append(strides[-1] * L)
+    strides = list(reversed(strides))
+    offs = _corner_offsets(gdim)  # channel a = dx + 2 dy + 4 dz
+    flat_offsets = tuple(int(sum(o * st for o, st in zip(off, strides))) for off in offs)
+
+    # the first K mesh cells are the K classes of box (0, .., 0); every other
+    # box repeats them translated (fem/mesh.py orderings)
+    K = mesh.num_cells // int(np.prod(grid))
+    n_ch = len(offs)
+    KEPS_c = np.zeros((sdim * K * Q, n_ch * vs))
+    w_flat = np.zeros(K * Q)
+    class_dN, class_channels = [], []
+    for k in range(K):
+        verts = mesh.nodes[mesh.cells[k]]  # [gdim + 1, gdim]
+        # box-corner bit pattern of each vertex -> channel a = sum_d bit_d << d
+        scaled = verts * np.asarray(grid)
+        bits = np.rint(scaled).astype(int)
+        if bits.min() < 0 or bits.max() > 1 or not np.allclose(scaled, bits, atol=1e-9):
+            msg = (
+                "build_structured_tet_geometry: the first box's vertices scaled by the "
+                "grid are not 0/1 corner bits, so the mesh is not a unit-domain Kuhn box "
+                "(unit_cube_mesh/unit_square_mesh orderings); run it on the gather or "
+                "windowed engine (a mesh without structured_shape)"
+            )
+            raise ValueError(msg)
+        channels = [int(sum(int(b[d]) << d for d in range(gdim))) for b in bits]
+        J = np.einsum("vi,qvj->qij", verts, geom_dN)
+        detJ = np.abs(np.linalg.det(J))
+        dN = np.einsum("qaj,qji->aiq", elem.dN_dxi, np.linalg.inv(J))  # [gdim+1, g, Q]
+        class_dN.append(dN)
+        class_channels.append(tuple(channels))
+        # strain rows (s, k, q) of the class: sum_i M[s, i, j] dN[v, i, q] on
+        # the channel of vertex v
+        Bk = np.einsum("sij,viq->sqvj", M_map, dN)  # [s, Q, gdim+1, vs]
+        rows = KEPS_c.reshape(sdim, K, Q, n_ch, vs)
+        for v, a in enumerate(channels):
+            rows[:, k, :, a, :] += Bk[:, :, v, :]
+        w_flat[k * Q : (k + 1) * Q] = quad.weights * detJ
+
+    KDIV_c = KEPS_c.T.copy()
+    for kq in range(K * Q):
+        KDIV_c[:, [s * (K * Q) + kq for s in range(sdim)]] *= w_flat[kq]
+    KE_I = np.zeros((n_ch * vs, n_ch * vs))
+    KE_V = np.zeros((n_ch * vs, n_ch * vs))
+    n_diag = min(3, sdim)
+    for kq in range(K * Q):
+        B_q = KEPS_c[[s * (K * Q) + kq for s in range(sdim)], :]
+        KE_I += w_flat[kq] * (B_q.T @ B_q)
+        bv = B_q[:n_diag].sum(axis=0)
+        KE_V += w_flat[kq] * np.outer(bv, bv)
+
+    idx_nd = np.indices(node_grid)
+    valid = np.ones(node_grid, bool)
+    for d in range(gdim):
+        valid &= idx_nd[d] < grid[d]
+    mask = valid.reshape(-1).astype(np.float64)
+
+    def dev(x, dt=dtype):
+        return torch.as_tensor(x, dtype=dt, device=device)
+
+    return StructuredTetGeometry(
+        n_classes=K,
+        class_dN_host=class_dN,
+        class_channels=class_channels,
+        KEPS_c=dev(KEPS_c),
+        KDIV_c=dev(KDIV_c),
+        KE_I=dev(KE_I),
+        KE_V=dev(KE_V),
+        mask=dev(mask),
+        cell_index=dev(np.flatnonzero(mask), torch.int64),
+        grid=tuple(grid),
+        vs=vs,
+        ndofs=space.ndofs,
+        constraint=constraint,
+        n_nodes=n_ch,  # the cube's corner channels, not the simplex's vertices
+        n_qp=Q,  # per simplex
+        n_cells=int(K * np.prod(grid)),
+        offsets=flat_offsets,
+        dN_host=np.zeros((0,)),  # the hex tabulation; class_dN_host replaces it
+        w_host=w_flat,
     )

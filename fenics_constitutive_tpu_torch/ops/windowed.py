@@ -334,6 +334,9 @@ class WindowedGeometry(nn.Module):
     ``ops/mandel.py``); the exchange plan ``ex`` is a submodule.
     """
 
+    #: the engine this geometry serves (``PackedSimulation.engine``)
+    engine = "windowed"
+
     dN: torch.Tensor
     w: torch.Tensor
     mandel_T: torch.Tensor

@@ -1,6 +1,7 @@
-"""Newton-Krylov stepping on the structured and windowed engines."""
+"""Newton-Krylov stepping on the structured, structured-tet, windowed and
+gather engines."""
 
-from .amg import WindowedAmgPreconditioner, build_amg
+from .amg import AmgPreconditioner, WindowedAmgPreconditioner, build_amg
 from .linear import cg_solve
 from .multigrid import MultigridPreconditioner, build_multigrid
 from .packed_step import (
@@ -8,11 +9,13 @@ from .packed_step import (
     PackedState,
     build_packed_problem,
     make_packed_step,
+    resolve_engine,
 )
 from .simulation import PackedSimulation
 
 __all__ = [
     "WINDOWED_MIN_CELLS",
+    "AmgPreconditioner",
     "MultigridPreconditioner",
     "PackedSimulation",
     "PackedState",
@@ -22,4 +25,5 @@ __all__ = [
     "build_packed_problem",
     "cg_solve",
     "make_packed_step",
+    "resolve_engine",
 ]

@@ -1,7 +1,7 @@
-"""Smoothed-aggregation AMG preconditioner for unstructured meshes.
+"""Smoothed-aggregation AMG preconditioner for any mesh.
 
-The port of ``fenics_constitutive_tpu.solver.amg`` on its windowed-SpMV
-path. The hierarchy is built ONCE on the host (numpy/scipy):
+The port of ``fenics_constitutive_tpu.solver.amg``. The hierarchy is built
+ONCE on the host (numpy/scipy):
 
 - assemble the constant-coefficient ELASTIC operator (a spectrally
   equivalent surrogate of the consistent tangent, which softening would make
@@ -12,12 +12,20 @@ path. The hierarchy is built ONCE on the host (numpy/scipy):
   with damped Jacobi (classic smoothed aggregation, Vanek et al.);
 - Galerkin products ``A_{l+1} = P^T A_l P`` and a dense coarsest inverse.
 
-Every level operator, prolongation and restriction is then frozen into a
-windowed BSR plan (``ops/windowed_bsr.py``) on banded node orders; the fine
-level shares the windowed engine's RCM order, so the V-cycle consumes the
-engine's internal vectors directly (``wrap_internal``). On the card every
-level apply is the CUDA kernel K6. The JAX package's ELL variant
-(``spmv="ell"``) is not ported.
+Every level operator, prolongation and restriction is then frozen in one of
+two level formats, which compute the same V-cycle:
+
+- ``spmv="ell"`` (the default, as in the JAX package): fixed-width ELL rows,
+  ``AmgPreconditioner``, on node-major dof vectors. A level apply is a
+  gather and a row sum, ``(vals * v[cols]).sum(1)``, in plain PyTorch (the
+  JAX package runs it outside any Pallas kernel too). ``PackedSimulation``
+  takes it off the card, where it is the plain SpMV.
+- ``spmv="windowed"``: windowed BSR plans (``ops/windowed_bsr.py``) on
+  banded node orders, ``WindowedAmgPreconditioner``; on the card every
+  level apply is the CUDA kernel K6. With the windowed engine's RCM order
+  the V-cycle consumes the engine's internal vectors directly
+  (``wrap_internal``); ``forward`` takes node-major vectors, which is how
+  ``PackedSimulation`` serves the other engines on the card.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ from ..ops import mandel
 from ..ops.mandel import Constraint
 from ..ops.structured import _matmul
 
-__all__ = ["WindowedAmgPreconditioner", "build_amg"]
+__all__ = ["AmgPreconditioner", "WindowedAmgPreconditioner", "build_amg"]
 
 
 # ---------------------------------------------------------------------------
@@ -285,9 +293,96 @@ def _rho_DinvA(A, n_iter: int = 12) -> float:
     return float(lam) * 1.05
 
 
+def _to_ell(A) -> tuple[np.ndarray, np.ndarray]:
+    """CSR -> fixed-width ELL (vals [n, k] float64, cols [n, k] int64); a
+    row's unused slots hold 0 at column 0."""
+    A = A.tocsr()
+    A.sum_duplicates()
+    A.eliminate_zeros()
+    n = A.shape[0]
+    nnz_row = np.diff(A.indptr)
+    k = max(1, int(nnz_row.max()))
+    vals = np.zeros((n, k))
+    cols = np.zeros((n, k), np.int64)
+    rows = np.repeat(np.arange(n), nnz_row)
+    pos = np.arange(len(A.data)) - A.indptr[rows]
+    vals[rows, pos] = A.data
+    cols[rows, pos] = A.indices
+    return vals, cols
+
+
+def _ell_matvec(vals: torch.Tensor, cols: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """y = A v for an ELL level: a gather and a sum over each row's slots in
+    slot order (no atomics)."""
+    return (vals * v[cols]).sum(dim=1)
+
+
 # ---------------------------------------------------------------------------
-# device-side V-cycle
+# device-side V-cycles
 # ---------------------------------------------------------------------------
+
+
+class AmgPreconditioner(nn.Module):
+    """Callable z = M(r): one V(nu, nu) cycle of the elastic SA hierarchy on
+    node-major dof vectors, every level SpMV an ELL gather and row sum.
+
+    Buffers per level l: ``A_vals_l``/``A_cols_l`` (the level operator, all
+    but the coarsest), ``P_vals_l``/``P_cols_l`` (coarse -> fine),
+    ``R_vals_l``/``R_cols_l`` (fine -> coarse, P^T), ``dinv_l`` (inverse
+    Jacobi diagonal); ``coarse_inv``, the dense coarsest inverse.
+    ``A_ell``/``P_ell``/``R_ell`` give the levels as ``(vals, cols)`` pairs.
+    """
+
+    coarse_inv: torch.Tensor
+
+    def __init__(self, *, A_ell, P_ell, R_ell, dinv, coarse_inv, omega: float, nu: int):
+        super().__init__()
+        for name, levels in (("A", A_ell), ("P", P_ell), ("R", R_ell)):
+            for lvl, (vals, cols) in enumerate(levels):
+                self.register_buffer(f"{name}_vals_{lvl}", vals)
+                self.register_buffer(f"{name}_cols_{lvl}", cols)
+        for lvl, d in enumerate(dinv):
+            self.register_buffer(f"dinv_{lvl}", d)
+        self.register_buffer("coarse_inv", coarse_inv)
+        self.omega, self.nu, self.n_levels = float(omega), int(nu), len(dinv) + 1
+        #: host seconds of the build: assembly and hierarchy, freeze, upload
+        self.build_seconds: dict[str, float] = {}
+
+    def _ell(self, name: str) -> tuple:
+        return tuple((getattr(self, f"{name}_vals_{lvl}"), getattr(self, f"{name}_cols_{lvl}"))
+                     for lvl in range(self.n_levels - 1))
+
+    @property
+    def A_ell(self) -> tuple:
+        return self._ell("A")
+
+    @property
+    def P_ell(self) -> tuple:
+        return self._ell("P")
+
+    @property
+    def R_ell(self) -> tuple:
+        return self._ell("R")
+
+    def _cycle(self, lvl: int, b: torch.Tensor) -> torch.Tensor:
+        if lvl == self.n_levels - 1:
+            return _matmul(self.coarse_inv, b[:, None])[:, 0]
+        Av, Ac = getattr(self, f"A_vals_{lvl}"), getattr(self, f"A_cols_{lvl}")
+        di = getattr(self, f"dinv_{lvl}")
+        # zero-start pre-smoothing: the first sweep is x = omega D^-1 b
+        x = self.omega * di * b
+        for _ in range(self.nu - 1):
+            x = x + self.omega * di * (b - _ell_matvec(Av, Ac, x))
+        r = b - _ell_matvec(Av, Ac, x)
+        bc = _ell_matvec(getattr(self, f"R_vals_{lvl}"), getattr(self, f"R_cols_{lvl}"), r)
+        xc = self._cycle(lvl + 1, bc)
+        x = x + _ell_matvec(getattr(self, f"P_vals_{lvl}"), getattr(self, f"P_cols_{lvl}"), xc)
+        for _ in range(self.nu):
+            x = x + self.omega * di * (b - _ell_matvec(Av, Ac, x))
+        return x
+
+    def forward(self, r: torch.Tensor) -> torch.Tensor:
+        return self._cycle(0, r.to(self.coarse_inv.dtype)).to(r.dtype)
 
 
 class WindowedAmgPreconditioner(nn.Module):
@@ -406,11 +501,11 @@ def build_amg(
     aggregation: str = "auto",
     geometric_factor: float = 2.6,
     strength_theta: float = 0.06,
-    spmv: str = "windowed",
+    spmv: str = "ell",
     node_perm=None,
     select_passes: int = 1,
     tile_rows: int = 1024,
-) -> WindowedAmgPreconditioner:
+) -> AmgPreconditioner | WindowedAmgPreconditioner:
     """Build the smoothed-aggregation elastic hierarchy for ``space``.
 
     Args:
@@ -425,22 +520,25 @@ def build_amg(
             nodes. Coarse levels always use the graph walk.
         geometric_factor: box edge in units of the per-axis cell extent.
         strength_theta: strength-of-connection threshold of the graph walk.
-        spmv: "windowed" (the only level format of the port; the JAX
-            package's "ell" raises NotImplementedError).
-        node_perm: fine node ordering (old -> new) of the level plans, e.g.
-            the windowed geometry's ``ex.perm``; default the mesh RCM.
-        select_passes: 1 rounds float32 level inputs to bfloat16 in the
+        spmv: the level format: "ell" (``AmgPreconditioner``, node-major
+            vectors) or "windowed" (``WindowedAmgPreconditioner``, windowed
+            BSR plans that K6 applies on the card).
+        node_perm, select_passes, tile_rows: the windowed format's options.
+            node_perm: fine node ordering (old -> new) of the level plans,
+            e.g. the windowed geometry's ``ex.perm``; default the mesh RCM.
+            select_passes: 1 rounds float32 level inputs to bfloat16 in the
             column select (the default, as in the JAX package); 3 is exact.
-        tile_rows: row nodes per BSR row tile.
+            tile_rows: row nodes per BSR row tile.
+
+    ``build_seconds`` of the result: "hierarchy" (assembly, aggregation and
+    Galerkin products on the host), "freeze" (the level format, on the host)
+    and "upload" (every level to the device in one step).
     """
     import scipy.sparse as sp
 
-    if spmv != "windowed":
-        msg = (
-            f"build_amg(spmv={spmv!r}): the ELL AMG levels are not ported yet "
-            "(ROADMAP.md Queue 1); use spmv='windowed'"
-        )
-        raise NotImplementedError(msg)
+    if spmv not in ("ell", "windowed"):
+        msg = f"spmv must be 'ell' or 'windowed', got {spmv!r}"
+        raise ValueError(msg)
     if aggregation not in ("auto", "graph", "geometric"):
         msg = f"aggregation must be 'auto'|'graph'|'geometric', got {aggregation!r}"
         raise ValueError(msg)
@@ -504,11 +602,44 @@ def build_amg(
         raise RuntimeError(msg)
     coarse_inv = np.linalg.inv(A_levels[-1].toarray())
     t1 = time.perf_counter()
-    amg = _freeze_windowed(
-        space, A_levels, P_levels, agg_levels, bs_levels, coarse_inv, omega, nu,
-        node_perm, device, dtype, select_passes, tile_rows,
-    )
+    if spmv == "windowed":
+        amg = _freeze_windowed(
+            space, A_levels, P_levels, agg_levels, bs_levels, coarse_inv, omega, nu,
+            node_perm, device, dtype, select_passes, tile_rows,
+        )
+    else:
+        amg = _freeze_ell(A_levels, P_levels, coarse_inv, omega, nu, device, dtype)
     amg.build_seconds["hierarchy"] = t1 - t0
+    return amg
+
+
+def _freeze_ell(A_levels, P_levels, coarse_inv, omega, nu, device, dtype) -> AmgPreconditioner:
+    """Freeze the SA hierarchy into ELL levels (see build_amg)."""
+    t0 = time.perf_counter()
+
+    def ell(A):
+        vals, cols = _to_ell(A)
+        return torch.as_tensor(vals, dtype=dtype), torch.as_tensor(cols)
+
+    dinv = []
+    for A in A_levels[:-1]:
+        d = A.diagonal()
+        d = np.where(np.abs(d) > 0, d, 1.0)
+        dinv.append(torch.as_tensor(1.0 / d, dtype=dtype))
+    amg = AmgPreconditioner(
+        A_ell=[ell(A) for A in A_levels[:-1]],
+        P_ell=[ell(P) for P in P_levels],
+        R_ell=[ell(P.T.tocsr()) for P in P_levels],
+        dinv=dinv,
+        coarse_inv=torch.as_tensor(coarse_inv, dtype=dtype),
+        omega=omega,
+        nu=nu,
+    )
+    t1 = time.perf_counter()
+    amg.to(device)  # every level in one step
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    amg.build_seconds.update(freeze=t1 - t0, upload=time.perf_counter() - t1)
     return amg
 
 

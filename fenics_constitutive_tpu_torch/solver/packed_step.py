@@ -1,16 +1,21 @@
-"""Newton-Krylov load step on the structured and windowed engines (SoA fields).
+"""Newton-Krylov load step on the structured, windowed and gather engines
+(SoA fields).
 
-``build_packed_problem`` picks the engine for a mesh: the structured engine
-for a box of hexes or quads (grid-major dof vectors), the windowed exchange
-engine (ops/windowed.py) for a general imported mesh. ``make_packed_step``
-builds ``step(models, state, bc_dofs, bc_vals, f_ext, dt) -> (state', stats)``
-for one law or several laws on cell subsets, on either engine (masked views
-of one grid on a box; plans of the cell subsets on one shared RCM order on
-a general mesh). The whole Newton loop runs on the engine's working
-layout: grid-major vectors on the structured engine, converted from the
-node-major public layout once at the step boundary; on the windowed engine
-``state.u`` and ``f_ext`` already live in the internal layout (RCM-permuted,
-component-major, tile-padded), so the step pays no permutation at all.
+``build_packed_problem`` picks the engine for a mesh, as the JAX package
+does: the structured engine for a box of hexes or quads, the structured-tet
+engine for a Kuhn box of tets or triangles (grid-major dof vectors either
+way), the windowed exchange engine (ops/windowed.py) for a general mesh of at
+least ``WINDOWED_MIN_CELLS`` cells, and the gather engine (ops/packed.py) for
+every other mesh: small imported meshes, interval bars. ``make_packed_step``
+builds ``step(models, state, bc_dofs, bc_vals, f_ext, dt) -> (state',
+stats)`` for one law or several laws on cell subsets, on any engine (masked
+views of one grid on a box; plans of the cell subsets on one shared RCM order
+on a windowed mesh; a gather geometry per law otherwise). The whole Newton
+loop runs on the engine's working layout: grid-major vectors on the
+structured engines, converted from the node-major public layout once at the
+step boundary; on the windowed engine ``state.u`` and ``f_ext`` already live
+in the internal layout (RCM-permuted, component-major, tile-padded), so the
+step pays no permutation at all; the gather engine works node-major.
 
 Host synchronisation: with ``max_newton=1`` and ``cg_fixed_iters`` set (the
 benchmark configuration) a step reads nothing back to the host, so the
@@ -29,11 +34,13 @@ import numpy as np
 import torch
 
 from ..models.interfaces import IncrSmallStrainModel, flat_history_dim
-from ..ops.packed import DenseTangent, IsotropicTangent
+from ..ops.packed import DenseTangent, IsotropicTangent, PackedGeometry, build_packed_geometry
 from ..ops.structured import (
     StructuredGeometry,
     build_structured_geometry,
+    build_structured_tet_geometry,
     restrict_structured_geometry,
+    restrict_structured_tet_geometry,
 )
 from ..ops.windowed import (
     WindowedGeometry,
@@ -47,18 +54,19 @@ __all__ = [
     "PackedState",
     "build_packed_problem",
     "make_packed_step",
+    "resolve_engine",
 ]
 
 #: general (non-box) meshes of at least this many cells default to the
-#: windowed engine, as in the JAX package; smaller ones would go to the
-#: gather engine, which is not ported
+#: windowed engine, as in the JAX package; smaller ones, and interval
+#: meshes, go to the gather engine
 WINDOWED_MIN_CELLS = 4096
 
 
 @dataclass(frozen=True)
 class PackedState:
-    u: torch.Tensor  # [ndofs] node-major (structured) or [vs * M_pad] internal (windowed)
-    stress: tuple  # per-law [s, Q, M] (structured) or [s, N] (windowed)
+    u: torch.Tensor  # [ndofs] node-major, or [vs * M_pad] internal (windowed)
+    stress: tuple  # per-law [s, qp_layout, M] (structured) or [s, N] (windowed, gather)
     histories: tuple  # per-law dict of [h, ...] like stress (or None)
     t: torch.Tensor  # scalar
 
@@ -75,8 +83,36 @@ class PackedState:
         )
 
 
-def _is_box(mesh) -> bool:
-    return mesh.structured_shape is not None and mesh.cell_type in ("hex", "quad")
+def resolve_engine(space, engine: str = "auto", whole_mesh: bool = True) -> str:
+    """The engine ``build_packed_problem`` runs ``space`` on: "structured"
+    (a box of hexes or quads), "structured_tet" (a Kuhn box of tets or
+    triangles), "windowed" or "gather". Box meshes keep their structured
+    engine whatever ``engine`` says, as in the JAX package. A degree-2 space
+    on a whole box of hexes or quads runs on the JAX package's lattice
+    engine, which is not ported: it raises NotImplementedError."""
+    if engine not in ("auto", "windowed", "gather"):
+        msg = f"engine must be 'auto', 'windowed' or 'gather', got {engine!r}"
+        raise ValueError(msg)
+    mesh = space.mesh
+    box = mesh.structured_shape is not None
+    if box and space.degree == 1:
+        if mesh.cell_type in ("hex", "quad"):
+            return "structured"
+        if mesh.cell_type in ("tetra", "triangle"):
+            return "structured_tet"
+    if box and whole_mesh and space.degree == 2 and mesh.cell_type in ("hex", "quad"):
+        msg = (
+            "a degree-2 space on a box of hexes or quads runs on the JAX package's "
+            "lattice engine, which is not ported yet (ROADMAP.md Queue 1 item 4)"
+        )
+        raise NotImplementedError(msg)
+    if engine == "windowed" or (
+        engine == "auto"
+        and mesh.num_cells >= WINDOWED_MIN_CELLS
+        and mesh.cell_type != "interval"
+    ):
+        return "windowed"
+    return "gather"
 
 
 def build_packed_problem(
@@ -85,66 +121,53 @@ def build_packed_problem(
     """Geometry and zero initial state for one law, or several on cell subsets.
 
     ``laws``: a model (on every cell) or a list of ``(model, cells)``. On a
-    box of hexes or quads every law gets a masked view of ONE shared
-    StructuredGeometry (``ops.structured.restrict_structured_geometry``), so
-    all laws run on the same grid-major vectors. On a general mesh every law
-    gets a WindowedGeometry of its own cells on ONE whole-mesh RCM order,
-    computed once, so all laws share the internal layout (``M_pad``, ``vs``).
+    box every law gets a masked view of ONE shared structured geometry
+    (``restrict_structured_geometry``, ``restrict_structured_tet_geometry``),
+    so all laws run on the same grid-major vectors. On the windowed engine
+    every law gets a WindowedGeometry of its own cells on ONE whole-mesh RCM
+    order, computed once, so all laws share the internal layout (``M_pad``,
+    ``vs``); on the gather engine a PackedGeometry of its cells.
 
     ``engine``: "auto" takes the structured engine on a box of hexes or
-    quads and the windowed engine on a general mesh of at least
-    ``WINDOWED_MIN_CELLS`` cells; "windowed" forces the windowed engine on a
-    general mesh of any size. Box meshes of hexes or quads keep the
-    structured engine. The JAX package's other engines (gather, structured
-    tet, lattice) are not ported, and a mesh that would need one raises.
+    quads, the structured-tet engine on a Kuhn box of tets or triangles, the
+    windowed engine on a general mesh of at least ``WINDOWED_MIN_CELLS``
+    cells (not intervals) and the gather engine on every other mesh;
+    "windowed" or "gather" force that engine on a general mesh of any size
+    (``resolve_engine``). Box meshes keep their structured engine.
 
     History entries with a ``(rows, cols)`` shape are stored flattened,
     ``[rows * cols, *qp]``. Returns ``(geos, models, state0)``, one entry per
     law; on the windowed engine ``state0.u`` is in the internal layout.
     """
-    if engine not in ("auto", "windowed", "gather"):
-        msg = f"engine must be 'auto', 'windowed' or 'gather', got {engine!r}"
-        raise ValueError(msg)
     if isinstance(laws, IncrSmallStrainModel):
         laws = [(laws, np.arange(space.mesh.num_cells))]
     if not laws:
         msg = "build_packed_problem needs at least one law"
         raise ValueError(msg)
     mesh = space.mesh
+    kind = resolve_engine(space, engine, whole_mesh=len(laws) == 1
+                          and len(laws[0][1]) == mesh.num_cells)
     models = tuple(m for m, _ in laws)
     constraint = models[0].constraint
-    if _is_box(mesh):
-        # box meshes of hexes/quads keep the structured engine whatever
-        # ``engine`` says, as in the JAX package
-        full = build_structured_geometry(space, q_degree, constraint, device=device,
-                                         dtype=dtype)
+    opts = dict(device=device, dtype=dtype)
+
+    def whole(cells) -> bool:
+        return len(cells) == mesh.num_cells
+
+    if kind in ("structured", "structured_tet"):
+        if kind == "structured":
+            build, restrict = build_structured_geometry, restrict_structured_geometry
+        else:
+            build, restrict = build_structured_tet_geometry, restrict_structured_tet_geometry
+        full = build(space, q_degree, constraint, **opts)
+        geos = tuple(full if whole(cells) else restrict(full, cells) for _, cells in laws)
+    elif kind == "gather":
         geos = tuple(
-            full if len(cells) == mesh.num_cells else restrict_structured_geometry(full, cells)
+            build_packed_geometry(space, q_degree, constraint,
+                                  None if whole(cells) else np.asarray(cells, np.int64), **opts)
             for _, cells in laws
         )
     else:
-        if mesh.structured_shape is not None and space.degree == 1 and mesh.cell_type in (
-            "tetra", "triangle"
-        ):
-            msg = (
-                "a Kuhn simplex box (mesh.structured_shape set) runs on the JAX "
-                "package's structured tet engine, which is not ported yet (ROADMAP.md "
-                "Queue 1); build the mesh without structured_shape to use the "
-                "windowed engine"
-            )
-            raise NotImplementedError(msg)
-        use_windowed = engine == "windowed" or (
-            engine == "auto"
-            and mesh.num_cells >= WINDOWED_MIN_CELLS
-            and mesh.cell_type != "interval"
-        )
-        if not use_windowed:
-            msg = (
-                f"this general mesh ({mesh.num_cells} {mesh.cell_type} cells, "
-                f"engine={engine!r}) would run on the JAX package's gather engine, "
-                "which is not ported yet (ROADMAP.md Queue 1); pass engine='windowed'"
-            )
-            raise NotImplementedError(msg)
         # one whole-mesh RCM order for every law's plan
         t0 = time.perf_counter()
         perm = reverse_cuthill_mckee(space.cell_dof_nodes, space.n_dof_nodes)
@@ -152,8 +175,8 @@ def build_packed_problem(
         geos = tuple(
             build_windowed_geometry(
                 space, q_degree, constraint,
-                None if len(cells) == mesh.num_cells else np.asarray(cells, np.int64),
-                device=device, dtype=dtype, perm=perm,
+                None if whole(cells) else np.asarray(cells, np.int64),
+                perm=perm, **opts,
             )
             for _, cells in laws
         )
@@ -240,8 +263,10 @@ def make_packed_step(
     """Build ``step(models, state, bc_dofs, bc_vals, f_ext, dt) -> (state', stats)``.
 
     ``geos``: one geometry per law, as ``build_packed_problem`` returns them:
-    StructuredGeometry views of one grid, or WindowedGeometry plans of cell
-    subsets on one shared node order (one or several laws either way).
+    StructuredGeometry (or StructuredTetGeometry) views of one grid,
+    WindowedGeometry plans of cell subsets on one shared node order, or
+    PackedGeometry (gather engine) geometries of one space (one or several
+    laws each way).
     Several laws run per-law strain -> evaluate -> residual sweeps, summed,
     and per-law operator and Jacobi-diagonal sums. A law's tangent is an
     IsotropicTangent (the hot laws' SoA twins) or a DenseTangent (the
@@ -249,16 +274,18 @@ def make_packed_step(
     ``preconditioner``: optional callable M^-1 on the engine's working
     vectors (structured: grid-major, a MultigridPreconditioner or its
     ``bpx``; windowed: internal, e.g. ``WindowedAmgPreconditioner.
-    wrap_internal``); None = Jacobi (the per-law diagonals summed).
+    wrap_internal``; gather: node-major, e.g. an ``AmgPreconditioner``);
+    None = Jacobi (the per-law diagonals summed).
     ``matvec_impl``: "plain" (StructuredGeometry.matvec_gm) or "kernel" (the
     CUDA operator of ops/cuda_matvec.py; the geometry must be on a CUDA
     device; the law must declare a factored tangent, or the step raises
     ValueError). ``eval_impl``: "plain" (strain ->
     model.evaluate_packed -> residual) or "kernel" (the fused VonMises3D
     kernel of ops/cuda_eval.py, CUDA only). Both kernels serve one law on the
-    structured engine; the windowed engine takes "plain" and launches its
-    own kernels (gather, scatter, BSR SpMV) whenever its tensors are on a
-    CUDA device.
+    structured hex engine; the windowed engine takes "plain" and launches
+    its own kernels (gather, scatter, BSR SpMV) whenever its tensors are on
+    a CUDA device; the gather engine takes "plain" (plain PyTorch gathers
+    and gather-sums, as in the JAX package).
     ``cg_flexible``/``cg_reduce_dtype``/``cg_fixed_iters``: see
     solver.linear.cg_solve.
 
@@ -280,18 +307,23 @@ def make_packed_step(
     structured = all(isinstance(g, StructuredGeometry) for g in geos) and (
         len({(g.M, g.vs) for g in geos}) == 1
     )
-    if not geos or not (structured or windowed):
+    gather = all(isinstance(g, PackedGeometry) for g in geos) and (
+        len({(g.ndofs, g.vs) for g in geos}) == 1
+    )
+    if not geos or not (structured or windowed or gather):
         msg = (
-            "make_packed_step supports StructuredGeometry views of one grid or "
-            "WindowedGeometry plans on one shared node order (the same (M_pad, vs); "
-            "build several laws through build_packed_problem)"
+            "make_packed_step supports StructuredGeometry views of one grid, "
+            "WindowedGeometry plans on one shared node order (the same (M_pad, vs)) or "
+            "PackedGeometry geometries of one space; build several laws through "
+            "build_packed_problem"
         )
         raise ValueError(msg)
     if "kernel" in (matvec_impl, eval_impl):
-        if windowed:
+        if windowed or gather:
             msg = (
                 "matvec_impl/eval_impl='kernel' are the structured engine's kernels; "
-                "the windowed engine launches its own kernels on CUDA tensors"
+                "the windowed engine launches its own kernels on CUDA tensors, and "
+                "the gather engine runs 'plain'"
             )
             raise ValueError(msg)
         if len(geos) > 1:
@@ -299,15 +331,20 @@ def make_packed_step(
             raise ValueError(msg)
         _require_cuda(geo)
 
-    if windowed:
-        # internal layout throughout: no conversion at the step boundary
+    if windowed or gather:
+        # the windowed engine's internal layout, or the gather engine's
+        # node-major one, throughout: no conversion at the step boundary
         def to_work(u):
             return u
 
         from_work = to_work
 
         def boundary(bc_dofs):
-            return geo.bc_internal(bc_dofs), geo.free_internal(bc_dofs)
+            if windowed:
+                return geo.bc_internal(bc_dofs), geo.free_internal(bc_dofs)
+            free = torch.ones(geo.ndofs, dtype=torch.bool, device=geo.device)
+            free[bc_dofs] = False
+            return bc_dofs, free
 
         ops = [(g.strain, g.residual, g.matvec, g.jacobi_diag) for g in geos]
     else:

@@ -4,10 +4,12 @@ Mutable BC values and external load, ``solve() -> (niter, converged)`` per
 load step (with optional adaptive substepping), ``solve_schedule`` for a
 whole load path, checkpoints of the committed state and observation
 properties; each step runs ``make_packed_step``. On a box of hexes it runs
-the structured engine with an optional multigrid or BPX preconditioner and,
-on a CUDA device, the fused CUDA kernels; on a general (imported) mesh the
-windowed engine with the smoothed-aggregation AMG. Either takes one law or
-several on cell subsets.
+the structured engine with an optional multigrid, BPX or AMG preconditioner
+and, on a CUDA device, the fused CUDA kernels; on a Kuhn box of tets the
+structured-tet engine with the same preconditioners; on a general (imported)
+mesh the windowed engine with the smoothed-aggregation AMG, or, under 4096
+cells and on interval bars, the gather engine. Each takes one law or several
+on cell subsets.
 
 Example::
 
@@ -31,35 +33,44 @@ import torch
 from ..fem.bcs import combine_bcs
 from ..models.interfaces import IncrSmallStrainModel
 from ..ops.cuda_matvec import build_cuda_matvec, hot_path_geometry
-from ..ops.structured import build_structured_geometry
+from ..ops.structured import build_structured_geometry, build_structured_tet_geometry
 from ..ops.windowed import WindowedGeometry
 from .amg import build_amg
 from .multigrid import build_multigrid
-from .packed_step import PackedState, build_packed_problem, make_packed_step, require_factored
+from .packed_step import (
+    PackedState,
+    build_packed_problem,
+    make_packed_step,
+    require_factored,
+)
 
 __all__ = ["PackedSimulation"]
 
 
 class PackedSimulation:
-    """Time stepper on a box mesh (structured engine) or a general mesh
-    (windowed engine).
+    """Time stepper on a box mesh (structured or structured-tet engine) or a
+    general mesh (windowed or gather engine; ``engine`` says which it
+    resolved to).
 
     Args:
         laws: a model, or a list of ``(model, cells)``: on a box mesh every
-            law is a masked view of one grid, on a general mesh a plan of its
-            cells on one shared RCM order; the preconditioner is one
-            whole-mesh hierarchy with the first law's moduli.
+            law is a masked view of one grid, on a windowed mesh a plan of
+            its cells on one shared RCM order, on the gather engine a
+            geometry of its cells; the preconditioner is one whole-mesh
+            hierarchy with the first law's moduli.
         space: displacement FunctionSpace.
         bcs: Dirichlet BCs (values may be mutated between steps).
         q_degree: quadrature degree.
         del_t: time increment (mutable attribute).
         preconditioner: "auto" (default), None (Jacobi), "vcycle" or "bpx"
             (the geometric hierarchy of solver/multigrid.py; box meshes
-            only) or "amg" (the smoothed-aggregation hierarchy of
-            solver/amg.py; windowed engine only). "auto" resolves to "amg"
-            on the windowed engine and to None on the structured engine.
-            Elastic moduli come from ``elastic_moduli`` or the (first)
-            law's parameters.
+            only, below a tet fine level on a Kuhn box) or "amg" (the
+            smoothed-aggregation hierarchy of solver/amg.py: windowed levels
+            on the windowed engine and, on a CUDA device, on the others;
+            ELL levels on the others off the card; applied grid-major on a
+            box). "auto" resolves to "amg" on the windowed engine and to
+            None elsewhere. Elastic moduli come from
+            ``elastic_moduli`` or the (first) law's parameters.
         matvec_impl: "plain", "kernel" or "auto": the CUDA operator on a
             CUDA device for one law that declares a factored tangent
             (``factored_tangent``: an IsotropicTangent) on the 3D hex hot
@@ -71,8 +82,9 @@ class PackedSimulation:
             follows ``matvec_impl``.
         eval_impl: "plain" or "kernel" (the fused VonMises3D kernel, CUDA,
             one law).
-        engine: "auto" or "windowed", the general-mesh engine choice of
-            ``build_packed_problem`` (box meshes keep the structured engine).
+        engine: "auto", "windowed" or "gather", the general-mesh engine
+            choice of ``build_packed_problem`` (box meshes keep their
+            structured engine).
         max_subdivisions: retry a failed load step as 2, 4, ..., 2^k
             substeps with BC values, external load and dt interpolated from
             the committed state (0 = off).
@@ -127,9 +139,11 @@ class PackedSimulation:
         self._geos, self._models = geos, models
         self.state: PackedState = state
         geo = geos[0]
-        windowed = isinstance(geo, WindowedGeometry)
-        #: the engine the mesh resolved to: "structured" or "windowed"
-        self.engine = "windowed" if windowed else "structured"
+        #: the engine the mesh resolved to: "structured", "structured_tet",
+        #: "windowed" or "gather"
+        self.engine = geo.engine
+        windowed = self.engine == "windowed"
+        box = self.engine in ("structured", "structured_tet")
         zeros = torch.zeros(space.ndofs, dtype=dtype, device=self.device)
         #: external load, node-major [ndofs] (reassign between steps)
         self.f_ext = zeros if f_ext is None else torch.as_tensor(
@@ -141,13 +155,7 @@ class PackedSimulation:
 
         if preconditioner == "auto":
             preconditioner = "amg" if windowed else None
-        if preconditioner == "amg" and not windowed:
-            msg = (
-                "preconditioner='amg' on the structured engine needs the ELL AMG "
-                "levels, which are not ported yet (ROADMAP.md Queue 1)"
-            )
-            raise NotImplementedError(msg)
-        allowed = (None, "amg") if windowed else (None, "vcycle", "bpx")
+        allowed = (None, "vcycle", "bpx", "amg") if box else (None, "amg")
         if preconditioner not in allowed:
             msg = (
                 f"preconditioner {preconditioner!r} on the {self.engine} engine; "
@@ -158,11 +166,11 @@ class PackedSimulation:
         self.preconditioner = preconditioner
         if matvec_impl == "auto":
             on_card = self.device.type == "cuda"
-            single = len(geos) == 1 and not windowed
+            single = len(geos) == 1 and box
             matvec_impl = "kernel" if (
                 on_card and single and hot_path_geometry(geo) and models[0].factored_tangent
             ) else "plain"
-        elif matvec_impl == "kernel" and not windowed:
+        elif matvec_impl == "kernel" and box:
             require_factored(models[0])
 
         pc = mg = None
@@ -174,14 +182,25 @@ class PackedSimulation:
             free = torch.ones(space.ndofs, dtype=torch.bool)
             free[torch.as_tensor(bc_dofs, dtype=torch.int64)] = False
             opts = dict(mg_options or {})
-            if preconditioner == "amg":
+            if preconditioner == "amg" and windowed:
                 # frozen on the engine's own RCM order, so the V-cycle
                 # consumes the step's internal vectors directly
                 mg = build_amg(
-                    space, mu, kappa, free.numpy(), q_degree=q_degree,
+                    space, mu, kappa, free.numpy(), q_degree=q_degree, spmv="windowed",
                     node_perm=geo.ex.perm, device=self.device, dtype=dtype, **opts,
                 )
                 pc = mg.wrap_internal(geo.ex.M_pad)
+            elif preconditioner == "amg":
+                # node-major vectors (grid-major on a box). On the card K6
+                # applies the windowed levels, exact in float32 as ELL is
+                # (chip_smoke.py phase 17 times both formats of one
+                # hierarchy); off the card the windowed format's path is
+                # K6's plain twin, a padded take, and the ELL row sum the
+                # plain SpMV
+                spmv = "windowed" if self.device.type == "cuda" else "ell"
+                mg = build_amg(space, mu, kappa, free.numpy(), q_degree=q_degree, spmv=spmv,
+                               device=self.device, dtype=dtype, **{"select_passes": 3, **opts})
+                pc = (lambda r: geo.to_grid_major(mg(geo.to_node_major(r)))) if box else mg
             else:
                 if preconditioner == "vcycle":
                     # V(3,3) with lighter coarse smoothing and a direct
@@ -189,7 +208,9 @@ class PackedSimulation:
                     opts = {"nu": 3, "nu_coarse": 2, "coarse_direct": True, **opts}
                 # several laws: one whole-grid hierarchy (an elastic
                 # surrogate either way); the K3 chains replace the fine apply
-                geo_mg = geo if len(geos) == 1 else build_structured_geometry(
+                build = (build_structured_geometry if self.engine == "structured"
+                         else build_structured_tet_geometry)
+                geo_mg = geo if len(geos) == 1 else build(
                     space, q_degree, geo.constraint, device=self.device, dtype=dtype
                 )
                 fine_mv = None
@@ -370,8 +391,9 @@ class PackedSimulation:
     # -- checkpoints ----------------------------------------------------------------
     # The committed PackedState determines the next step. state_dict() is a
     # plain tree for utils.save_checkpoint / load_checkpoint, with an engine
-    # marker; restore needs the same engine and mesh (the windowed engine's
-    # u is its internal vector and its QP fields are in plan-slot order).
+    # marker ("structured", "structured_tet", "windowed" or "gather");
+    # restore needs the same engine and mesh (the windowed engine's u is its
+    # internal vector and its QP fields are in plan-slot order).
 
     def state_dict(self) -> dict:
         return {

@@ -9,6 +9,14 @@ JAX package (shuffled tet boxes, float64 unless a test says otherwise).
   kernel in interpret mode with ``select_passes`` 3 (exact select) and 1
   (x rounded to bfloat16 on both sides) to 1e-6 of the largest entry.
 * The V-cycle (``__call__`` and ``wrap_internal``) matches JAX's to 1e-12.
+* The ELL levels (``spmv="ell"``, the default): every A, P and R level has
+  the JAX package's ELL values and columns exactly, and one V-cycle matches
+  JAX's to 1e-12. ``preconditioner="amg"`` through PackedSimulation on a 3^3
+  box (ELL levels applied grid-major) and on the gather engine (node-major)
+  converges to JAX's states within the BVP tolerance (rtol 1e-7).
+* The two level formats of one hierarchy give the same V-cycle on
+  node-major vectors (a hex box, tets, an interval bar): PackedSimulation
+  takes the ELL levels off the card and the windowed ones (K6) on it.
 """
 
 import copy
@@ -22,7 +30,12 @@ import torch
 from fenics_constitutive_tpu.fem.bcs import combine_bcs as jax_combine
 from fenics_constitutive_tpu.ops.pallas_window import windowed_bsr_matvec
 from fenics_constitutive_tpu.solver.amg import build_amg as jax_build_amg
-from fenics_constitutive_tpu_torch.solver import WindowedAmgPreconditioner, build_amg
+from fenics_constitutive_tpu_torch.solver import (
+    AmgPreconditioner,
+    PackedSimulation,
+    WindowedAmgPreconditioner,
+    build_amg,
+)
 
 MU, KAPPA = 80769.0, 175000.0
 F64 = torch.float64
@@ -46,7 +59,7 @@ def hierarchies(tets):
     for agg in ("graph", "geometric"):
         aj = jax_build_amg(Vj, MU, KAPPA, free, spmv="windowed", aggregation=agg, nu=3, **OPTS)
         at = build_amg(Vt, MU, KAPPA, free, device="cpu", dtype=F64, aggregation=agg, nu=3,
-                       **OPTS)
+                       spmv="windowed", **OPTS)
         out[agg] = (aj, at, free)
     return out
 
@@ -127,6 +140,98 @@ def test_vcycle_matches_jax(hierarchies, agg):
 
 
 def test_ell_levels_raise(tets):
+    """spmv="ell" builds the ELL hierarchy and is the default; an unknown
+    level format raises ValueError."""
     V = tets(4)["torch"][0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_amg(V, MU, KAPPA, np.ones(V.ndofs, bool), device="cpu", dtype=F64, spmv="ell")
+    free = np.ones(V.ndofs, bool)
+    for kw in ({"spmv": "ell"}, {}):
+        amg = build_amg(V, MU, KAPPA, free, device="cpu", dtype=F64, max_coarse=100, **kw)
+        assert isinstance(amg, AmgPreconditioner) and amg.n_levels >= 2
+    with pytest.raises(ValueError, match="spmv"):
+        build_amg(V, MU, KAPPA, free, device="cpu", dtype=F64, spmv="csr")
+
+
+@pytest.fixture(scope="module")
+def ell_hierarchies(tets):
+    pair = tets(6)
+    (Vj, bj), (Vt, _) = pair["jax"], pair["torch"]
+    free = free_mask(Vj, bj)
+    aj = jax_build_amg(Vj, MU, KAPPA, free, nu=3, max_coarse=100)
+    at = build_amg(Vt, MU, KAPPA, free, device="cpu", dtype=F64, nu=3, max_coarse=100)
+    return aj, at, free
+
+
+def test_ell_levels_equal_jax(ell_hierarchies):
+    aj, at, _ = ell_hierarchies
+    assert at.n_levels == aj.n_levels >= 3
+    for name in ("A_ell", "P_ell", "R_ell"):
+        for lvl, ((vj, cj), (vt, ct)) in enumerate(zip(getattr(aj, name), getattr(at, name))):
+            np.testing.assert_array_equal(vt.numpy(), np.asarray(vj), err_msg=f"{name}{lvl}")
+            np.testing.assert_array_equal(ct.numpy(), np.asarray(cj), err_msg=f"{name}{lvl}")
+    for lvl, dj in enumerate(aj.dinv):
+        np.testing.assert_array_equal(getattr(at, f"dinv_{lvl}").numpy(), np.asarray(dj))
+    np.testing.assert_array_equal(at.coarse_inv.numpy(), np.asarray(aj.coarse_inv))
+
+
+def test_ell_vcycle_matches_jax(ell_hierarchies):
+    aj, at, free = ell_hierarchies
+    r = np.random.default_rng(3).normal(size=free.size) * free
+    close(at(torch.tensor(r)), aj(jnp.asarray(r)), 1e-12, "ELL V-cycle")
+    z32 = at(torch.tensor(r, dtype=torch.float32))
+    assert z32.dtype == torch.float32
+
+
+def _sim_pair(pair, mat, **kw):
+    from fenics_constitutive_tpu.models import VonMises3D as JVonMises3D
+    from fenics_constitutive_tpu.solver import PackedSimulation as JPackedSimulation
+    from fenics_constitutive_tpu_torch.models import VonMises3D
+
+    opts = dict(newton_rtol=1e-10, newton_atol=1e-10, cg_rtol=1e-12, preconditioner="amg", **kw)
+    (Vj, bj), (Vt, bt) = pair["jax"], pair["torch"]
+    sj = JPackedSimulation(JVonMises3D(mat), Vj, bj, 2, **opts)
+    st = PackedSimulation(VonMises3D(mat), Vt, bt, 2, device="cpu", dtype=F64, **opts)
+    return sj, st
+
+
+@pytest.mark.parametrize("mesh", ["box", "gather"])
+def test_amg_preconditioner_matches_jax(box, tets, mat, mesh):
+    """preconditioner="amg" on a 3^3 hex box (the structured engine applies
+    the ELL V-cycle grid-major) and on a shuffled 3^3 tet mesh (the gather
+    engine, node-major): 3 plastic load steps, converged states equal."""
+    pair = box(3, 0.0) if mesh == "box" else tets(3, 0.0)
+    sj, st = _sim_pair(pair, mat)
+    assert st.engine == ("structured" if mesh == "box" else "gather")
+    assert st.preconditioner == "amg" and isinstance(st._mg, AmgPreconditioner)
+    for k in (1, 2, 3):
+        for sim in (sj, st):
+            sim.bcs[1].value = 0.004 * k
+            assert sim.solve()[1], (mesh, k)
+        close(st.u, sj.u, 1e-7, f"u step {k}")
+        close(torch.as_tensor(st.stress), sj.stress, 1e-7, f"stress step {k}")
+    assert float(st.histories[0]["alpha"].max()) > 0
+
+
+@pytest.mark.parametrize("mesh", ["box", "tets", "bar"])
+def test_level_formats_agree(box, tets, mesh):
+    """The ELL and the windowed levels of one hierarchy (the formats that
+    PackedSimulation serves node-major vectors with, off and on the card)
+    give the same V-cycle on node-major vectors: within 1e-12 in float64,
+    and within 1e-6 in float32 with the windowed format's exact select."""
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace, unit_interval_mesh
+
+    if mesh == "bar":
+        V = FunctionSpace(unit_interval_mesh(40), 1, 1)
+        free = np.ones(V.ndofs, bool)
+        free[[0, V.ndofs - 1]] = False
+    else:
+        V, bcs = (box(4) if mesh == "box" else tets(5))["torch"]
+        free = free_mask(V, bcs)
+    opts = dict(nu=3, max_coarse=12, device="cpu")
+    r = np.random.default_rng(4).normal(size=V.ndofs) * free
+    for dtype, tol in ((F64, 1e-12), (torch.float32, 1e-6)):
+        ell = build_amg(V, MU, KAPPA, free, dtype=dtype, spmv="ell", **opts)
+        win = build_amg(V, MU, KAPPA, free, dtype=dtype, spmv="windowed", select_passes=3,
+                        tile_rows=64, **opts)
+        assert ell.n_levels == win.n_levels >= 2
+        z = ell(torch.tensor(r, dtype=dtype))
+        close(win(torch.tensor(r, dtype=dtype)), z.to(F64), tol, f"{mesh} {dtype}")

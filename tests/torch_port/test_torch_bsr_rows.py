@@ -44,7 +44,7 @@ def hierarchies(tets):
     for agg in ("graph", "geometric"):
         aj = jax_build_amg(Vj, MU, KAPPA, free, spmv="windowed", aggregation=agg, nu=3, **OPTS)
         at = build_amg(Vt, MU, KAPPA, free, device="cpu", dtype=F64, aggregation=agg, nu=3,
-                       **OPTS)
+                       spmv="windowed", **OPTS)
         out[agg] = (aj, at)
     return out
 

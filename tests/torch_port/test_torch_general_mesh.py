@@ -16,8 +16,9 @@
     the JAX package's as in (b), through its public ``u`` and ``stress``.
 (d) A windowed JAX state (internal u, [s, N] fields) carried over by
     utils.convert is bit-equal, and one converged step from it agrees.
-(e) The engine choices that the port does not carry raise instead of
-    falling back to another engine.
+(e) Every mesh resolves to the JAX package's engine (gather, structured
+    tet, windowed; the lattice engine, not ported, raises), and the
+    preconditioners resolve as in JAX, with the ELL AMG on a box.
 """
 
 import jax
@@ -32,14 +33,16 @@ from fenics_constitutive_tpu.solver import PackedSimulation as JPackedSimulation
 from fenics_constitutive_tpu.solver.amg import build_amg as jax_build_amg
 from fenics_constitutive_tpu.solver.packed_step import build_packed_problem as jax_problem
 from fenics_constitutive_tpu.solver.packed_step import make_packed_step as jax_make_step
-from fenics_constitutive_tpu_torch.fem import FunctionSpace, combine_bcs, unit_cube_mesh
+from fenics_constitutive_tpu_torch.fem import combine_bcs
 from fenics_constitutive_tpu_torch.models import VonMises3D
 from fenics_constitutive_tpu_torch.ops import WindowedGeometry
 from fenics_constitutive_tpu_torch.solver import (
+    AmgPreconditioner,
     PackedSimulation,
     build_amg,
     build_packed_problem,
     make_packed_step,
+    resolve_engine,
 )
 from fenics_constitutive_tpu_torch.utils import state_from_numpy
 
@@ -78,7 +81,7 @@ def port_setup(V, bcs, mat, pc):
     free[combine_bcs(bcs)[0]] = False
     pc_call = None
     if pc == "amg":
-        amg = build_amg(V, MU, KAPPA, free, device="cpu", dtype=F64, nu=3,
+        amg = build_amg(V, MU, KAPPA, free, device="cpu", dtype=F64, nu=3, spmv="windowed",
                         node_perm=geos[0].ex.perm)
         pc_call = amg.wrap_internal(geos[0].ex.M_pad)
     return geos, models, state, pc_call
@@ -207,23 +210,59 @@ def test_windowed_state_from_numpy_and_step(simulations, mat):
     close(out_t.stress[0], sim_j.state.stress[0], 1e-7, "stress")
 
 
+#: the engine names of the JAX package's geometry types
+JAX_ENGINES = {"StructuredGeometry": "structured", "StructuredTetGeometry": "structured_tet",
+               "WindowedGeometry": "windowed", "PackedGeometry": "gather"}
+
+
 def test_engines_not_ported_raise(tets, mat):
-    V = tets(4)["torch"][0]  # 384 cells < WINDOWED_MIN_CELLS
-    law = VonMises3D(mat)
-    for engine in ("auto", "gather"):
-        with pytest.raises(NotImplementedError, match="engine='windowed'"):
-            build_packed_problem(V, law, 2, device="cpu", dtype=F64, engine=engine)
-    kuhn_box = FunctionSpace(unit_cube_mesh(3, 3, 3, "tetra"), 1, 3)  # structured_shape set
-    for engine in ("auto", "windowed"):
-        with pytest.raises(NotImplementedError, match="structured tet engine"):
-            build_packed_problem(kuhn_box, law, 2, device="cpu", dtype=F64, engine=engine)
+    """No mesh raises for want of an engine any more: a shuffled tet mesh
+    under WINDOWED_MIN_CELLS takes the gather engine ("auto" and "gather")
+    or the windowed one ("windowed"), a Kuhn box the structured-tet engine
+    whatever ``engine`` says, an interval bar the gather engine, as in the
+    JAX package. Only the lattice engine (degree 2 on a whole hex box), not
+    ported, raises."""
+    from fenics_constitutive_tpu import fem as jfem
+    from fenics_constitutive_tpu import models as jm
+    from fenics_constitutive_tpu_torch import fem as tfem
+    from fenics_constitutive_tpu_torch.utils import model_from_jax
+
+    small = tets(4)  # 384 cells < WINDOWED_MIN_CELLS
+    kuhn = {k: f.FunctionSpace(f.unit_cube_mesh(3, 3, 3, "tetra"), 1, 3)
+            for k, f in (("jax", jfem), ("torch", tfem))}
+    bar = {k: f.FunctionSpace(f.unit_interval_mesh(5), 1, 1)
+           for k, f in (("jax", jfem), ("torch", tfem))}
+    vm = jm.VonMises3D(mat)
+    uni = jm.LinearElasticityModel({"E": 1000.0, "nu": 0.3}, jm.Constraint.UNIAXIAL_STRAIN)
+    cases = [
+        (small["jax"][0], small["torch"][0], vm, "auto", "gather"),
+        (small["jax"][0], small["torch"][0], vm, "gather", "gather"),
+        (small["jax"][0], small["torch"][0], vm, "windowed", "windowed"),
+        (kuhn["jax"], kuhn["torch"], vm, "auto", "structured_tet"),
+        (kuhn["jax"], kuhn["torch"], vm, "windowed", "structured_tet"),
+        (kuhn["jax"], kuhn["torch"], vm, "gather", "structured_tet"),
+        (bar["jax"], bar["torch"], uni, "auto", "gather"),
+    ]
+    for Vj, Vt, law, engine, expected in cases:
+        gj = jax_problem(Vj, law, 2, engine=engine)[0][0]
+        gt = build_packed_problem(Vt, model_from_jax(law), 2, device="cpu", dtype=F64,
+                                  engine=engine)[0][0]
+        assert JAX_ENGINES[type(gj).__name__] == expected, (engine, expected)
+        assert JAX_ENGINES[type(gt).__name__] == expected == resolve_engine(Vt, engine)
+    p2_box = tfem.FunctionSpace(tfem.unit_cube_mesh(2, 2, 2, "hex"), 2, 3)
+    with pytest.raises(NotImplementedError, match="lattice"):
+        build_packed_problem(p2_box, VonMises3D(mat), 2, device="cpu", dtype=F64)
 
 
 def test_preconditioners_not_ported_raise(box, tets, mat):
+    """preconditioner="amg" on a box now builds the ELL levels; a geometric
+    multigrid on a general mesh, and the structured kernels on the windowed
+    engine, still raise ValueError."""
     V, bcs = box(2)["torch"]
-    with pytest.raises(NotImplementedError, match="ELL AMG"):
-        PackedSimulation(VonMises3D(mat), V, bcs, 2, preconditioner="amg", device="cpu",
-                         dtype=F64)
+    sim = PackedSimulation(VonMises3D(mat), V, bcs, 2, preconditioner="amg", device="cpu",
+                           dtype=F64)
+    assert (sim.engine, sim.preconditioner) == ("structured", "amg")
+    assert isinstance(sim._mg, AmgPreconditioner)
     V, bcs = tets(4)["torch"]
     with pytest.raises(ValueError, match="windowed engine"):
         PackedSimulation(VonMises3D(mat), V, bcs, 2, engine="windowed",
@@ -232,3 +271,6 @@ def test_preconditioners_not_ported_raise(box, tets, mat):
                                       engine="windowed")
     with pytest.raises(ValueError, match="windowed engine"):
         make_packed_step(geos, eval_impl="kernel")
+    with pytest.raises(ValueError, match="gather engine"):
+        PackedSimulation(VonMises3D(mat), V, bcs, 2, preconditioner="bpx", device="cpu",
+                         dtype=F64)
