@@ -150,6 +150,38 @@ Every P1 mesh the JAX package accepts, on its own engine:
      (grid-major; K6 on the card, the ELL levels on the CPU), a 6^3 Kuhn
      box with two laws and the K3 V-cycle.
 
+Degree 2, and the 2D boxes (every P2 mesh the JAX package accepts):
+
+ 19. the lattice engine on scripts/bench_p2.py's box: unit_cube_mesh(32, 32,
+     32, "hex"), P2, q_degree 4 (884,736 QPs, 823,875 dofs), VonMises3D, the
+     bench's stretch of 0.004 on x = 1 with the three symmetry planes,
+     float32: (a) the lattice strain, residual and operator on a plastic
+     tangent held normwise within 1e-5 of the gather engine on the same
+     space, the residual bit-equal across two calls, ms per apply of both;
+     (b) bench_p2's protocol, one Newton iteration from the zero state with
+     CG at rtol 1e-5 (maxiter 250) preconditioned by the V-cycle on the
+     refined P1 grid (65^3 nodes), eager (build_multigrid's defaults) and
+     through PackedSimulation(preconditioner="vcycle", mg_options=
+     {"fused_smoothing": True}) with K3, 5 timed steps at 0.004 (1 + 1e-4
+     k): ms/step, CG iterations, r/r0, and the settled r_norm within 1.02x
+     of the same step in float64; K3 launches per step (> 0 fused), K1 and
+     K2 never; (c) PackedSimulation converges 3 steps of 0.0004 k (float64).
+ 20. K3 on quad levels: every chain and every fused V-cycle entry of the
+     unit_square_mesh(512, 512, "quad") P1 hierarchy (PLANE_STRAIN,
+     1,048,576 QPs) and of the 512^2 Kuhn triangle box's hierarchy (quad
+     levels below the triangle level) against their plain twins, float64 and
+     float32, bit-equal across two launches, the fused V-cycle against the
+     eager one, the quad entries' times beside their bound; then
+     PackedSimulation on the P2 quad lattice at 256 x 256 (q_degree 4,
+     589,824 QPs) with plane-strain linear elasticity and the fused
+     refined-P1 V-cycle, float64, 3 converged steps of 0.0004 k.
+ 21. P2 on an imported mesh: a shuffled 20^3 Kuhn tet box (48,000 tets,
+     68,921 dof nodes, 192,000 QPs) through write_gmsh/read_gmsh,
+     PackedSimulation with default options (windowed engine, AMG V(3,3)),
+     float32; K4 and K5 against their twins on the P2 plan, K6 on every AMG
+     operator; phase 9's protocol (fixed-3 PCG held to fixed-9 and fixed-18
+     within 1.02x) with ms/step and the set-up split; 2 converged steps.
+
 A kernel's time on the card and a device-op count come from torch.profiler.
 CUPTI now and then delivers a short profile on the H100, so such a profile
 is taken again, three times in all; after that the time is taken by CUDA
@@ -158,9 +190,11 @@ kernels are counted as aten ops (aten_device_ops). A line before the JSON
 says how often that happened.
 
 Then one JSON line of per-kernel results (launches on the path's run, for
-K3 also on phase 16's tet run, for K4-K6 also on phase 14's 3-step run, for
-K6 also on phase 17's timed run, times, plain and library times, the
-bound) and, last, the device JSON line.
+K3 also on phase 16's tet run, phase 19's fused P2 steps and phase 20's P2
+quad steps, for K4-K6 also on phase 14's 3-step run and phase 21's timed
+run, for K6 also on phase 17's timed run, times, plain and library times,
+the bound; for K3 also the quad entries' numbers) and, last, the device
+JSON line.
 
     python3 chip_smoke.py --profile
 
@@ -344,18 +378,22 @@ def gated_ms(fn, iters: int = 20) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 3, floor_ms: float = 0.0) -> float:
     """Mean device time of fn() in ms: the kernels it ran on the card, by
-    torch.profiler (the launch path on the host is not in it), or by
-    gated_ms where the profiler delivered no device event in three tries."""
+    torch.profiler (the launch path on the host is not in it). A profile in
+    which some kernel's event count is not a multiple of `iters` is short
+    (CUPTI dropped events) and is taken again; where three were short, or
+    the reading lies below ``floor_ms`` (the call's bound), gated_ms
+    measures instead."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    evs = profiled(fn, iters)
-    if evs is None:
+    evs = profiled(fn, iters, lambda evs: bool(evs) and all(e.count % iters == 0 for e in evs))
+    ms = None if evs is None else sum(e.self_device_time_total for e in evs) / 1e3 / iters
+    if ms is None or ms < floor_ms:
         PROFILER_MISSES["fallbacks"] += 1
         return gated_ms(fn, iters)
-    return sum(e.self_device_time_total for e in evs) / 1e3 / iters
+    return ms
 
 
 def bench_bcs(V):
@@ -1678,17 +1716,24 @@ def phase_library() -> None:
 # -- K3: the fused multigrid smoothing chains ---------------------------------------
 
 
+def stencil_flops(geo) -> float:
+    """Operations of one stencil apply at a node: 3^d neighbours of vs x vs
+    blocks, a multiply and an add each (486 on a hex level, 72 on a quad)."""
+    return 2.0 * 3**geo.gdim * geo.vs**2
+
+
 def chain_cost(chain) -> tuple[float, float]:
     """(bytes, flops) one call of a K3 chain needs: b, the level data (and x)
-    read once, x (and r) written once; per operator apply the 27-point stencil
-    of 3 x 3 blocks on every node (243 multiply-adds), per sweep 3
-    operations per dof."""
-    M, size = chain.geo.M, chain.inv_d.element_size()
+    read once, x (and r) written once; per operator apply the 3^d-point
+    stencil of vs x vs blocks on every node (243 multiply-adds on a hex
+    level), per sweep 3 operations per dof."""
+    geo = chain.geo
+    M, vs, size = geo.M, geo.vs, chain.inv_d.element_size()
     vecs = 1 + (0 if chain.zero_start else 1) + 1 + int(chain.emit_residual)
-    nbytes = vecs * 3 * M * size + level_bytes(chain)
+    nbytes = vecs * vs * M * size + level_bytes(chain)
     sweeps = max(chain.nu - 1, 0) if chain.zero_start else chain.nu
     applies = sweeps + int(chain.emit_residual)
-    return nbytes, applies * M * 486.0 + sweeps * 3 * M * 3
+    return nbytes, applies * M * stencil_flops(geo) + sweeps * 3 * M * vs
 
 
 def level_bytes(chain) -> int:
@@ -1718,13 +1763,16 @@ def k3_entries(fc, b0: torch.Tensor, first: int | None = None):
     kernel call, plain call, (bytes, flops)). ``first``: the tail's first
     level (default: the card's rule)."""
     first = fc.tail_start(b0.device) if first is None else first
-    vec = b0.element_size() * 3
+    g0 = fc._chain(0).geo
+    vs, apply_ops = g0.vs, stencil_flops(g0)
+    n_nb, n_corner = 3**g0.gdim, 2**g0.gdim  # restriction and prolongation weights
+    vec = b0.element_size() * vs
     out, xs, bs, b = [], [], [], b0
     for lvl in range(first):
         pre, M, Mc = fc.chains[lvl]["pre"], fc._chain(lvl).geo.M, fc._chain(lvl + 1).geo.M
         x, bc = fc.pre_restrict_plain(lvl, b)
         cost = (level_bytes(pre) + vec * (2 * M + Mc),
-                pre.nu * M * 486.0 + (pre.nu - 1) * 9 * M + 27 * 2 * 3 * Mc)
+                pre.nu * M * apply_ops + (pre.nu - 1) * 3 * vs * M + n_nb * 2 * vs * Mc)
         out.append((f"L{lvl} pre_restrict", "pre_restrict",
                     lambda lvl=lvl, b=b: fc.pre_restrict(lvl, b),
                     lambda lvl=lvl, b=b: fc.pre_restrict_plain(lvl, b), cost))
@@ -1737,20 +1785,20 @@ def k3_entries(fc, b0: torch.Tensor, first: int | None = None):
     flops = 0.0
     for t in range(first, fc.n_levels - 1):
         c, M = fc._chain(t), fc._chain(t).geo.M
-        flops += (2 * c.nu * M * 486.0 + 2 * c.nu * 9 * M + 27 * 2 * 3 * fc._chain(t + 1).geo.M
-                  + 16 * 3 * M)
-    Nc = 3 * fc._chain(fc.n_levels - 1).geo.M
+        flops += (2 * c.nu * M * apply_ops + 2 * c.nu * 3 * vs * M
+                  + n_nb * 2 * vs * fc._chain(t + 1).geo.M + 2 * n_corner * vs * M)
+    Nc = vs * fc._chain(fc.n_levels - 1).geo.M
     if fc.coarse_inv is not None:
         nbytes += fc.coarse_inv.numel() * fc.coarse_inv.element_size()
         flops += 2.0 * Nc * Nc
     else:
-        flops += fc.chains[-1]["coarse"].nu * (Nc / 3) * 486.0
+        flops += fc.chains[-1]["coarse"].nu * (Nc / vs) * apply_ops
     out.append((f"L{first}-{fc.n_levels - 1} tail", "tail",
                 lambda b=b: fc.tail(b, first), lambda b=b: fc.plain(b, first), (nbytes, flops)))
     for lvl in reversed(range(first)):
         post, M = fc.chains[lvl]["post"], fc._chain(lvl).geo.M
         cost = (level_bytes(post) + vec * (3 * M + fc._chain(lvl + 1).geo.M),
-                post.nu * M * 486.0 + post.nu * 9 * M + 16 * 3 * M)
+                post.nu * M * apply_ops + post.nu * 3 * vs * M + 2 * n_corner * vs * M)
         out.append((f"L{lvl} prolong_post", "prolong_post",
                     lambda lvl=lvl, x=xs[lvl], b=bs[lvl], xc=xc: fc.prolong_post(lvl, x, b, xc),
                     lambda lvl=lvl, x=xs[lvl], b=bs[lvl], xc=xc: fc.prolong_post_plain(
@@ -1884,9 +1932,9 @@ def phase_k3(results: dict) -> None:
             err, rel = check_k3(label, kernel, plain, dtype, tol)
             part = f"{label} rel {rel:.1e}"
             if dtype == torch.float32:
-                t = {"ms": cuda_ms(kernel), "device_ms": device_ms(kernel),
-                     "plain_ms": cuda_ms(plain)}
                 bound, by = bound_ms(*cost, dtype)
+                t = {"ms": cuda_ms(kernel), "device_ms": device_ms(kernel, floor_ms=bound),
+                     "plain_ms": cuda_ms(plain)}
                 part += (f" {t['ms']:.4f} ms (on the card {t['device_ms']:.4f}) vs plain "
                          f"{t['plain_ms']:.4f} (bound {bound:.4f} {by})")
                 a = agg.setdefault(kind, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
@@ -2368,6 +2416,510 @@ def phase_small() -> None:
           f"tol {TOL_SMALL:g} normwise on u and stress): max rel {worst:.2e}; " + "; ".join(line))
 
 
+# -- degree 2 and 2D: the lattice engine, K3 on quad levels, P2 on imported meshes ---
+
+N_P2 = 32  # phase 19: scripts/bench_p2.py's box, P2 at q_degree 4
+Q_P2 = 4
+N_QP_P2, N_DOF_P2 = 884_736, 823_875
+P2_LOAD = 0.004  # the stretch of x = 1
+P2_STEPS = 5  # timed steps at P2_LOAD (1 + 1e-4 k), k = 1..5, each from the zero state
+P2_CG = dict(cg_rtol=1e-5, cg_maxiter=250)  # bench_p2's CG
+# the lattice operator against the gather engine, float32, normwise: both
+# sum 27 x 3 element dofs per QP and at most 8 cells per node in another
+# order; TF32 (10-bit mantissa) would miss it by about 100x
+TOL_P2_OP = 1e-5
+N_QUAD = 512  # phase 20's P1 quad and triangle boxes (1,048,576 QPs)
+N_QUAD_P2 = 256  # phase 20's P2 quad lattice (q_degree 4: 589,824 QPs)
+N_P2_TET = 20  # phase 21's imported P2 tet mesh: 48,000 tets, 68,921 dof nodes
+N_QP_P2_TET = 192_000  # its quadrature points, unpadded (4 per tet)
+
+
+def box_bcs_2d(V):
+    """The 2D box's Dirichlet set: x=0 fixed in x, x=1 pulled by 0.004 in x,
+    y=0 fixed in y."""
+    from fenics_constitutive_tpu_torch.fem import DirichletBC
+
+    def close(axis, v):
+        return lambda x: np.isclose(x[:, axis], v)
+
+    return [
+        DirichletBC(V.locate_dofs_geometrical(close(0, 0.0), component=0), 0.0),
+        DirichletBC(V.locate_dofs_geometrical(close(0, 1.0), component=0), 0.004),
+        DirichletBC(V.locate_dofs_geometrical(close(1, 0.0), component=1), 0.0),
+    ]
+
+
+def p2_box(n: int):
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace, unit_cube_mesh
+
+    V = FunctionSpace(unit_cube_mesh(n, n, n, "hex"), 2, 3)
+    return V, bench_bcs(V)
+
+
+def p2_step_runs(run, loads) -> dict:
+    """Run one step per load from the zero state, each timed by CUDA events on
+    its own: the mean ms per step, and per step the CG iterations, r_norm and
+    r/r0."""
+    rows = []
+    for load in loads:
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        stats = run(load)
+        ev1.record()
+        ev1.synchronize()
+        rows.append((ev0.elapsed_time(ev1), int(stats["cg_iters_last"]), float(stats["r_norm"]),
+                     float(stats["r_norm"]) / max(float(stats["r0_norm"]), 1e-300)))
+    return {"ms": float(np.mean([r[0] for r in rows])), "cg": [r[1] for r in rows],
+            "r_norm": [r[2] for r in rows], "rel": [r[3] for r in rows]}
+
+
+def p2_eager(V, bcs, dtype):
+    """bench_p2's step: one Newton iteration from the zero state with CG at
+    rtol 1e-5, preconditioned by the eager V-cycle on the refined P1 grid
+    (build_multigrid's defaults). Returns (the V-cycle, run(load) -> stats)."""
+    from fenics_constitutive_tpu_torch.fem import combine_bcs
+    from fenics_constitutive_tpu_torch.models import Constraint, VonMises3D
+    from fenics_constitutive_tpu_torch.solver import build_packed_problem, make_packed_step
+    from fenics_constitutive_tpu_torch.solver.multigrid import build_multigrid, refined_p1_geometry
+
+    geos, models, state0 = build_packed_problem(V, VonMises3D(MAT), Q_P2, device=CARD,
+                                                dtype=dtype)
+    geo1, _ = refined_p1_geometry(V, Constraint.FULL, device=CARD, dtype=dtype)
+    mg = build_multigrid(geo1, MU, KAPPA, torch.as_tensor(free_mask(V, bcs)), device=CARD,
+                         dtype=dtype)
+    step = make_packed_step(geos, newton_rtol=0.0, newton_atol=0.0, max_newton=1,
+                            preconditioner=mg, **P2_CG)
+    bc_dofs, bc_vals = combine_bcs(bcs)
+    bc_dofs = torch.as_tensor(bc_dofs, dtype=torch.int64, device=CARD)
+    bc_vals = torch.as_tensor(bc_vals, dtype=dtype, device=CARD) / P2_LOAD
+    f_ext = torch.zeros(V.ndofs, dtype=dtype, device=CARD)
+    return mg, lambda load: step(models, state0, bc_dofs, bc_vals * load, f_ext, 1.0)[1]
+
+
+def p2_fused(V, bcs, dtype):
+    """The same step through PackedSimulation(preconditioner="vcycle",
+    mg_options={"fused_smoothing": True}): the refined-P1 V(3,3) with K3 on
+    every level. Newton tolerances 0 keep every step uncommitted, so each
+    starts from the zero state. Returns (sim, run(load) -> stats)."""
+    from fenics_constitutive_tpu_torch.models import VonMises3D
+    from fenics_constitutive_tpu_torch.solver import PackedSimulation
+
+    sim = PackedSimulation(VonMises3D(MAT), V, bcs, Q_P2, device=CARD, dtype=dtype,
+                           preconditioner="vcycle", mg_options={"fused_smoothing": True},
+                           max_newton=1, newton_rtol=0.0, newton_atol=0.0, **P2_CG)
+
+    def run(load):
+        bcs[1].value = load
+        sim.solve()
+        return sim.last_stats
+
+    return sim, run
+
+
+def phase_p2_box(results: dict) -> dict:
+    """Phase 19: the P2 lattice box of scripts/bench_p2.py on the card."""
+    from fenics_constitutive_tpu_torch.models import Constraint, VonMises3D
+    from fenics_constitutive_tpu_torch.ops import (
+        IsotropicTangent,
+        LatticeGeometry,
+        build_packed_geometry,
+    )
+    from fenics_constitutive_tpu_torch.solver import PackedSimulation, build_packed_problem
+    from fenics_constitutive_tpu_torch.solver.multigrid import refined_p1_geometry
+
+    V, bcs = p2_box(N_P2)
+    law = VonMises3D(MAT)
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    geos, _, _ = build_packed_problem(V, law, Q_P2, device=CARD, dtype=f32)
+    geo = geos[0]
+    setup_s = time.perf_counter() - t0
+    if not isinstance(geo, LatticeGeometry) or geo.engine != "lattice":
+        fail(f"the P2 box resolved to {type(geo).__name__}, not the lattice engine")
+    if (geo.N, V.ndofs) != (N_QP_P2, N_DOF_P2):
+        fail(f"the P2 box has {geo.N} QPs and {V.ndofs} dofs, expected {N_QP_P2} and {N_DOF_P2}")
+
+    # (a) the operator on a plastic tangent against the gather engine
+    t0 = time.perf_counter()
+    gat = build_packed_geometry(V, Q_P2, Constraint.FULL, None, device=CARD, dtype=f32)
+    gather_s = time.perf_counter() - t0
+    rng = np.random.default_rng(5)
+    u = torch.as_tensor(rng.normal(size=V.ndofs) * 2e-3, dtype=f32, device=CARD)
+    v = torch.as_tensor(rng.normal(size=V.ndofs), dtype=f32, device=CARD)
+    zeros = torch.zeros(geo.qp_shape(6), dtype=f32, device=CARD)
+    hist = {"eps_n": zeros.clone(), "alpha": torch.zeros(geo.qp_shape(1), dtype=f32, device=CARD)}
+    sig, tg, _ = law.evaluate_packed(0.0, 1.0, geo.strain(u), zeros, hist)
+    if float(tg.gamma.abs().max()) <= 0:
+        fail("the P2 operator check's tangent is not plastic anywhere")
+    flat = IsotropicTangent(kappa=tg.kappa, beta=tg.beta.reshape(-1),
+                            gamma=tg.gamma.reshape(-1), n=tg.n.reshape(6, -1))
+    pairs = {"strain": (geo.strain(u), gat.strain(u).reshape(geo.qp_shape(6))),
+             "residual": (geo.residual(sig), gat.residual(sig.reshape(6, -1))),
+             "matvec": (geo.matvec(v, tg), gat.matvec(v, flat))}
+    parts = []
+    for name, (lat, ref) in pairs.items():
+        rel = normwise(lat, ref)[1]
+        parts.append(f"{name} rel {rel:.1e}")
+        if not torch.isfinite(lat).all() or rel > TOL_P2_OP:
+            fail(f"the lattice {name} disagrees with the gather engine: rel {rel:.3e} > "
+                 f"{TOL_P2_OP:g}")
+    sig_gm = sig.contiguous()
+    if not torch.equal(geo.residual_gm(sig_gm), geo.residual_gm(sig_gm)):
+        fail("the lattice residual differs between two calls")
+    v_gm = geo.to_grid_major(v)
+    t = {"lattice strain": cuda_ms(lambda: geo.strain_gm(v_gm)),
+         "lattice residual": cuda_ms(lambda: geo.residual_gm(sig_gm)),
+         "lattice matvec": cuda_ms(lambda: geo.matvec_gm(v_gm, tg)),
+         "gather matvec": cuda_ms(lambda: gat.matvec(v, flat)),
+         "lattice matvec on the card": device_ms(lambda: geo.matvec_gm(v_gm, tg)),
+         "gather matvec on the card": device_ms(lambda: gat.matvec(v, flat))}
+    del gat, pairs
+    print(f"phase 19 P2 box {N_P2}^3 hex q{Q_P2} f32 ({N_QP_P2:,} QPs, {N_DOF_P2:,} dofs; lattice "
+          f"set-up {setup_s:.2f} s, gather engine {gather_s:.2f} s): lattice vs gather engine on a "
+          f"plastic tangent (tol {TOL_P2_OP:g}): " + ", ".join(parts) + "; residual bit-equal "
+          "across two calls; ms per apply: " + ", ".join(f"{k} {ms:.3f}" for k, ms in t.items()))
+
+    # K3 on the refined-P1 hierarchy that preconditions the P2 step, every
+    # chain and entry at the shapes the step gives them
+    parts = []
+    k3_hierarchy_checks(f"refined P1 {2 * N_P2 + 1}^3", lambda dtype: refined_p1_geometry(
+        V, Constraint.FULL, device=CARD, dtype=dtype)[0], torch.as_tensor(free_mask(V, bcs)),
+        results, parts, key="K3_p2")
+    print(f"phase 19 K3 on the refined-P1 hierarchy vs plain (tol f64 {TOL_F64:g}, f32 "
+          f"{TOL_F32_K1:g}; bit-equal across two launches): " + "; ".join(parts))
+
+    # (b) bench_p2's protocol: eager V-cycle, then PackedSimulation with K3
+    loads = [P2_LOAD] + [P2_LOAD * (1 + 1e-4 * k) for k in range(1, P2_STEPS + 1)]
+    line = []
+    mg_eager, run = p2_eager(V, bcs, f32)
+    run(loads[0])  # the first step: the first use of every op
+    reset_counts()
+    eager = p2_step_runs(run, loads[1:])
+    eager_counts = read_counts()
+    ref_eager = p2_step_runs(p2_eager(V, bcs, torch.float64)[1], loads[-1:])
+    sim, run = p2_fused(V, bcs, f32)
+    run(loads[0])  # the first step: the kernels' first launches
+    reset_counts()
+    fused = p2_step_runs(run, loads[1:])
+    counts = read_counts()
+    r = geo.to_grid_major(torch.as_tensor(rng.normal(size=V.ndofs), dtype=f32, device=CARD))
+    # the step's own V-cycle against its plain twin
+    rel_mg = {"f32": check_k3("P2 step V-cycle", lambda: sim._mg(r),
+                              lambda: sim._mg.fused_cycle.plain(r), f32, TOL_F32_K1)[1]}
+    vcycle = {"fused": cuda_ms(lambda: sim._mg(r), iters=10),
+              "fused on the card": device_ms(lambda: sim._mg(r), iters=10),
+              "eager V(2,2)": cuda_ms(lambda: mg_eager(r), iters=5)}
+    del sim, mg_eager
+    sim64, run64 = p2_fused(V, bcs, torch.float64)
+    ref_fused = p2_step_runs(run64, loads[-1:])
+    r64 = r.double()
+    rel_mg["f64"] = check_k3("P2 step V-cycle", lambda: sim64._mg(r64),
+                             lambda: sim64._mg.fused_cycle.plain(r64), torch.float64, TOL_F64)[1]
+    del sim64
+    for name, res, ref in (("eager", eager, ref_eager), ("fused (K3)", fused, ref_fused)):
+        ratio = res["r_norm"][-1] / ref["r_norm"][-1]
+        line.append(f"{name} {res['ms']:.3f} ms/step, CG iterations {res['cg']}, r/r0 "
+                    + "/".join(f"{x:.1e}" for x in res["rel"]) + f", settled r_norm "
+                    f"{res['r_norm'][-1]:.5g} vs f64 {ref['r_norm'][-1]:.5g} (ratio {ratio:.4f}, "
+                    f"f64 CG {ref['cg'][-1]})")
+        if not (np.isfinite(res["r_norm"]).all() and max(ratio, 1 / ratio) <= R_NORM_ENVELOPE):
+            fail(f"phase 19 {name}: settled r_norm {res['r_norm'][-1]:.5g} is not within "
+                 f"{R_NORM_ENVELOPE}x of the float64 step's {ref['r_norm'][-1]:.5g}")
+    per_step = {k: v / P2_STEPS for k, v in counts.items()}
+    print(f"phase 19 bench_p2 protocol (one Newton iteration from the zero state, CG rtol "
+          f"{P2_CG['cg_rtol']:g}, maxiter {P2_CG['cg_maxiter']}; {P2_STEPS} timed steps at "
+          f"{P2_LOAD} (1 + 1e-4 k)): " + "; ".join(line) + f"; launches per fused step K1 "
+          f"{per_step['K1']:g} K2 {per_step['K2']:g} K3 {per_step['K3']:g} ("
+          + ", ".join(f"{kind} {per_step['K3_' + kind]:g}" for kind in K3_ENTRIES)
+          + f"); eager run K1 {eager_counts['K1']} K2 {eager_counts['K2']} K3 "
+          f"{eager_counts['K3']}; the step's fused V-cycle vs its plain twin, bit-equal across "
+          f"two launches: f32 rel {rel_mg['f32']:.1e}, f64 {rel_mg['f64']:.1e}; V-cycle ms on "
+          f"the {2 * N_P2 + 1}^3 refined grid: "
+          + ", ".join(f"{k} {ms:.3f}" for k, ms in vcycle.items()))
+    if counts["K3"] <= 0 or counts["K1"] or counts["K2"] or any(eager_counts.values()):
+        fail(f"phase 19 launches: fused {counts}, eager {eager_counts}; expected K3 in the "
+             "fused run only and never K1 or K2")
+
+    # (c) PackedSimulation converges: 3 load steps of 0.0004 k, float64, fused V-cycle
+    sim = PackedSimulation(law, V, bcs, Q_P2, device=CARD, dtype=torch.float64,
+                           preconditioner="vcycle", mg_options={"fused_smoothing": True})
+    report = []
+    for k in (1, 2, 3):
+        bcs[1].value = STRETCH_STEP * k
+        t0 = time.perf_counter()
+        niter, converged = sim.solve()
+        torch.cuda.synchronize()
+        st = sim.last_stats
+        report.append(f"step {k}: newton {niter}, cg_last {int(st['cg_iters_last'])}, r "
+                      f"{st['r_norm']:.3e}, {time.perf_counter() - t0:.2f} s")
+        if not converged:
+            fail(f"phase 19 PackedSimulation step {k} on the P2 box did not converge: {st}")
+    stress = sim.stress
+    if stress.shape != (N_P2**3, geo.n_qp, 6) or not np.isfinite(stress).all():
+        fail(f"phase 19 PackedSimulation stress has shape {stress.shape} or non-finite values")
+    print(f"phase 19 PackedSimulation P2 {N_P2}^3 f64 ({sim.engine} + {sim.preconditioner}, "
+          "K3 V-cycle on the refined P1 grid): " + "; ".join(report))
+    results["p2_box"] = {"eager_ms": eager["ms"], "fused_ms": fused["ms"]}
+    return {"counts": counts}
+
+
+def k3_hierarchy_checks(label: str, geo, free, results: dict | None, parts: list,
+                        key: str = "K3_2d"):
+    """K3 against its twins on every level of the hierarchy of geo(dtype)
+    (every chain; every fused V-cycle entry; the whole cycle, bit-equal
+    across two launches) and the fused V-cycle against the eager one, in
+    float64 and float32, with the V(3,3), nu_coarse 2 and direct coarsest
+    solve of PackedSimulation's "vcycle". Appends to parts; with results,
+    keeps the float32 entries' times, errors and bound under
+    ``<key>_<kind>``."""
+    from fenics_constitutive_tpu_torch.solver import build_multigrid
+
+    for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32_K1)):
+        g = geo(dtype)
+
+        def mg_of(**kw):
+            return build_multigrid(g, MU, KAPPA, free, device=CARD, dtype=dtype, nu=3,
+                                   nu_coarse=2, **kw)
+
+        mg = mg_of(coarse_direct=True, fused_smoothing=True)
+        mg_coarse = mg_of(coarse_direct=False, fused_smoothing=True)
+        mg_plain = mg_of(coarse_direct=True)
+        rng = np.random.default_rng(3)
+        worst = 0.0
+        for _, chain in k3_chains(mg, mg_coarse):
+            n = chain.inv_d.numel()
+            fr = (chain.inv_d != 0).to(dtype)
+            b = torch.as_tensor(rng.normal(size=n), dtype=dtype, device=CARD) * fr
+            x = torch.as_tensor(rng.normal(size=n) * 1e-5, dtype=dtype, device=CARD) * fr
+            args = (b,) if chain.zero_start else (x, b)
+            worst = max(worst, check_k3(f"{label} chain", lambda: chain(*args),
+                                        lambda: chain.plain(*args), dtype, tol)[1])
+        r = torch.as_tensor(np.random.default_rng(2).normal(size=g.vs * g.M), dtype=dtype,
+                            device=CARD)
+        fc = mg.fused_cycle
+        agg = {}
+        for name, kind, kernel, plain, cost in k3_entries(fc, r):
+            err, rel = check_k3(f"{label} {name}", kernel, plain, dtype, tol)
+            worst = max(worst, rel)
+            if results is not None and dtype == torch.float32:
+                a = agg.setdefault(kind, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                          "device_ms": 0.0, "bytes": 0.0, "flops": 0.0})
+                a["max_abs_err"] = max(a["max_abs_err"], err)
+                a["ms"] += cuda_ms(kernel)
+                a["device_ms"] += device_ms(kernel, floor_ms=bound_ms(*cost, dtype)[0])
+                a["plain_ms"] += cuda_ms(plain)
+                a["bytes"] += cost[0]
+                a["flops"] += cost[1]
+        _, rel_c = check_k3(f"{label} V-cycle", lambda: mg(r), lambda: fc.plain(r), dtype, tol)
+        z_f, z_p = mg(r), mg_plain(r)
+        rel_u = normwise(z_f, z_p)[1]
+        part = (f"{label} {str(dtype)[6:]} levels {[ng for ng in fc.node_grids]} tail from "
+                f"{fc.tail_start(r.device)}: chains and entries rel <= {worst:.1e}, V-cycle vs "
+                f"twin {rel_c:.1e}, vs eager {rel_u:.1e}")
+        if rel_u > tol:
+            fail(f"the fused V-cycle on {label} {dtype} disagrees with the eager one: "
+                 f"{rel_u:.3e}")
+        if dtype == torch.float32:
+            part += (f", {cuda_ms(lambda: mg(r), iters=10):.3f} ms fused vs "
+                     f"{cuda_ms(lambda: mg_plain(r), iters=10):.3f} ms eager")
+            for kind, a in agg.items():
+                bound, by = bound_ms(a.pop("bytes"), a.pop("flops"), dtype)
+                results[f"{key}_{kind}"] = {**a, "bound_ms": bound, "bound_by": by}
+                part += (f"; {kind} {a['ms']:.4f} ms (on the card {a['device_ms']:.4f}) vs plain "
+                         f"{a['plain_ms']:.4f}, bound {bound:.6f} ({by})")
+        parts.append(part)
+
+
+def phase_2d(results: dict) -> dict:
+    """Phase 20: K3 on quad levels, and the 2D boxes through their entry point."""
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace, unit_square_mesh
+    from fenics_constitutive_tpu_torch.models import Constraint, LinearElasticityModel
+    from fenics_constitutive_tpu_torch.ops.structured import (
+        build_structured_geometry,
+        build_structured_tet_geometry,
+    )
+    from fenics_constitutive_tpu_torch.solver import PackedSimulation
+
+    parts = []
+    for label, cell, build, res in (
+        (f"quad {N_QUAD}^2", "quad", build_structured_geometry, results),
+        (f"Kuhn triangles {N_QUAD}^2", "triangle", build_structured_tet_geometry, None),
+    ):
+        V = FunctionSpace(unit_square_mesh(N_QUAD, N_QUAD, cell), 1, 2)
+        free = torch.as_tensor(free_mask(V, box_bcs_2d(V)))
+        geo = lambda dtype, V=V, build=build: build(  # noqa: E731
+            V, 2, Constraint.PLANE_STRAIN, device=CARD, dtype=dtype)
+        if cell == "quad" and geo(torch.float32).N != 4 * N_QUAD**2:
+            fail("the quad box does not have 4 QPs a cell")
+        k3_hierarchy_checks(label, geo, free, res, parts)
+    print("phase 20 K3 on 2D levels vs plain (tol f64 "
+          f"{TOL_F64:g}, f32 {TOL_F32_K1:g}; bit-equal across two launches): " + "; ".join(parts))
+
+    from fenics_constitutive_tpu_torch.fem import unit_square_mesh as usm
+
+    V = FunctionSpace(usm(N_QUAD_P2, N_QUAD_P2, "quad"), 2, 2)
+    bcs = box_bcs_2d(V)
+    t0 = time.perf_counter()
+    # plane-strain linear elasticity with the bench material's moduli.
+    # (PlaneStrainFrom3D(VonMises3D) does not converge a first step of
+    # 0.0004 from 64^2 P2 cells on, in either package: the first Newton
+    # iterate strains the last cell layer deep into the saturated hardening
+    # range, whose plane-strain tangent is SPD but nearly singular, and CG
+    # stops at its 1000-iteration cap.)
+    E = 9.0 * KAPPA * MU / (3.0 * KAPPA + MU)
+    nu = (3.0 * KAPPA - 2.0 * MU) / (2.0 * (3.0 * KAPPA + MU))
+    sim = PackedSimulation(LinearElasticityModel({"E": E, "nu": nu}, Constraint.PLANE_STRAIN),
+                           V, bcs, Q_P2, device=CARD, dtype=torch.float64,
+                           preconditioner="vcycle", mg_options={"fused_smoothing": True})
+    build_s = time.perf_counter() - t0
+    if sim.engine != "lattice" or sim._geos[0].N != 9 * N_QUAD_P2**2:
+        fail(f"the P2 quad box resolved to {sim.engine} with {sim._geos[0].N} QPs")
+    reset_counts()
+    report = []
+    for k in (1, 2, 3):
+        bcs[1].value = STRETCH_STEP * k
+        t0 = time.perf_counter()
+        niter, converged = sim.solve()
+        torch.cuda.synchronize()
+        st = sim.last_stats
+        report.append(f"step {k}: newton {niter}, cg_last {int(st['cg_iters_last'])}, r "
+                      f"{st['r_norm']:.3e}, {time.perf_counter() - t0:.2f} s")
+        if not converged:
+            fail(f"phase 20 PackedSimulation step {k} on the P2 quad box did not converge: {st}")
+    counts = read_counts()
+    stress = sim.stress
+    if stress.shape != (N_QUAD_P2**2, 9, 4) or not np.isfinite(stress).all():
+        fail(f"phase 20 PackedSimulation stress has shape {stress.shape} or non-finite values")
+    print(f"phase 20 PackedSimulation P2 quad {N_QUAD_P2}^2 q{Q_P2} f64 "
+          f"LinearElasticityModel PLANE_STRAIN ({sim.engine} + {sim.preconditioner}, fused "
+          f"refined-P1 V-cycle, build {build_s:.1f} s): " + "; ".join(report)
+          + f"; launches K1 {counts['K1']} K2 {counts['K2']} K3 {counts['K3']} ("
+          + ", ".join(f"{kind} {counts['K3_' + kind]}" for kind in K3_ENTRIES) + ")")
+    if counts["K3"] <= 0 or counts["K1"] or counts["K2"]:
+        fail(f"phase 20 launches {counts}: expected K3 and never K1 or K2")
+    return {"counts": counts}
+
+
+def phase_p2_imported(results: dict, workdir: Path) -> dict:
+    """Phase 21: P2 on an imported tet mesh, the windowed engine with the AMG."""
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace, read_gmsh, write_gmsh
+    from fenics_constitutive_tpu_torch.models import VonMises3D
+    from fenics_constitutive_tpu_torch.ops import cuda_window
+    from fenics_constitutive_tpu_torch.solver import PackedSimulation
+
+    t0 = time.perf_counter()
+    written = imported_mesh(N_P2_TET)
+    path = workdir / f"tet{N_P2_TET}.msh"
+    write_gmsh(path, written)
+    mesh = read_gmsh(path)
+    io_s = time.perf_counter() - t0
+    if not (np.array_equal(mesh.cells, written.cells)
+            and np.array_equal(mesh.nodes, written.nodes)):
+        fail("read_gmsh did not give back the mesh write_gmsh wrote")
+    V = FunctionSpace(mesh, 2, 3)
+    bcs = bench_bcs(V)
+    t0 = time.perf_counter()
+    sim = PackedSimulation(VonMises3D(MAT), V, bcs, 2, device=CARD, dtype=torch.float32,
+                           mg_options={"nu": 3}, newton_rtol=1e-6, newton_atol=1e-3,
+                           cg_rtol=1e-5, cg_maxiter=2000)
+    build_s = time.perf_counter() - t0
+    geos, models, amg = sim._geos, sim._models, sim._mg
+    geo = geos[0]
+    if (sim.engine, sim.preconditioner) != ("windowed", "amg"):
+        fail(f"the P2 tet mesh resolved to {sim.engine} + {sim.preconditioner}")
+    if geo.n_cells * geo.n_qp != N_QP_P2_TET or geo.n_nodes != 10:
+        fail(f"the P2 tet plan has {geo.n_cells * geo.n_qp} QPs and {geo.n_nodes} nodes a cell")
+    state0 = sim.state.clone()
+
+    # K4 and K5 on the P2 plan, K6 on every AMG level
+    ex = geo.ex
+    line = [f"plan T={ex.T} B={ex.B} Rn={ex.Rn} M_pad={ex.M_pad} N={geo.N}"]
+    for dtype in (torch.float64, torch.float32):
+        rng = np.random.default_rng(7)
+        u2 = torch.as_tensor(rng.normal(size=(3, ex.M_pad)), dtype=dtype, device=CARD)
+        f = torch.as_tensor(rng.normal(size=(ex.B, 3, ex.Rn)), dtype=dtype, device=CARD)
+        g_k = cuda_window.windowed_gather(ex, u2)
+        y1, y2 = cuda_window.windowed_scatter(ex, f), cuda_window.windowed_scatter(ex, f)
+        if not torch.equal(g_k, cuda_window.gather_plain(ex, u2)):
+            fail(f"K4 {dtype} on the P2 plan is not bit-equal to its plain version")
+        rel = normwise(y1, cuda_window.scatter_plain(ex, f))[1]
+        if not torch.equal(y1, y2) or rel > TOL_K5[dtype]:
+            fail(f"K5 {dtype} on the P2 plan: repeatable {torch.equal(y1, y2)}, rel {rel:.3e}")
+        line.append(f"{str(dtype)[6:]} K4 bit-equal, K5 rel {rel:.1e}")
+    worst = 0.0
+    for lvl in range(amg.n_levels - 1):
+        for name in ("A", "P", "R"):
+            w32 = getattr(amg, name + "_win")[lvl]
+            for w, dtype in ((w32, torch.float32), (copy.deepcopy(w32).double(), torch.float64)):
+                x = torch.as_tensor(np.random.default_rng(11).normal(size=w.bc * w.NC_pad),
+                                    dtype=dtype, device=CARD)
+                y_k = cuda_window.windowed_bsr_matvec(w, x)
+                y_k2 = cuda_window.windowed_bsr_matvec(w, x)
+                rel = normwise(y_k, cuda_window.bsr_matvec_plain(w, x))[1]
+                if not torch.equal(y_k, y_k2) or rel > TOL_K6[dtype]:
+                    fail(f"K6 {name}{lvl} {dtype} on the P2 AMG: rel {rel:.3e}")
+                worst = max(worst, rel)
+    line.append(f"K6 on {3 * (amg.n_levels - 1)} operators of {amg.n_levels} levels rel <= "
+                f"{worst:.1e} (f32 select_passes {amg.A_win[0].select_passes}, f64)")
+
+    # phase 9's protocol: fixed-F PCG with the AMG V(3,3), held to fixed-3F and 6F
+    pc = amg.wrap_internal(ex.M_pad)
+    args = tet_args(geo, bcs, torch.float32, CARD)
+
+    step = tet_step(geos, pc, TET_FIXED)
+    st = state0
+    for k in (0.5, 1.0, 1.5, 2.0):  # warm-up, driven past yield
+        st, _ = step(models, st, args[0], args[1] * k, *args[2:])
+    torch.cuda.synchronize()
+    K = 10
+    scales = [2.0 + 0.05 * (i + 1) for i in range(K)]
+    for key in cuda_window.launches:
+        cuda_window.launches[key] = 0
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    out_state, probes = run_schedule(step, models, st.clone(), args, scales)
+    ev1.record()
+    ev1.synchronize()
+    counts = dict(cuda_window.launches)
+    ms_step = ev0.elapsed_time(ev1) / K
+    if not (torch.isfinite(probes).all() and torch.isfinite(out_state.u).all()):
+        fail("the P2 tet run produced non-finite values")
+    r_settled = float(probes[-1])
+    refs = [float(run_schedule(tet_step(geos, pc, fk), models, st.clone(), args, scales)[1][-1])
+            for fk in TET_VERIFY]
+    bs_g, bs_a = geo.build_seconds, amg.build_seconds
+    print(f"phase 21 P2 on the imported {N_P2_TET}^3 tet mesh ({mesh.num_cells:,} tets, "
+          f"{V.n_dof_nodes:,} dof nodes, {N_QP_P2_TET:,} QPs) f32, windowed + AMG V(3,3): "
+          + "; ".join(line) + f"; fixed-{TET_FIXED} PCG {ms_step:.3f} ms/step over {K} steps, "
+          f"settled r_norm {r_settled:.4f} vs fixed-{TET_VERIFY[0]} {refs[0]:.4f} and "
+          f"fixed-{TET_VERIFY[1]} {refs[1]:.4f} (envelope {R_NORM_ENVELOPE} each); launches K4 "
+          f"{counts['gather']} K5 {counts['scatter']} K6 {counts['bsr_matvec']}; set-up s: gmsh "
+          f"write+read {io_s:.2f}, RCM {bs_g['rcm']:.2f}, plan {bs_g['plan']:.2f}, geometry "
+          f"{bs_g['geometry']:.2f}, AMG host build {bs_a['hierarchy']:.2f}, freeze "
+          f"{bs_a['freeze']:.2f}, upload {bs_a['upload']:.2f} (PackedSimulation {build_s:.2f}); "
+          f"AMG {amg.n_levels} levels")
+    if not (r_settled <= R_NORM_ENVELOPE * refs[0] and refs[0] <= R_NORM_ENVELOPE * refs[1]):
+        fail(f"phase 21 settled r_norm {r_settled:.4f} is outside the {R_NORM_ENVELOPE} "
+             f"envelopes of the deep re-runs {refs}")
+    if min(counts.values()) <= 0:
+        fail(f"phase 21 launches {counts}: expected K4, K5 and K6")
+
+    report = []
+    for k in (1, 2):
+        bcs[1].value = STRETCH_STEP * k
+        niter, converged = sim.solve()
+        report.append(f"step {k}: newton {niter}, r {sim.last_stats['r_norm']:.3e}")
+        if not converged:
+            fail(f"phase 21 PackedSimulation step {k} did not converge: {sim.last_stats}")
+    if sim.stress.shape != (mesh.num_cells, 4, 6) or not np.isfinite(sim.stress).all():
+        fail("phase 21 PackedSimulation stress has the wrong shape or non-finite values")
+    print("phase 21 PackedSimulation on the P2 tet mesh (windowed + AMG): " + "; ".join(report))
+    results["p2_tet"] = {"ms_step": ms_step}
+    return counts
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2401,6 +2953,10 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         gather_counts = timed("phase 17", phase_gather, tet, Path(tmp))
     timed("phase 18", phase_small)
+    p2_box_run = timed("phase 19", phase_p2_box, results)
+    run_2d = timed("phase 20", phase_2d, results)
+    with tempfile.TemporaryDirectory() as tmp:
+        p2_tet = timed("phase 21", phase_p2_imported, results, Path(tmp))
     print(f"profiler: {PROFILER_MISSES['profiles']} short profiles taken again, "
           f"{PROFILER_MISSES['fallbacks']} measures by the fallback (gated_ms, aten_device_ops)")
     counts = box_bench["counts"]
@@ -2415,20 +2971,24 @@ def main() -> None:
         *({"name": name, "route": "cuda", "source": src + "smoother.cu",
            "replaces": "fenics_constitutive_tpu/ops/pallas_smoother.py:38",
            "launches": fused_bench["counts"][f"K3_{kind}"],
-           "launches_tet_run": tet_box["counts"][f"K3_{kind}"], **results[f"K3_{kind}"]}
+           "launches_tet_run": tet_box["counts"][f"K3_{kind}"],
+           "launches_p2_run": p2_box_run["counts"][f"K3_{kind}"],
+           "launches_2d_run": run_2d["counts"][f"K3_{kind}"], **results[f"K3_{kind}"],
+           "p2_levels": results[f"K3_p2_{kind}"], "quad_levels": results[f"K3_2d_{kind}"]}
           for kind, name in K3_ENTRIES.items()),
         {"name": "windowed_gather", "route": "cuda", "source": src + "window.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:89",
          "launches": tet_counts["gather"], "launches_two_law_run": two_law["gather"],
-         **results["K4"]},
+         "launches_p2_run": p2_tet["gather"], **results["K4"]},
         {"name": "windowed_scatter", "route": "cuda", "source": src + "window.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:153",
          "launches": tet_counts["scatter"], "launches_two_law_run": two_law["scatter"],
-         **results["K5"]},
+         "launches_p2_run": p2_tet["scatter"], **results["K5"]},
         {"name": "windowed_bsr_matvec", "route": "cuda", "source": src + "window.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:235",
          "launches": tet_counts["bsr_matvec"], "launches_two_law_run": two_law["bsr_matvec"],
-         "launches_gather_run": gather_counts["bsr_matvec"], **results["K6"]},
+         "launches_gather_run": gather_counts["bsr_matvec"],
+         "launches_p2_run": p2_tet["bsr_matvec"], **results["K6"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -1,15 +1,19 @@
-// Damped-Jacobi smoothing chains of the multigrid levels (structured hex
-// grids), with the V-cycle's transfers fused in.
+// Damped-Jacobi smoothing chains of the multigrid levels (structured hex and
+// quad grids), with the V-cycle's transfers fused in.
 //
 // Replaces the TPU kernel fenics_constitutive_tpu/ops/pallas_smoother.py::
 // build_fused_smoother. A level's chain is nu sweeps
 //   x <- x + inv_d * (b - A x)
 // of the constant-coefficient elastic operator A, optionally followed by the
 // free-masked residual r = [inv_d != 0] * (b - A x). A is applied per cell
-// origin c with the constant element matrix Ke [24, 24] on the masked corner
-// dofs and summed onto the nodes:
-//   (A x)[j, n] = sum_{a=0..7} sum_{col} Ke[a*3+j, col] * mask[c] * x[col @ c],
+// origin c with the constant element matrix Ke [24, 24] (3D: 8 corners, 3
+// components; 2D: [8, 8], 4 corners, 2 components) on the masked corner dofs
+// and summed onto the nodes:
+//   (A x)[j, n] = sum_a sum_{col} Ke[a*vs+j, col] * mask[c] * x[col @ c],
 //   c = n - off_a, cells outside the cell grid contributing nothing.
+// Every kernel is a template on the dimension D (3: hex levels, 2: quad
+// levels); the 2D instances are the same code on a 9-point stencil of 2 x 2
+// blocks and 3^2 transfer weights, entered through the *_2d_* symbols.
 // b is read masked, [inv_d != 0] * b (inv_d is zero exactly at the Dirichlet
 // dofs), so no caller masks it first.
 //
@@ -50,7 +54,9 @@
 // pattern, the set of its 8 cells that exist with mask 1: a box has 27
 // patterns (interior, faces, edges, corners), assembled from Ke on the host
 // in float64, so every node runs the same code, 81 loads and 243
-// multiply-adds, against 192 and 576 for the 8-cell gather. (The wrapper
+// multiply-adds, against 192 and 576 for the 8-cell gather. (2D: the
+// 9-point stencil of 2 x 2 blocks of its 4 cells, 9 patterns on a box, 18
+// loads and 36 multiply-adds.) (The wrapper
 // takes cell masks of 0 and 1 only, the validity masks the engine builds.)
 // The coefficients are read from shared memory 16 bytes at a time. Every
 // sum is taken in a fixed order by the thread that owns the node: no
@@ -70,10 +76,10 @@ namespace cg = cooperative_groups;
 
 // one multigrid level's constant data (device pointers)
 struct FctLevel {
-  const void* invd;  // [3, M] damped inverse diagonal, 0 at Dirichlet dofs
+  const void* invd;  // [vs, M] damped inverse diagonal, 0 at Dirichlet dofs
   const void* pid;   // [M] uint8: the node's pattern of cells
-  const void* st;    // [patterns][3][84] stencils ([k][d][j], padded)
-  int n0, n1, n2;    // node grid, n = (i0 * n1 + i1) * n2 + i2
+  const void* st;    // [patterns][vs][stencil] stencils ([k][d][j], padded)
+  int n0, n1, n2;    // node grid, n = (i0 * n1 + i1) * n2 + i2 (2D: n2 = 1)
   int nu;            // sweeps of the level's chains
   int n_pat;         // patterns in st
 };
@@ -81,14 +87,14 @@ struct FctLevel {
 // one chain launch on a fine level
 struct FctChain {
   FctLevel lv;
-  const void* x;   // [3, M] start iterate (not read with zero_start)
-  const void* b;   // [3, M] right-hand side
-  const void* xc;  // [3, Mc] coarse correction (with prolong)
-  void* xout;      // [3, M] the chain's result
-  void* tmp;       // [3, M] ping-pong scratch (with 2 or more writes)
-  void* r;         // [3, M] the residual (with residual)
-  void* bc;        // [3, Mc] its restriction (with restrict_to)
-  int c0, c1, c2;  // coarse node grid
+  const void* x;   // [vs, M] start iterate (not read with zero_start)
+  const void* b;   // [vs, M] right-hand side
+  const void* xc;  // [vs, Mc] coarse correction (with prolong)
+  void* xout;      // [vs, M] the chain's result
+  void* tmp;       // [vs, M] ping-pong scratch (with 2 or more writes)
+  void* r;         // [vs, M] the residual (with residual)
+  void* bc;        // [vs, Mc] its restriction (with restrict_to)
+  int c0, c1, c2;  // coarse node grid (2D: c2 = 1)
   int zero_start, residual, prolong, restrict_to;
 };
 
@@ -98,17 +104,31 @@ constexpr int kMaxTail = 8;
 struct FctTail {
   FctLevel lv[kMaxTail];
   int n_levels;
-  const void* coarse_inv;  // [N, N], N = 3 M of the coarsest level, or null
-  const void* b;           // [3, M] right-hand side of the first level
-  void* xout;              // [3, M] its V-cycle result
+  const void* coarse_inv;  // [N, N], N = vs M of the coarsest level, or null
+  const void* b;           // [vs, M] right-hand side of the first level
+  void* xout;              // [vs, M] its V-cycle result
 };
 
 namespace {
 
-using fct::kVs;
-
-constexpr int kStencilK = 84;  // one component's [27][3] stencil values, padded
-constexpr int kStencilValues = kVs * kStencilK;  // one pattern's stencil
+// the sizes of a level of dimension D
+template <int D>
+struct Dim;
+template <>
+struct Dim<3> {
+  static constexpr int kVs = fct::kVs;  // components
+  static constexpr int kNb = 27;        // stencil neighbours
+  static constexpr int kStencilK = 84;  // one component's [27][3] values, padded
+};
+template <>
+struct Dim<2> {
+  static constexpr int kVs = 2;
+  static constexpr int kNb = 9;
+  static constexpr int kStencilK = 20;  // one component's [9][2] values, padded
+};
+// one pattern's stencil (a multiple of 16 bytes in either type)
+template <int D>
+constexpr int kStencilValues = Dim<D>::kVs * Dim<D>::kStencilK;
 
 // 16-byte vectors of the working type, for the stencils' coefficients
 template <typename T>
@@ -138,64 +158,104 @@ __device__ __forceinline__ Lv<T> view(const FctLevel& l) {
           l.n2, l.n0 * l.n1 * l.n2, l.nu};
 }
 
+// node n -> its grid coordinates (i0, i1, i2), the last axis fastest (2D:
+// (i0, i1) on the grid n0 x n1, i2 = 0)
+template <int D>
 __device__ __forceinline__ void coords(int n, int n1, int n2, int& i0, int& i1, int& i2) {
-  const int s0 = n1 * n2;
-  i0 = n / s0;
-  const int rem = n - i0 * s0;
-  i1 = rem / n2;
-  i2 = rem - i1 * n2;
+  if constexpr (D == 3) {
+    const int s0 = n1 * n2;
+    i0 = n / s0;
+    const int rem = n - i0 * s0;
+    i1 = rem / n2;
+    i2 = rem - i1 * n2;
+  } else {
+    i0 = n / n1;
+    i1 = n - i0 * n1;
+    i2 = 0;
+  }
 }
 
-// (A x) at the 3 dofs of node n = (i0, i1, i2), x in shared or global memory,
-// st (the stencils) in shared memory. A node of pattern p applies its
-// 27-point stencil st[p] [k][d][j]: one component k at a time, its 27
-// neighbour values are loaded together first (neighbours outside the grid
-// read 0), so the node waits for memory three times, not once per neighbour.
-template <typename T>
-__device__ __forceinline__ void apply_node(const Lv<T>& L, const T* st, const T* x, int n,
-                                           int i0, int i1, int i2, T (&acc)[kVs]) {
-  const int M = L.M, s1 = L.n2, s0 = L.n1 * L.n2;
-  acc[0] = acc[1] = acc[2] = T(0);
-  const bool lo0 = i0 > 0, lo1 = i1 > 0, lo2 = i2 > 0;
-  const bool hi0 = i0 < L.n0 - 1, hi1 = i1 < L.n1 - 1, hi2 = i2 < L.n2 - 1;
-  const T* c = st + __ldg(L.pid + n) * kStencilValues;
+// acc[j] += sum_d c[k][d][j] v[d] for one component k: the coefficients
+// q = d * vs + j of c (st[p] + k * kStencilK, 16-byte aligned) are read 16
+// bytes at a time
+template <typename T, int D>
+__device__ __forceinline__ void stencil_madd(const T* ck_, const T (&v)[Dim<D>::kNb],
+                                             T (&acc)[Dim<D>::kVs]) {
+  constexpr int kVs = Dim<D>::kVs, kNb = Dim<D>::kNb;
+  using V = typename Vec16<T>::type;
+  constexpr int kPer = sizeof(V) / sizeof(T);
+  const V* ck = reinterpret_cast<const V*>(ck_);
 #pragma unroll
-  for (int k = 0; k < kVs; ++k) {
-    T v[27];
+  for (int q = 0; q < (kNb * kVs + kPer - 1) / kPer; ++q) {
+    const V cv = ck[q];
+    const T* e = reinterpret_cast<const T*>(&cv);
 #pragma unroll
-    for (int d = 0; d < 27; ++d) {
-      const int d0 = d / 9 - 1, d1 = (d / 3) % 3 - 1, d2 = d % 3 - 1;
-      const bool in = (d0 >= 0 || lo0) && (d0 <= 0 || hi0) && (d1 >= 0 || lo1) &&
-                      (d1 <= 0 || hi1) && (d2 >= 0 || lo2) && (d2 <= 0 || hi2);
-      v[d] = in ? x[k * M + n + d0 * s0 + d1 * s1 + d2] : T(0);
+    for (int t = 0; t < kPer; ++t) {
+      const int i = q * kPer + t;
+      if (i < kNb * kVs) acc[i % kVs] += e[t] * v[i / kVs];
     }
-    // coefficient i = d * 3 + j, read 16 bytes at a time (ck is aligned)
-    using V = typename Vec16<T>::type;
-    constexpr int kPer = sizeof(V) / sizeof(T);
-    const V* ck = reinterpret_cast<const V*>(c + k * kStencilK);
+  }
+}
+
+// (A x) at the vs dofs of node n = (i0, i1, i2), x in shared or global
+// memory, st (the stencils) in shared memory. A node of pattern p applies its
+// 3^D-point stencil st[p] [k][d][j]: one component k at a time, its
+// neighbour values are loaded together first (neighbours outside the grid
+// read 0), so the node waits for memory vs times, not once per neighbour.
+template <typename T, int D>
+__device__ __forceinline__ void apply_node(const Lv<T>& L, const T* st, const T* x, int n,
+                                           int i0, int i1, int i2, T (&acc)[Dim<D>::kVs]) {
+  constexpr int kVs = Dim<D>::kVs, kNb = Dim<D>::kNb;
+  const int M = L.M;
 #pragma unroll
-    for (int q = 0; q < (27 * kVs + kPer - 1) / kPer; ++q) {
-      const V cv = ck[q];
-      const T* e = reinterpret_cast<const T*>(&cv);
+  for (int j = 0; j < kVs; ++j) acc[j] = T(0);
+  const T* c = st + __ldg(L.pid + n) * kStencilValues<D>;
+  if constexpr (D == 3) {
+    const int s1 = L.n2, s0 = L.n1 * L.n2;
+    const bool lo0 = i0 > 0, lo1 = i1 > 0, lo2 = i2 > 0;
+    const bool hi0 = i0 < L.n0 - 1, hi1 = i1 < L.n1 - 1, hi2 = i2 < L.n2 - 1;
 #pragma unroll
-      for (int t = 0; t < kPer; ++t) {
-        const int i = q * kPer + t;
-        if (i < 27 * kVs) acc[i % kVs] += e[t] * v[i / kVs];
+    for (int k = 0; k < kVs; ++k) {
+      T v[kNb];
+#pragma unroll
+      for (int d = 0; d < kNb; ++d) {
+        const int d0 = d / 9 - 1, d1 = (d / 3) % 3 - 1, d2 = d % 3 - 1;
+        const bool in = (d0 >= 0 || lo0) && (d0 <= 0 || hi0) && (d1 >= 0 || lo1) &&
+                        (d1 <= 0 || hi1) && (d2 >= 0 || lo2) && (d2 <= 0 || hi2);
+        v[d] = in ? x[k * M + n + d0 * s0 + d1 * s1 + d2] : T(0);
       }
+      stencil_madd<T, D>(c + k * Dim<D>::kStencilK, v, acc);
+    }
+  } else {
+    const int s0 = L.n1;
+    const bool lo0 = i0 > 0, lo1 = i1 > 0;
+    const bool hi0 = i0 < L.n0 - 1, hi1 = i1 < L.n1 - 1;
+#pragma unroll
+    for (int k = 0; k < kVs; ++k) {
+      T v[kNb];
+#pragma unroll
+      for (int d = 0; d < kNb; ++d) {
+        const int d0 = d / 3 - 1, d1 = d % 3 - 1;
+        const bool in = (d0 >= 0 || lo0) && (d0 <= 0 || hi0) && (d1 >= 0 || lo1) &&
+                        (d1 <= 0 || hi1);
+        v[d] = in ? x[k * M + n + d0 * s0 + d1] : T(0);
+      }
+      stencil_madd<T, D>(c + k * Dim<D>::kStencilK, v, acc);
     }
   }
 }
 
 // kResid = false: out = x + inv_d * (bm - A x)
 // kResid = true:  out = [inv_d != 0] * (bm - A x)
-template <typename T, bool kResid>
+template <typename T, int D, bool kResid>
 __device__ void sweep(const Lv<T>& L, const T* st, const T* x, const T* b,
                       T* out, int start, int stride) {
+  constexpr int kVs = Dim<D>::kVs;
   for (int n = start; n < L.M; n += stride) {
     int i0, i1, i2;
-    coords(n, L.n1, L.n2, i0, i1, i2);
+    coords<D>(n, L.n1, L.n2, i0, i1, i2);
     T acc[kVs];
-    apply_node(L, st, x, n, i0, i1, i2, acc);
+    apply_node<T, D>(L, st, x, n, i0, i1, i2, acc);
 #pragma unroll
     for (int j = 0; j < kVs; ++j) {
       const int i = j * L.M + n;
@@ -210,10 +270,10 @@ __device__ void sweep(const Lv<T>& L, const T* st, const T* x, const T* b,
   }
 }
 
-// trilinear prolongation of xc (coarse grid c0 x c1 x c2) at fine node
-// (i0, i1, i2), component k: fine 2i reads coarse i, fine 2i+1 reads
-// (i + (i+1)) / 2 with coarse nodes past the end read as 0
-template <typename T>
+// trilinear (2D: bilinear) prolongation of xc (coarse grid c0 x c1 x c2;
+// 2D: c0 x c1) at fine node (i0, i1, i2), component k: fine 2i reads coarse
+// i, fine 2i+1 reads (i + (i+1)) / 2 with coarse nodes past the end read as 0
+template <typename T, int D>
 __device__ __forceinline__ T prolong_at(const T* xc, int c0, int c1, int c2, int i0, int i1,
                                         int i2, int k) {
   const int ci[3] = {i0 >> 1, i1 >> 1, i2 >> 1};
@@ -222,49 +282,65 @@ __device__ __forceinline__ T prolong_at(const T* xc, int c0, int c1, int c2, int
   const T* base = xc + k * c0 * c1 * c2;
   T acc = T(0);
 #pragma unroll
-  for (int t = 0; t < 8; ++t) {
+  for (int t = 0; t < (1 << D); ++t) {
     int I[3];
     T w = T(1);
     bool ok = true;
 #pragma unroll
-    for (int ax = 0; ax < 3; ++ax) {
+    for (int ax = 0; ax < D; ++ax) {
       const int hi = (t >> ax) & 1;
       if (hi && !odd[ax]) ok = false;
       I[ax] = ci[ax] + hi;
       if (I[ax] >= cn[ax]) ok = false;
       if (odd[ax]) w *= T(0.5);
     }
-    if (ok) acc += w * base[(I[0] * c1 + I[1]) * c2 + I[2]];
+    if constexpr (D == 3) {
+      if (ok) acc += w * base[(I[0] * c1 + I[1]) * c2 + I[2]];
+    } else {
+      if (ok) acc += w * base[I[0] * c1 + I[1]];
+    }
   }
   return acc;
 }
 
-// restriction R = P^T of r (fine grid f0 x f1 x f2) at coarse node
-// (I0, I1, I2), component k: weights 1 at fine 2I and 1/2 at 2I -+ 1
-template <typename T>
+// restriction R = P^T of r (fine grid f0 x f1 x f2; 2D: f0 x f1) at coarse
+// node (I0, I1, I2), component k: weights 1 at fine 2I and 1/2 at 2I -+ 1
+template <typename T, int D>
 __device__ __forceinline__ T restrict_at(const T* r, int f0, int f1, int f2, int I0, int I1,
                                          int I2, int k) {
   const T* base = r + k * f0 * f1 * f2;
   T acc = T(0);
+  if constexpr (D == 3) {
 #pragma unroll
-  for (int d = 0; d < 27; ++d) {
-    const int d0 = d / 9 - 1, d1 = (d / 3) % 3 - 1, d2 = d % 3 - 1;
-    const int a = 2 * I0 + d0, b = 2 * I1 + d1, c = 2 * I2 + d2;
-    if (a < 0 || b < 0 || c < 0 || a >= f0 || b >= f1 || c >= f2) continue;
-    const T w = (d0 ? T(0.5) : T(1)) * (d1 ? T(0.5) : T(1)) * (d2 ? T(0.5) : T(1));
-    acc += w * base[(a * f1 + b) * f2 + c];
+    for (int d = 0; d < 27; ++d) {
+      const int d0 = d / 9 - 1, d1 = (d / 3) % 3 - 1, d2 = d % 3 - 1;
+      const int a = 2 * I0 + d0, b = 2 * I1 + d1, c = 2 * I2 + d2;
+      if (a < 0 || b < 0 || c < 0 || a >= f0 || b >= f1 || c >= f2) continue;
+      const T w = (d0 ? T(0.5) : T(1)) * (d1 ? T(0.5) : T(1)) * (d2 ? T(0.5) : T(1));
+      acc += w * base[(a * f1 + b) * f2 + c];
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < 9; ++d) {
+      const int d0 = d / 3 - 1, d1 = d % 3 - 1;
+      const int a = 2 * I0 + d0, b = 2 * I1 + d1;
+      if (a < 0 || b < 0 || a >= f0 || b >= f1) continue;
+      const T w = (d0 ? T(0.5) : T(1)) * (d1 ? T(0.5) : T(1));
+      acc += w * base[a * f1 + b];
+    }
   }
   return acc;
 }
 
 // first write of a chain: zero start: inv_d * bm (nu >= 1) or 0; else
 // x + [inv_d != 0] * P xc (with xc) or x
-template <typename T>
+template <typename T, int D>
 __device__ void start(const Lv<T>& L, const T* x, const T* b, const T* xc, int c0, int c1,
                       int c2, bool zero_start, T* out, int first, int stride) {
+  constexpr int kVs = Dim<D>::kVs;
   for (int n = first; n < L.M; n += stride) {
     int i0 = 0, i1 = 0, i2 = 0;
-    if (xc != nullptr) coords(n, L.n1, L.n2, i0, i1, i2);
+    if (xc != nullptr) coords<D>(n, L.n1, L.n2, i0, i1, i2);
 #pragma unroll
     for (int j = 0; j < kVs; ++j) {
       const int i = j * L.M + n;
@@ -274,49 +350,51 @@ __device__ void start(const Lv<T>& L, const T* x, const T* b, const T* xc, int c
         v = L.nu >= 1 && d != T(0) ? d * b[i] : T(0);
       } else {
         v = x[i];
-        if (xc != nullptr && d != T(0)) v += prolong_at(xc, c0, c1, c2, i0, i1, i2, j);
+        if (xc != nullptr && d != T(0)) v += prolong_at<T, D>(xc, c0, c1, c2, i0, i1, i2, j);
       }
       out[i] = v;
     }
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __device__ void restrict_all(const T* r, int f0, int f1, int f2, T* bc, int c0, int c1, int c2,
                              int first, int stride) {
   const int Mc = c0 * c1 * c2;
   for (int nc = first; nc < Mc; nc += stride) {
     int I0, I1, I2;
-    coords(nc, c1, c2, I0, I1, I2);
+    coords<D>(nc, c1, c2, I0, I1, I2);
 #pragma unroll
-    for (int k = 0; k < kVs; ++k) bc[k * Mc + nc] = restrict_at(r, f0, f1, f2, I0, I1, I2, k);
+    for (int k = 0; k < Dim<D>::kVs; ++k) {
+      bc[k * Mc + nc] = restrict_at<T, D>(r, f0, f1, f2, I0, I1, I2, k);
+    }
   }
 }
 
 // A chain: the first write, then the sweeps, each phase behind sync(). The
 // writes alternate between tmp and xout so that the last one lands in xout.
-template <typename T, typename Sync>
+template <typename T, int D, typename Sync>
 __device__ void run_chain(const Lv<T>& L, const T* st, const T* x, const T* b,
                           const T* xc, int c0, int c1, int c2, bool zero_start, T* xout,
                           T* tmp, int first, int stride, Sync sync) {
   const int sweeps = zero_start ? (L.nu > 1 ? L.nu - 1 : 0) : L.nu;
   T* cur = (sweeps & 1) ? tmp : xout;
-  start(L, x, b, xc, c0, c1, c2, zero_start, cur, first, stride);
+  start<T, D>(L, x, b, xc, c0, c1, c2, zero_start, cur, first, stride);
   for (int s = 1; s <= sweeps; ++s) {
     sync();
     T* nxt = ((sweeps - s) & 1) ? tmp : xout;
-    sweep<T, false>(L, st, cur, b, nxt, first, stride);
+    sweep<T, D, false>(L, st, cur, b, nxt, first, stride);
     cur = nxt;
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kChainThreads, 4) chain_kernel(FctChain a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* st = reinterpret_cast<T*>(smem_raw);
   {
     const T* g = static_cast<const T*>(a.lv.st);
-    for (int i = threadIdx.x; i < a.lv.n_pat * kStencilValues; i += blockDim.x) st[i] = g[i];
+    for (int i = threadIdx.x; i < a.lv.n_pat * kStencilValues<D>; i += blockDim.x) st[i] = g[i];
   }
   __syncthreads();
   cg::grid_group grid = cg::this_grid();
@@ -325,27 +403,30 @@ __global__ void __launch_bounds__(kChainThreads, 4) chain_kernel(FctChain a) {
   const int stride = gridDim.x * blockDim.x;
   const T* b = static_cast<const T*>(a.b);
   T* xout = static_cast<T*>(a.xout);
-  run_chain(L, st, static_cast<const T*>(a.x), b,
-            a.prolong ? static_cast<const T*>(a.xc) : nullptr, a.c0, a.c1, a.c2,
-            a.zero_start != 0, xout, static_cast<T*>(a.tmp), first, stride,
-            [&] { grid.sync(); });
+  run_chain<T, D>(L, st, static_cast<const T*>(a.x), b,
+                  a.prolong ? static_cast<const T*>(a.xc) : nullptr, a.c0, a.c1, a.c2,
+                  a.zero_start != 0, xout, static_cast<T*>(a.tmp), first, stride,
+                  [&] { grid.sync(); });
   if (!a.residual) return;
   grid.sync();
   T* r = static_cast<T*>(a.r);
-  sweep<T, true>(L, st, xout, b, r, first, stride);
+  sweep<T, D, true>(L, st, xout, b, r, first, stride);
   if (!a.restrict_to) return;
   grid.sync();
-  restrict_all(r, L.n0, L.n1, L.n2, static_cast<T*>(a.bc), a.c0, a.c1, a.c2, first, stride);
+  restrict_all<T, D>(r, L.n0, L.n1, L.n2, static_cast<T*>(a.bc), a.c0, a.c1, a.c2, first,
+                     stride);
 }
 
 // shared memory of one tail level: its stencils, and x, b and a scratch
-// vector of 3 M values
+// vector of vs M values
+template <int D>
 __host__ __device__ constexpr int tail_level_values(int M, int n_pat) {
-  return 3 * kVs * M + n_pat * kStencilValues;
+  return 3 * Dim<D>::kVs * M + n_pat * kStencilValues<D>;
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kTailThreads) tail_kernel(FctTail a) {
+  constexpr int kVs = Dim<D>::kVs;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // the levels' views and their place in shared memory, one copy per block
   __shared__ Lv<T> sL[kMaxTail];
@@ -363,7 +444,7 @@ __global__ void __launch_bounds__(kTailThreads) tail_kernel(FctTail a) {
       if (t >= nt) break;
       sL[t] = view<T>(a.lv[t]);
       sSt[t] = p;
-      p += a.lv[t].n_pat * kStencilValues;
+      p += a.lv[t].n_pat * kStencilValues<D>;
     }
 #pragma unroll
     for (int t = 0; t < kMaxTail; ++t) {
@@ -381,7 +462,9 @@ __global__ void __launch_bounds__(kTailThreads) tail_kernel(FctTail a) {
     if (t >= nt) break;
     const T* g = static_cast<const T*>(a.lv[t].st);
     T* st = sSt[t];
-    for (int i = threadIdx.x; i < a.lv[t].n_pat * kStencilValues; i += blockDim.x) st[i] = g[i];
+    for (int i = threadIdx.x; i < a.lv[t].n_pat * kStencilValues<D>; i += blockDim.x) {
+      st[i] = g[i];
+    }
   }
   const int first = threadIdx.x, stride = blockDim.x;
   auto sync = [] { __syncthreads(); };
@@ -399,13 +482,13 @@ __global__ void __launch_bounds__(kTailThreads) tail_kernel(FctTail a) {
     T* X = sX[t];
     T* B = sB[t];
     T* S = sS[t];
-    run_chain(L, sSt[t], (const T*)nullptr, B, (const T*)nullptr, 0, 0, 0, true, X, S,
-              first, stride, sync);
+    run_chain<T, D>(L, sSt[t], (const T*)nullptr, B, (const T*)nullptr, 0, 0, 0, true, X, S,
+                    first, stride, sync);
     __syncthreads();
-    sweep<T, true>(L, sSt[t], X, B, S, first, stride);
+    sweep<T, D, true>(L, sSt[t], X, B, S, first, stride);
     __syncthreads();
     const Lv<T> Lc = sL[t + 1];
-    restrict_all(S, L.n0, L.n1, L.n2, sB[t + 1], Lc.n0, Lc.n1, Lc.n2, first, stride);
+    restrict_all<T, D>(S, L.n0, L.n1, L.n2, sB[t + 1], Lc.n0, Lc.n1, Lc.n2, first, stride);
     __syncthreads();
   }
 
@@ -440,8 +523,8 @@ __global__ void __launch_bounds__(kTailThreads) tail_kernel(FctTail a) {
         }
       }
     } else {
-      run_chain(L, sSt[c], (const T*)nullptr, B, (const T*)nullptr, 0, 0, 0, true, X,
-                sS[c], first, stride, sync);
+      run_chain<T, D>(L, sSt[c], (const T*)nullptr, B, (const T*)nullptr, 0, 0, 0, true, X,
+                      sS[c], first, stride, sync);
     }
   }
   __syncthreads();
@@ -450,8 +533,8 @@ __global__ void __launch_bounds__(kTailThreads) tail_kernel(FctTail a) {
   for (int t = nt - 2; t >= 0; --t) {
     const Lv<T> L = sL[t];
     const Lv<T> Lc = sL[t + 1];
-    run_chain(L, sSt[t], sX[t], sB[t], sX[t + 1], Lc.n0, Lc.n1, Lc.n2, false, sX[t],
-              sS[t], first, stride, sync);
+    run_chain<T, D>(L, sSt[t], sX[t], sB[t], sX[t + 1], Lc.n0, Lc.n1, Lc.n2, false, sX[t],
+                    sS[t], first, stride, sync);
     __syncthreads();
   }
   T* xout = static_cast<T*>(a.xout);
@@ -459,7 +542,7 @@ __global__ void __launch_bounds__(kTailThreads) tail_kernel(FctTail a) {
   for (int i = first; i < kVs * sL[0].M; i += stride) xout[i] = X0[i];
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_chain(const FctChain* args, void* stream) {
   // the persistent grid: as many blocks as the SMs hold at once with this
   // many stencils in shared memory, once per device and pattern count; the
@@ -474,13 +557,13 @@ int launch_chain(const FctChain* args, void* stream) {
   if (dev >= fct::kMaxDevices || n_pat < 1 || n_pat >= kPats) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t bytes = static_cast<size_t>(n_pat) * kStencilValues * sizeof(T);
-  e = fct::opt_in_smem(chain_kernel<T>, bytes, opted);
+  const size_t bytes = static_cast<size_t>(n_pat) * kStencilValues<D> * sizeof(T);
+  e = fct::opt_in_smem(chain_kernel<T, D>, bytes, opted);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (cap[dev][n_pat] == 0) {
     int per_sm = 0, sms = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_kernel<T>, kChainThreads,
-                                                      bytes);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_kernel<T, D>,
+                                                      kChainThreads, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -492,14 +575,14 @@ int launch_chain(const FctChain* args, void* stream) {
   if (blocks > cap[dev][n_pat]) blocks = cap[dev][n_pat];
   FctChain a = *args;
   void* params[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(chain_kernel<T>), dim3(blocks),
-                                  dim3(kChainThreads), params, bytes,
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(chain_kernel<T, D>),
+                                  dim3(blocks), dim3(kChainThreads), params, bytes,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_tail(const FctTail* args, void* stream) {
   if (args->n_levels < 1 || args->n_levels > kMaxTail) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -507,12 +590,13 @@ int launch_tail(const FctTail* args, void* stream) {
   size_t bytes = 0;
   for (int t = 0; t < args->n_levels; ++t) {
     const FctLevel& l = args->lv[t];
-    bytes += static_cast<size_t>(tail_level_values(l.n0 * l.n1 * l.n2, l.n_pat)) * sizeof(T);
+    bytes += static_cast<size_t>(tail_level_values<D>(l.n0 * l.n1 * l.n2, l.n_pat)) * sizeof(T);
   }
-  cudaError_t e = cudaFuncSetAttribute(tail_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t e = cudaFuncSetAttribute(tail_kernel<T, D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
-  tail_kernel<T><<<1, kTailThreads, bytes, static_cast<cudaStream_t>(stream)>>>(*args);
+  tail_kernel<T, D><<<1, kTailThreads, bytes, static_cast<cudaStream_t>(stream)>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -521,21 +605,38 @@ int launch_tail(const FctTail* args, void* stream) {
 // Entry points: every pointer is a device pointer, ``stream`` a cudaStream_t;
 // the argument structs are read on the host and passed to the kernel by
 // value. Each returns cudaGetLastError() (or the launch's error) after its
-// one launch.
+// one launch. fct_chain_* and fct_tail_* take 3D hex levels, fct_chain_2d_*
+// and fct_tail_2d_* 2D quad levels (n2 = c2 = 1).
 extern "C" int fct_chain_f32(const FctChain* args, void* stream) {
-  return launch_chain<float>(args, stream);
+  return launch_chain<float, 3>(args, stream);
 }
 
 extern "C" int fct_chain_f64(const FctChain* args, void* stream) {
-  return launch_chain<double>(args, stream);
+  return launch_chain<double, 3>(args, stream);
 }
 
 extern "C" int fct_tail_f32(const FctTail* args, void* stream) {
-  return launch_tail<float>(args, stream);
+  return launch_tail<float, 3>(args, stream);
 }
 
 extern "C" int fct_tail_f64(const FctTail* args, void* stream) {
-  return launch_tail<double>(args, stream);
+  return launch_tail<double, 3>(args, stream);
+}
+
+extern "C" int fct_chain_2d_f32(const FctChain* args, void* stream) {
+  return launch_chain<float, 2>(args, stream);
+}
+
+extern "C" int fct_chain_2d_f64(const FctChain* args, void* stream) {
+  return launch_chain<double, 2>(args, stream);
+}
+
+extern "C" int fct_tail_2d_f32(const FctTail* args, void* stream) {
+  return launch_tail<float, 2>(args, stream);
+}
+
+extern "C" int fct_tail_2d_f64(const FctTail* args, void* stream) {
+  return launch_tail<double, 2>(args, stream);
 }
 
 // the shared memory one block may hold on device ``dev`` (bytes), or -1

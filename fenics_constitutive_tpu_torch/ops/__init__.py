@@ -1,12 +1,14 @@
 """Operators: Mandel constants, factored tangents, the structured,
-structured-tet, windowed and gather engines, the windowed BSR level format
+structured-tet, lattice, windowed and gather engines, the windowed BSR level format
 and the CUDA kernels (compiled on first use, never at import)."""
 
 from .mandel import Constraint
 from .packed import DenseTangent, IsotropicTangent, PackedGeometry, build_packed_geometry
 from .structured import (
+    LatticeGeometry,
     StructuredGeometry,
     StructuredTetGeometry,
+    build_lattice_geometry,
     build_structured_geometry,
     build_structured_tet_geometry,
     restrict_structured_geometry,
@@ -25,12 +27,14 @@ __all__ = [
     "Constraint",
     "DenseTangent",
     "IsotropicTangent",
+    "LatticeGeometry",
     "PackedGeometry",
     "StructuredGeometry",
     "StructuredTetGeometry",
     "WindowedBsr",
     "WindowedExchange",
     "WindowedGeometry",
+    "build_lattice_geometry",
     "build_packed_geometry",
     "build_structured_geometry",
     "build_structured_tet_geometry",

@@ -54,12 +54,14 @@ def hex_corner_layout(geo: StructuredGeometry) -> bool:
     return geo.offsets == expected
 
 
-def hot_path_geometry(geo: StructuredGeometry) -> bool:
+def hot_path_geometry(geo) -> bool:
     """True for the geometry the structured-hex kernels (K1, K2) are written
     for. A structured-tet geometry shares the hex corner layout but not the
-    8-point hex rule the kernels assume, so it is refused whatever its n_qp."""
+    8-point hex rule the kernels assume, so it is refused whatever its n_qp;
+    every geometry of another engine (lattice, windowed, gather) by type."""
     return (
-        not isinstance(geo, StructuredTetGeometry)
+        isinstance(geo, StructuredGeometry)
+        and not isinstance(geo, StructuredTetGeometry)
         and hex_corner_layout(geo) and (geo.n_qp, geo.sdim) == (8, 6) and 48 * geo.M < 2**31
     )
 

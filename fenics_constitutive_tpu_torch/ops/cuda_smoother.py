@@ -23,6 +23,9 @@ P^T trilinear, the free masks) and the coarse solve, through three entries:
 * ``tail(b, lvl) -> x``: the V-cycle from level ``lvl`` down, coarse solve
   included.
 
+The kernels take the levels of 3D hex hierarchies and of 2D quad hierarchies
+(the corner layouts of the structured engine, and of the structured-tet
+engine's corner channels); any other level raises ValueError on the card.
 On CUDA tensors each of them, and each ``FusedChain`` call, is ONE launch of
 ``csrc/smoother.cu``: a cooperative launch with grid-wide barriers between
 the sweeps for a fine level's chain, one block in shared memory for the tail.
@@ -55,9 +58,12 @@ __all__ = [
     "launches",
     "pattern_stencils",
     "prolong_gm",
+    "quad_corner_layout",
     "restrict_gm",
     "smoother_geometry_ok",
     "smoother_plain",
+    "stencil_k",
+    "stencil_values",
     "tail_bytes",
     "tail_start",
 ]
@@ -69,7 +75,7 @@ entry_launches = dict.fromkeys(("chain", "pre_restrict", "prolong_post", "tail")
 
 #: levels the one-block tail can hold (``kMaxTail`` of csrc/smoother.cu)
 MAX_TAIL_LEVELS = 8
-#: vectors of 3 M values each tail level keeps in shared memory: x, b, scratch
+#: vectors of vs M values each tail level keeps in shared memory: x, b, scratch
 TAIL_VECTORS = 3
 
 
@@ -129,54 +135,69 @@ def prolong_gm(xc: torch.Tensor, coarse_grid, fine_grid) -> torch.Tensor:
 # -- level data of the kernels -------------------------------------------------------
 
 
-def _corner_offset(a: int) -> np.ndarray:
-    return np.array([a & 1, (a >> 1) & 1, (a >> 2) & 1])
+def _corner_offset(a: int, gdim: int = 3) -> np.ndarray:
+    """Corner a = dx + 2 dy (+ 4 dz) -> its offsets along the grid's axes."""
+    return np.array([(a >> d) & 1 for d in range(gdim)])
 
 
-#: values of one pattern's stencil: [k][d][j] with 27 x 3 per k padded to 84
-STENCIL_K = 84
-STENCIL_VALUES = 3 * STENCIL_K
+#: one component's stencil values ([3^gdim][vs] per k, padded to 16 bytes):
+#: 27 x 3 -> 84 in 3D, 9 x 2 -> 20 in 2D (kStencilK of csrc/smoother.cu)
+_STENCIL_K = {3: 84, 2: 20}
+
+
+def stencil_k(gdim: int) -> int:
+    """One component's stencil values of a pattern, padded to 16 bytes."""
+    return _STENCIL_K[gdim]
+
+
+def stencil_values(gdim: int) -> int:
+    """Values of one pattern's stencil: [k][d][j] for vs = gdim components."""
+    return gdim * stencil_k(gdim)
 
 
 def pattern_stencils(ke, mask, node_grid):
-    """The 27-point stencils of 3 x 3 blocks of the level's nodes, for a cell
-    mask of 0 and 1.
+    """The 3^gdim-point stencils of vs x vs blocks of the level's nodes, for a
+    cell mask of 0 and 1 (vs = gdim = len(node_grid)).
 
-    A node's pattern is the set of its 8 cells (corner a: the cell at origin
-    n - off_a) that exist and have mask 1; its stencil sums Ke's blocks over
-    those cells, coef[k][d][j] = sum_a sum_{bb: off_bb - off_a = d}
-    Ke[a*3+j, bb*3+k], so A x at the node is the stencil applied to its 27
-    neighbours (float64 on the host). A box has at most 27 patterns, and 8
-    cells at most 256. Returns (pid uint8 [M]: each node's pattern; table
-    float64 [P * STENCIL_VALUES])."""
+    A node's pattern is the set of its 2^gdim cells (corner a: the cell at
+    origin n - off_a) that exist and have mask 1; its stencil sums Ke's
+    blocks over those cells, coef[k][d][j] = sum_a sum_{bb: off_bb - off_a =
+    d} Ke[a*vs+j, bb*vs+k], so A x at the node is the stencil applied to its
+    3^gdim neighbours (float64 on the host). A box has at most 3^gdim
+    patterns, and 8 cells at most 256. Returns (pid uint8 [M]: each node's
+    pattern; table float64 [P * stencil_values(gdim)])."""
     ke = np.asarray(ke, np.float64)
-    n0, n1, n2 = node_grid
-    cells = np.zeros((n0 + 1, n1 + 1, n2 + 1))  # cell values at origin + 1, 0 outside
-    cells[1:n0, 1:n1, 1:n2] = np.asarray(mask, np.float64).reshape(node_grid)[:-1, :-1, :-1]
+    gdim = vs = len(node_grid)
+    n_corners, n_nb = 2**gdim, 3**gdim
+    # cell values at origin + 1, 0 outside
+    cells = np.zeros(tuple(n + 1 for n in node_grid))
+    inner = tuple(slice(1, n) for n in node_grid)
+    cells[inner] = np.asarray(mask, np.float64).reshape(node_grid)[(slice(None, -1),) * gdim]
     bits = np.zeros(node_grid, np.int64)
-    for a in range(8):
-        o = _corner_offset(a)
-        m = cells[1 - o[0] : 1 - o[0] + n0, 1 - o[1] : 1 - o[1] + n1, 1 - o[2] : 1 - o[2] + n2]
+    for a in range(n_corners):
+        o = _corner_offset(a, gdim)
+        m = cells[tuple(slice(1 - o[d], 1 - o[d] + node_grid[d]) for d in range(gdim))]
         bits |= (m == 1.0).astype(np.int64) << a
     used, pid = np.unique(bits, return_inverse=True)
-    table = np.zeros((len(used), 3, STENCIL_K))
+    table = np.zeros((len(used), vs, stencil_k(gdim)))
     for p, pattern in enumerate(used):
-        coef = np.zeros((3, 27, 3))  # [k][d][j]
-        for a in range(8):
+        coef = np.zeros((vs, n_nb, vs))  # [k][d][j]
+        for a in range(n_corners):
             if not (pattern >> a) & 1:
                 continue
-            for bb in range(8):
-                d0, d1, d2 = _corner_offset(bb) - _corner_offset(a) + 1
-                coef[:, 9 * d0 + 3 * d1 + d2, :] += ke[3 * a : 3 * a + 3, 3 * bb : 3 * bb + 3].T
-        table[p, :, :81] = coef.reshape(3, 81)
+            for bb in range(n_corners):
+                dd = _corner_offset(bb, gdim) - _corner_offset(a, gdim) + 1
+                d = int(sum(int(x) * 3 ** (gdim - 1 - ax) for ax, x in enumerate(dd)))
+                coef[:, d, :] += ke[vs * a : vs * a + vs, vs * bb : vs * bb + vs].T
+        table[p, :, : n_nb * vs] = coef.reshape(vs, n_nb * vs)
     return pid.reshape(-1).astype(np.uint8), table.reshape(-1)
 
 
 def tail_bytes(node_grids, patterns, itemsize: int, first: int, vs: int = 3) -> int:
     """Shared memory the one-block tail needs from level ``first`` down: x, b
     and a scratch vector and the ``patterns[l]`` stencils of every level
-    (``tail_level_values`` of csrc/smoother.cu)."""
-    return sum((TAIL_VECTORS * vs * math.prod(g) + p * STENCIL_VALUES) * itemsize
+    (``tail_level_values`` of csrc/smoother.cu; vs = gdim)."""
+    return sum((TAIL_VECTORS * vs * math.prod(g) + p * stencil_values(vs)) * itemsize
                for g, p in zip(node_grids[first:], patterns[first:]))
 
 
@@ -225,11 +246,17 @@ _entries: dict = {}
 _smem: dict = {}
 
 
-def _entry(kind: str, dtype: torch.dtype):
-    key = (kind, dtype)
+def _entry(kind: str, dtype: torch.dtype, gdim: int = 3):
+    key = (kind, dtype, gdim)
     if key not in _entries:
-        _entries[key] = entry_point("smoother", f"fct_{kind}_{_SUFFIX[dtype]}", [_P, _P])
+        dim = "_2d" if gdim == 2 else ""
+        _entries[key] = entry_point("smoother", f"fct_{kind}{dim}_{_SUFFIX[dtype]}", [_P, _P])
     return _entries[key]
+
+
+def _grid3(grid) -> tuple:
+    """A node grid as the C interface's three sizes (2D: the third is 1)."""
+    return (*grid, 1) if len(grid) == 2 else tuple(grid)
 
 
 def smem_optin(device: torch.device) -> int:
@@ -249,10 +276,20 @@ def smem_optin(device: torch.device) -> int:
 # -- one chain ---------------------------------------------------------------------------
 
 
+def quad_corner_layout(geo: StructuredGeometry) -> bool:
+    """True for the 2D P1 quad corner layout: 2 components, corner a = dx +
+    2 dy at the flat node n + dx*s0 + dy."""
+    if (geo.gdim, geo.vs, geo.n_nodes) != (2, 2, 4):
+        return False
+    s0 = geo.offsets[1]
+    return geo.offsets == tuple((a & 1) * s0 + ((a >> 1) & 1) for a in range(4))
+
+
 def smoother_geometry_ok(geo: StructuredGeometry) -> bool:
-    """True for the 3D hex corner layout the kernel is written for (every
-    level of a hex hierarchy, the synthetic coarse levels included)."""
-    return hex_corner_layout(geo) and 3 * geo.M < 2**31
+    """True for the corner layouts the kernel is written for: the 3D hex and
+    the 2D quad layout (every level of a hex or quad hierarchy, the
+    synthetic coarse levels and a Kuhn box's corner channels included)."""
+    return (hex_corner_layout(geo) or quad_corner_layout(geo)) and geo.vs * geo.M < 2**31
 
 
 def _apply_plain(geo, ke, mask, x):
@@ -293,14 +330,8 @@ def _check(geo, t: torch.Tensor, name: str) -> None:
 def _check_card_level(chain) -> None:
     """Raise unless the K3 kernels take this chain's level."""
     geo = chain.geo
-    if geo.gdim == 2:
-        msg = (
-            "the K3 kernel takes 3D hex levels; 2D quad levels on the card are "
-            "not ported yet (ROADMAP.md Queue 1, K3 on 2D quad levels)"
-        )
-        raise NotImplementedError(msg)
     if not smoother_geometry_ok(geo):
-        msg = "the K3 kernel supports the 3D P1 hex corner layout only"
+        msg = "the K3 kernel supports the 3D P1 hex and the 2D P1 quad corner layouts only"
         raise ValueError(msg)
     if geo.dtype not in _SUFFIX:
         msg = f"the K3 kernel takes float32 or float64, got {geo.dtype}"
@@ -319,7 +350,7 @@ class FusedChain:
         self.geo, self.ke, self.inv_d, self.mask = geo, ke, inv_d, mask
         self.nu, self.zero_start, self.emit_residual = nu, zero_start, emit_residual
         #: the kernel's pattern stencils and uint8 [M] pattern ids
-        #: (``pattern_stencils``; None unless a 3D hex level with a 0/1 mask)
+        #: (``pattern_stencils``; None unless a hex or quad level with a 0/1 mask)
         self.st, self.pid = st, pid
         self.grid = tuple(g + 1 for g in geo.grid)
         self._level = None
@@ -343,13 +374,13 @@ class FusedChain:
     @property
     def n_patterns(self) -> int:
         """Stencils in ``st`` (the level's patterns of cells)."""
-        return self.st.numel() // STENCIL_VALUES
+        return self.st.numel() // stencil_values(self.geo.gdim)
 
     def level(self) -> _Level:
         """The level's constant data for the C interface (built once)."""
         if self._level is None:
             self._level = _Level(self.inv_d.data_ptr(), self.pid.data_ptr(), self.st.data_ptr(),
-                                 *self.grid, self.nu, self.n_patterns)
+                                 *_grid3(self.grid), self.nu, self.n_patterns)
         return self._level
 
     def _kernel(self, x, b):
@@ -367,8 +398,9 @@ def build_fused_smoother(geo: StructuredGeometry, ke, inv_d, mask, *, nu: int,
 
     Args:
         geo: the level's StructuredGeometry (vs, M, corner offsets).
-        ke: [24, 24] element matrix (host float64, beta*KE_I + (kappa -
-            beta/3)*KE_V at the level moduli), cast to the level's dtype.
+        ke: [24, 24] (2D: [8, 8]) element matrix (host float64, beta*KE_I +
+            (kappa - beta/3)*KE_V at the level moduli), cast to the level's
+            dtype.
         inv_d: [vs*M] damped inverse Jacobi diagonal, zero at Dirichlet dofs.
         mask: [M] cell-origin validity mask.
         nu: sweeps in the chain; zero_start: start from x = 0;
@@ -418,16 +450,16 @@ def _launch(chain: FusedChain, kind: str, *, x, b, residual: bool, xc=None, coar
     xout = torch.empty_like(b)
     tmp = torch.empty_like(b) if sweeps else None
     r = torch.empty_like(b) if residual else None
-    bc = b.new_empty(3 * math.prod(coarse)) if restrict else None
+    bc = b.new_empty(chain.geo.vs * math.prod(coarse)) if restrict else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     a = _Chain(chain.level(), ptr(x), ptr(b), ptr(xc), ptr(xout), ptr(tmp), ptr(r), ptr(bc),
-               *(coarse or (0, 0, 0)), int(chain.zero_start), int(residual),
-               int(xc is not None), int(restrict))
+               *(_grid3(coarse) if coarse else (0, 0, 0)), int(chain.zero_start),
+               int(residual), int(xc is not None), int(restrict))
     with torch.cuda.device(b.device):
-        rc = _entry("chain", b.dtype)(ctypes.byref(a), _stream(b))
+        rc = _entry("chain", b.dtype, chain.geo.gdim)(ctypes.byref(a), _stream(b))
     launch_check("smoother", rc)
     _count(kind)
     return xout, r, bc
@@ -466,9 +498,10 @@ class FusedVcycle:
         """The first level of the tail on this card (``tail_start``)."""
         key = torch.device(device).index
         if key not in self._tail_start:
-            itemsize = self._chain(0).inv_d.element_size()
-            self._tail_start[key] = tail_start(self.node_grids, self.patterns(), itemsize,
-                                               smem_optin(device))
+            c0 = self._chain(0)
+            self._tail_start[key] = tail_start(self.node_grids, self.patterns(),
+                                               c0.inv_d.element_size(), smem_optin(device),
+                                               c0.geo.vs)
         return self._tail_start[key]
 
     # -- the plain twins ---------------------------------------------------------------
@@ -533,7 +566,8 @@ class FusedVcycle:
         for c in levels:
             _check_card_level(c)
         _check(levels[0].geo, b, "b")
-        need = tail_bytes(self.node_grids, self.patterns(), b.element_size(), lvl)
+        vs = levels[0].geo.vs
+        need = tail_bytes(self.node_grids, self.patterns(), b.element_size(), lvl, vs)
         smem = smem_optin(b.device)
         if need > smem or len(levels) > MAX_TAIL_LEVELS:
             msg = (f"the one-block tail from level {lvl} (node grids {self.node_grids[lvl:]}) "
@@ -554,7 +588,7 @@ class FusedVcycle:
         a.coarse_inv = None if cinv is None else cinv.data_ptr()
         a.b, a.xout = b.data_ptr(), xout.data_ptr()
         with torch.cuda.device(b.device):
-            rc = _entry("tail", b.dtype)(ctypes.byref(a), _stream(b))
+            rc = _entry("tail", b.dtype, levels[0].geo.gdim)(ctypes.byref(a), _stream(b))
         launch_check("smoother", rc)
         _count("tail")
         return xout

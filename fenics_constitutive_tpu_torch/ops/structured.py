@@ -34,8 +34,10 @@ from . import mandel
 from .mandel import Constraint
 
 __all__ = [
+    "LatticeGeometry",
     "StructuredGeometry",
     "StructuredTetGeometry",
+    "build_lattice_geometry",
     "build_structured_geometry",
     "build_structured_tet_geometry",
     "restrict_structured_geometry",
@@ -644,4 +646,260 @@ def build_structured_tet_geometry(
         offsets=flat_offsets,
         dN_host=np.zeros((0,)),  # the hex tabulation; class_dN_host replaces it
         w_host=w_flat,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Degree-2 spaces on box meshes: the lattice engine
+# ---------------------------------------------------------------------------
+
+
+class LatticeGeometry(nn.Module):
+    """Degree-d tensor-product stencil engine on a box of hexes or quads whose
+    dof nodes are lattice-ordered (``FunctionSpace`` renumbers degree-2 dofs
+    row-major, x slowest, so they form the node lattice of the d-times
+    refined grid, ``lattice = d * grid + 1`` per axis).
+
+    A cell's local node a sits at lattice offset ``_local_offset(a)`` (x
+    fastest digit, the element's tensor ordering) from its origin ``d * c``,
+    so the element gather is the (d+1)^gdim STATIC STRIDED SLICES of the
+    [vs, *lattice] grid (``_cell_slices``), taken as one strided view, and
+    the scatter its transpose, d + 1 strided adds per axis in a fixed order:
+    no gather, no atomics, deterministic.
+
+      * strain:   ``e = KEPS_c @ U``, U [n*vs, C] the stacked slices;
+      * residual: ``F = KDIV_c @ sigma`` (weights folded), then the slice adds.
+
+    Both products go through ``_matmul`` (never TF32) and nothing is a
+    convolution, so cuDNN (TF32 by default, atomics in its backward-data
+    algorithms) is never called. Cell and quadrature fields are DENSE
+    ``[k, Q, C]`` in mesh cell order, so the observation maps are identities.
+
+    Buffers: KEPS_c [s*Q, n*vs], KDIV_c [n*vs, s*Q], w [Q] (quadrature weight
+    x |det J|, for the Jacobi diagonal). Host constant: ``dN_host`` ([n, g,
+    Q] physical gradients).
+    """
+
+    #: the engine this geometry serves (``PackedSimulation.engine``)
+    engine = "lattice"
+
+    KEPS_c: torch.Tensor
+    KDIV_c: torch.Tensor
+    w: torch.Tensor
+
+    def __init__(self, *, KEPS_c, KDIV_c, w, grid, degree, vs, ndofs, constraint, n_nodes,
+                 n_qp, dN_host):
+        super().__init__()
+        self.register_buffer("KEPS_c", KEPS_c)
+        self.register_buffer("KDIV_c", KDIV_c)
+        self.register_buffer("w", w)
+        self.grid = tuple(grid)
+        self.degree = degree
+        self.lattice = tuple(degree * g + 1 for g in grid)
+        self.vs = vs
+        self.ndofs = ndofs
+        self.constraint = constraint
+        self.n_nodes = n_nodes
+        self.n_qp = n_qp
+        self.n_cells = int(np.prod(grid))
+        self.dN_host = dN_host
+
+    @property
+    def gdim(self) -> int:
+        return len(self.grid)
+
+    @property
+    def sdim(self) -> int:
+        return self.constraint.stress_strain_dim
+
+    @property
+    def M(self) -> int:
+        return int(np.prod(self.lattice))
+
+    @property
+    def N(self) -> int:
+        return self.n_qp * self.n_cells
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.KEPS_c.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.KEPS_c.device
+
+    def qp_shape(self, k: int) -> tuple:
+        return (k, self.n_qp, self.n_cells)
+
+    # dense mesh-order cell fields: the observation maps are identities
+    def extract_cells(self, field: torch.Tensor) -> torch.Tensor:
+        return field
+
+    def insert_cells(self, dense: torch.Tensor) -> torch.Tensor:
+        return dense
+
+    # -- layout plumbing --------------------------------------------------------
+
+    def to_grid_major(self, u: torch.Tensor) -> torch.Tensor:
+        return u.reshape(self.M, self.vs).T.reshape(-1)
+
+    def to_node_major(self, u_gm: torch.Tensor) -> torch.Tensor:
+        return u_gm.reshape(self.vs, self.M).T.reshape(-1)
+
+    def _local_offset(self, a: int) -> tuple:
+        """Local node a -> its lattice offsets from the cell origin (x fastest
+        digit, the element's tensor ordering)."""
+        nb = self.degree + 1
+        rem, locs = a, []
+        for _ in range(self.gdim):
+            locs.append(rem % nb)
+            rem //= nb
+        return tuple(locs)
+
+    def _cell_slices(self, a: int) -> tuple:
+        """Per axis, the lattice slice that holds local node a of every cell."""
+        off, d = self._local_offset(a), self.degree
+        return tuple(slice(off[k], off[k] + d * (self.grid[k] - 1) + 1, d)
+                     for k in range(self.gdim))
+
+    def _elem_dofs_cm(self, u_cm: torch.Tensor) -> torch.Tensor:
+        """[vs, M] component-major -> [n*vs, C] element dof blocks.
+
+        Every ``_cell_slices(a)`` at once: one strided view of the lattice,
+        [o_{g-1}, .., o_0, j, c_0, .., c_{g-1}] (row (a, j) with a = o_0 +
+        (d+1) o_1 + .., the cell's offset d c_k + o_k along axis k), copied
+        in one pass."""
+        g = u_cm.reshape((self.vs, *self.lattice)).contiguous()
+        st = g.stride()
+        nb, d, gdim = self.degree + 1, self.degree, self.gdim
+        view = g.as_strided(
+            (nb,) * gdim + (self.vs, *self.grid),
+            tuple(st[k + 1] for k in reversed(range(gdim))) + (st[0],)
+            + tuple(d * st[k + 1] for k in range(gdim)),
+            g.storage_offset(),
+        )
+        return view.reshape(self.n_nodes * self.vs, self.n_cells)
+
+    def _scatter_nodes(self, F: torch.Tensor) -> torch.Tensor:
+        """[n*vs, C] per-node forces -> grid-major [vs*M]: the transpose of
+        ``_elem_dofs_cm``, one axis at a time. Along axis k the cells' local
+        offsets o_k = 0..d land at lattice index d c_k + o_k; they are added in
+        the order o_k = 0, 1, .., d (d + 1 strided adds per axis, each lattice
+        node's terms in a fixed order, no atomics)."""
+        d, gdim = self.degree, self.gdim
+        # [o_{g-1}, .., o_0, j, c...] -> [j, o_0, .., o_{g-1}, c_0, .., c_{g-1}]
+        X = F.reshape((d + 1,) * gdim + (self.vs, *self.grid))
+        X = X.permute((gdim, *range(gdim - 1, -1, -1), *range(gdim + 1, 2 * gdim + 1)))
+        for k in range(gdim):
+            # X: [j, o_k, .., o_{g-1}, L_0, .., L_{k-1}, c_k, ..]; c_k sits at dim gdim of X[:, o]
+            shape = list(X.shape[:1] + X.shape[2:])
+            shape[gdim] = self.lattice[k]
+            Y = X.new_zeros(shape)
+            for o in range(d + 1):
+                sl = (slice(None),) * gdim + (slice(o, o + d * (self.grid[k] - 1) + 1, d),)
+                Y[sl] += X[:, o]
+            X = Y
+        return X.reshape(-1)
+
+    # -- grid-major hot-path ops --------------------------------------------------
+
+    def strain_gm(self, u_gm: torch.Tensor) -> torch.Tensor:
+        """Mandel strain of a grid-major dof vector: [s, Q, C]."""
+        U = self._elem_dofs_cm(u_gm.reshape(self.vs, self.M))
+        e = _matmul(self.KEPS_c.to(U.dtype), U)
+        return e.reshape(self.sdim, self.n_qp, self.n_cells)
+
+    def residual_gm(self, sigma: torch.Tensor) -> torch.Tensor:
+        """sigma [s, Q, C] -> grid-major assembled force [vs*M]."""
+        sig = sigma.reshape(self.sdim * self.n_qp, self.n_cells)
+        return self._scatter_nodes(_matmul(self.KDIV_c.to(sig.dtype), sig))
+
+    def matvec_gm(self, v_gm: torch.Tensor, tangent) -> torch.Tensor:
+        return self.residual_gm(tangent.apply(self.strain_gm(v_gm)))
+
+    def jacobi_diag_gm(self, tangent) -> torch.Tensor:
+        """diag(A) in grid-major layout via per-node B^T C B, B the node's
+        columns of KEPS_c: broadcast multiplies and sums, never a product that
+        could run in TF32."""
+        KE = self.KEPS_c.reshape(self.sdim, self.n_qp, self.n_nodes, self.vs)
+        rows = []
+        for a in range(self.n_nodes):
+            B_a = KE[:, :, a, :].permute(0, 2, 1)[..., None]  # [s, vs, Q, 1]
+            q = tangent.quad_diag(B_a).expand(self.vs, self.n_qp, self.n_cells)
+            rows.append((q * self.w[None, :, None]).sum(dim=1))
+        return self._scatter_nodes(torch.cat(rows, dim=0))
+
+    # -- node-major engine interface ---------------------------------------------
+
+    def strain(self, u: torch.Tensor) -> torch.Tensor:
+        return self.strain_gm(self.to_grid_major(u))
+
+    def residual(self, sigma: torch.Tensor) -> torch.Tensor:
+        return self.to_node_major(self.residual_gm(sigma))
+
+    def matvec(self, v: torch.Tensor, tangent) -> torch.Tensor:
+        return self.to_node_major(self.matvec_gm(self.to_grid_major(v), tangent))
+
+    def jacobi_diag(self, tangent) -> torch.Tensor:
+        return self.to_node_major(self.jacobi_diag_gm(tangent))
+
+    def grad(self, u: torch.Tensor) -> torch.Tensor:
+        """Full displacement gradient [g, vs, Q*C] of a node-major dof vector
+        (observation path)."""
+        U = self._elem_dofs_cm(self.to_grid_major(u).reshape(self.vs, self.M))
+        U = U.reshape(self.n_nodes, self.vs, self.n_cells)
+        dN = torch.as_tensor(self.dN_host, dtype=u.dtype, device=u.device)  # [n, g, Q]
+        out = (dN[:, :, None, :, None] * U[:, None, :, None, :]).sum(dim=0)  # [g, vs, Q, C]
+        return out.reshape(self.gdim, self.vs, self.N)
+
+
+def build_lattice_geometry(
+    space, q_degree: int, constraint: Constraint, *, device="cuda", dtype: torch.dtype
+) -> LatticeGeometry:
+    """Lattice stencil engine for a degree-2 space on a box mesh of hexes
+    (unit_cube_mesh) or quads (unit_square_mesh) with lattice-ordered dofs."""
+    from ..fem.elements import tabulate_element
+    from ..fem.kinematics import _geometry_grad_at
+
+    mesh = space.mesh
+    grid = mesh.structured_shape
+    if grid is None or mesh.cell_type not in ("hex", "quad"):
+        msg = "the lattice engine needs a box mesh of hex or quad cells"
+        raise ValueError(msg)
+    d = space.degree
+    if d < 2:
+        msg = "the lattice engine takes degree >= 2; degree 1 runs on the structured engine"
+        raise ValueError(msg)
+
+    elem, quad = tabulate_element(mesh.cell_type, d, q_degree)
+    verts = mesh.nodes[mesh.cells[0]]
+    geom_dN = _geometry_grad_at(mesh.cell_type, quad.points)
+    J = np.einsum("vi,qvj->qij", verts, geom_dN)
+    detJ = np.abs(np.linalg.det(J))
+    dN = np.einsum("qaj,qji->aiq", elem.dN_dxi, np.linalg.inv(J))  # [n, g, Q]
+    w = quad.weights * detJ  # [Q]
+
+    sdim = constraint.stress_strain_dim
+    n = elem.N.shape[1]
+    Q = quad.points.shape[0]
+    vs = space.value_size
+    M_map = mandel._mandel_matrix_map(constraint)
+
+    KE = np.einsum("sij,aiq->sqaj", M_map, dN)  # [s, Q, n, vs]
+    KEPS_c = KE.reshape(sdim * Q, n * vs)
+    KDIV_c = (KE * w[None, :, None, None]).reshape(sdim * Q, n * vs).T.copy()
+
+    lattice = tuple(d * g + 1 for g in grid)
+    if space.n_dof_nodes != int(np.prod(lattice)) or not np.allclose(
+        space.dof_coords[0], mesh.nodes.min(axis=0)
+    ):
+        msg = "the space's dof nodes are not lattice-ordered (FunctionSpace on a box mesh)"
+        raise ValueError(msg)
+
+    def dev(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    return LatticeGeometry(
+        KEPS_c=dev(KEPS_c), KDIV_c=dev(KDIV_c), w=dev(w), grid=tuple(grid), degree=d, vs=vs,
+        ndofs=space.ndofs, constraint=constraint, n_nodes=n, n_qp=Q, dN_host=dN,
     )

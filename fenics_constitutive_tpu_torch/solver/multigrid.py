@@ -19,6 +19,12 @@ A matrix-free V-cycle on the node grid:
     (``coarse_direct``) rescaled by kappa0/kappa under ``with_moduli``.
 
 Every vector is grid-major ([vs, *node_grid] flattened).
+
+Degree-2 spaces on a box take the same hierarchy on the refined P1 grid:
+on a tensor grid the P2 dof nodes are exactly the nodes of the twice
+refined P1 grid, and the P1 operator there is spectrally equivalent to the
+P2 one (``refined_p1_geometry``; ``build_p2_node_preconditioner`` for
+node-major vectors of a P2 space on another engine).
 """
 
 from __future__ import annotations
@@ -32,8 +38,15 @@ from torch import nn
 from ..ops.cuda_smoother import coarse_len, prolong_gm, restrict_gm
 from ..ops.packed import IsotropicTangent
 from ..ops.structured import StructuredGeometry, _matmul
+from .amg import space_constraint
 
-__all__ = ["MultigridPreconditioner", "build_multigrid"]
+__all__ = [
+    "MultigridPreconditioner",
+    "build_multigrid",
+    "build_p2_node_preconditioner",
+    "refined_p1_geometry",
+    "space_constraint",
+]
 
 
 class MultigridPreconditioner(nn.Module):
@@ -120,7 +133,7 @@ class MultigridPreconditioner(nn.Module):
             kappa=self.kappa,
             beta=2.0 * self.mu,
             gamma=0.0,
-            n=torch.zeros((6, 1, 1), dtype=dtype, device=device),
+            n=torch.zeros((self.geos[0].sdim, 1, 1), dtype=dtype, device=device),
         )
 
     # -- transfers ------------------------------------------------------------------
@@ -337,7 +350,7 @@ def build_multigrid(
     def unit(k, b):
         return IsotropicTangent(
             kappa=k, beta=b, gamma=0.0,
-            n=torch.zeros((6, 1, 1), dtype=dtype, device=device),
+            n=torch.zeros((geo.sdim, 1, 1), dtype=dtype, device=device),
         )
 
     diag_kappa = [g.jacobi_diag_gm(unit(1.0, 0.0)) for g in geos]
@@ -425,3 +438,80 @@ def build_multigrid(
         fused=fused,
         fused_cycle=fused_cycle,
     )
+
+
+def refined_p1_geometry(space, constraint, *, device="cuda", dtype: torch.dtype):
+    """The P1 structured geometry on the degree-times refined box of a
+    degree-2 ``space`` on a box of hexes or quads, and its space: its node
+    grid is the P2 dof lattice, node for node (2-point Gauss rule)."""
+    from ..fem.mesh import unit_cube_mesh, unit_square_mesh
+    from ..fem.spaces import FunctionSpace
+    from ..ops.structured import build_structured_geometry
+
+    mesh = space.mesh
+    grid = mesh.structured_shape
+    if space.degree != 2 or grid is None or mesh.cell_type not in ("hex", "quad"):
+        msg = "the refined-P1 hierarchy needs a degree-2 space on a box of hexes or quads"
+        raise ValueError(msg)
+    refined = tuple(2 * g for g in grid)
+    m1 = unit_cube_mesh(*refined, "hex") if len(grid) == 3 else unit_square_mesh(*refined, "quad")
+    V1 = FunctionSpace(m1, 1, space.value_size)
+    return build_structured_geometry(V1, 2, constraint, device=device, dtype=dtype), V1
+
+
+def build_p2_node_preconditioner(
+    space,
+    mu: float,
+    kappa: float,
+    free_mask,
+    *,
+    device="cuda",
+    dtype: torch.dtype,
+    use_bpx: bool = False,
+    **mg_kwargs,
+):
+    """Multilevel preconditioner for a degree-2 space on a box mesh, on
+    NODE-MAJOR dof vectors of that space (the layout of the windowed and
+    gather engines' public boundary).
+
+    The P1 hierarchy on the refined grid (``refined_p1_geometry``) is built
+    with ``build_multigrid(**mg_kwargs)``; a lattice node and a P2 dof node
+    are matched by their quantized coordinates (exact: both lattices lie on
+    the same box), which permutes the free mask onto the lattice and every
+    vector in and out. ``use_bpx`` applies ``mg.bpx`` instead of the
+    V-cycle. Returns ``precond(r) -> z``.
+    """
+    vs = space.value_size
+    geo1, V1 = refined_p1_geometry(space, space_constraint(space), device=device, dtype=dtype)
+    if V1.n_dof_nodes != space.n_dof_nodes:
+        msg = "the P2 dof lattice and the refined P1 grid differ in size"
+        raise ValueError(msg)
+
+    def keys(a):
+        k = np.ascontiguousarray(np.round(np.asarray(a, float) * 1e10).astype(np.int64))
+        return k.view([("", k.dtype)] * k.shape[1]).ravel()
+
+    k2, k1 = keys(space.dof_coords), keys(V1.mesh.nodes)
+    order = np.argsort(k2)
+    pos = np.clip(np.searchsorted(k2, k1, sorter=order), 0, len(k2) - 1)
+    if not (k2[order[pos]] == k1).all():
+        msg = "the P2 dof lattice is not the refined P1 lattice"
+        raise ValueError(msg)
+    perm = order[pos]  # the P2 dof node of each lattice node
+    inv_perm = np.empty_like(perm)
+    inv_perm[perm] = np.arange(len(perm))
+    perm_t = torch.as_tensor(perm, dtype=torch.int64, device=device)
+    inv_t = torch.as_tensor(inv_perm, dtype=torch.int64, device=device)
+
+    free = torch.as_tensor(np.asarray(free_mask, bool), device=device)
+    free_lat = free.reshape(-1, vs)[perm_t].reshape(-1)
+    mg = build_multigrid(geo1, mu, kappa, free_lat, device=device, dtype=dtype, **mg_kwargs)
+    inner = mg.bpx if use_bpx else mg
+
+    def precond(r: torch.Tensor) -> torch.Tensor:
+        """node-major P2 dof vector -> node-major preconditioned vector."""
+        r_lat = r.reshape(-1, vs)[perm_t].reshape(-1)
+        z_lat = geo1.to_node_major(inner(geo1.to_grid_major(r_lat)))
+        return z_lat.reshape(-1, vs)[inv_t].reshape(-1)
+
+    return precond

@@ -3,7 +3,8 @@
 
 ``build_packed_problem`` picks the engine for a mesh, as the JAX package
 does: the structured engine for a box of hexes or quads, the structured-tet
-engine for a Kuhn box of tets or triangles (grid-major dof vectors either
+engine for a Kuhn box of tets or triangles, the lattice engine for a
+degree-2 space on a whole box of hexes or quads (grid-major dof vectors each
 way), the windowed exchange engine (ops/windowed.py) for a general mesh of at
 least ``WINDOWED_MIN_CELLS`` cells, and the gather engine (ops/packed.py) for
 every other mesh: small imported meshes, interval bars. ``make_packed_step``
@@ -36,7 +37,9 @@ import torch
 from ..models.interfaces import IncrSmallStrainModel, flat_history_dim
 from ..ops.packed import DenseTangent, IsotropicTangent, PackedGeometry, build_packed_geometry
 from ..ops.structured import (
+    LatticeGeometry,
     StructuredGeometry,
+    build_lattice_geometry,
     build_structured_geometry,
     build_structured_tet_geometry,
     restrict_structured_geometry,
@@ -86,10 +89,11 @@ class PackedState:
 def resolve_engine(space, engine: str = "auto", whole_mesh: bool = True) -> str:
     """The engine ``build_packed_problem`` runs ``space`` on: "structured"
     (a box of hexes or quads), "structured_tet" (a Kuhn box of tets or
-    triangles), "windowed" or "gather". Box meshes keep their structured
-    engine whatever ``engine`` says, as in the JAX package. A degree-2 space
-    on a whole box of hexes or quads runs on the JAX package's lattice
-    engine, which is not ported: it raises NotImplementedError."""
+    triangles), "lattice" (a degree-2 space on a whole box of hexes or
+    quads), "windowed" or "gather". Box meshes keep their structured or
+    lattice engine whatever ``engine`` says, as in the JAX package; a
+    degree-2 law on a cell subset of a box takes the windowed or gather
+    engine by cell count."""
     if engine not in ("auto", "windowed", "gather"):
         msg = f"engine must be 'auto', 'windowed' or 'gather', got {engine!r}"
         raise ValueError(msg)
@@ -101,11 +105,7 @@ def resolve_engine(space, engine: str = "auto", whole_mesh: bool = True) -> str:
         if mesh.cell_type in ("tetra", "triangle"):
             return "structured_tet"
     if box and whole_mesh and space.degree == 2 and mesh.cell_type in ("hex", "quad"):
-        msg = (
-            "a degree-2 space on a box of hexes or quads runs on the JAX package's "
-            "lattice engine, which is not ported yet (ROADMAP.md Queue 1 item 4)"
-        )
-        raise NotImplementedError(msg)
+        return "lattice"
     if engine == "windowed" or (
         engine == "auto"
         and mesh.num_cells >= WINDOWED_MIN_CELLS
@@ -130,6 +130,7 @@ def build_packed_problem(
 
     ``engine``: "auto" takes the structured engine on a box of hexes or
     quads, the structured-tet engine on a Kuhn box of tets or triangles, the
+    lattice engine for one degree-2 law on a whole box of hexes or quads, the
     windowed engine on a general mesh of at least ``WINDOWED_MIN_CELLS``
     cells (not intervals) and the gather engine on every other mesh;
     "windowed" or "gather" force that engine on a general mesh of any size
@@ -161,6 +162,8 @@ def build_packed_problem(
             build, restrict = build_structured_tet_geometry, restrict_structured_tet_geometry
         full = build(space, q_degree, constraint, **opts)
         geos = tuple(full if whole(cells) else restrict(full, cells) for _, cells in laws)
+    elif kind == "lattice":
+        geos = (build_lattice_geometry(space, q_degree, constraint, **opts),)
     elif kind == "gather":
         geos = tuple(
             build_packed_geometry(space, q_degree, constraint,
@@ -263,7 +266,8 @@ def make_packed_step(
     """Build ``step(models, state, bc_dofs, bc_vals, f_ext, dt) -> (state', stats)``.
 
     ``geos``: one geometry per law, as ``build_packed_problem`` returns them:
-    StructuredGeometry (or StructuredTetGeometry) views of one grid,
+    StructuredGeometry (or StructuredTetGeometry) views of one grid, one
+    LatticeGeometry (grid-major, like the structured engines),
     WindowedGeometry plans of cell subsets on one shared node order, or
     PackedGeometry (gather engine) geometries of one space (one or several
     laws each way).
@@ -304,26 +308,28 @@ def make_packed_step(
     windowed = all(isinstance(g, WindowedGeometry) for g in geos) and (
         len({(g.ex.M_pad, g.vs) for g in geos}) == 1
     )
-    structured = all(isinstance(g, StructuredGeometry) for g in geos) and (
-        len({(g.M, g.vs) for g in geos}) == 1
+    lattice = len(geos) == 1 and isinstance(geo, LatticeGeometry)
+    structured = lattice or (
+        all(isinstance(g, StructuredGeometry) for g in geos)
+        and len({(g.M, g.vs) for g in geos}) == 1
     )
     gather = all(isinstance(g, PackedGeometry) for g in geos) and (
         len({(g.ndofs, g.vs) for g in geos}) == 1
     )
     if not geos or not (structured or windowed or gather):
         msg = (
-            "make_packed_step supports StructuredGeometry views of one grid, "
-            "WindowedGeometry plans on one shared node order (the same (M_pad, vs)) or "
-            "PackedGeometry geometries of one space; build several laws through "
-            "build_packed_problem"
+            "make_packed_step supports StructuredGeometry views of one grid, one "
+            "LatticeGeometry, WindowedGeometry plans on one shared node order (the "
+            "same (M_pad, vs)) or PackedGeometry geometries of one space; build "
+            "several laws through build_packed_problem"
         )
         raise ValueError(msg)
     if "kernel" in (matvec_impl, eval_impl):
-        if windowed or gather:
+        if windowed or gather or lattice:
             msg = (
-                "matvec_impl/eval_impl='kernel' are the structured engine's kernels; "
+                "matvec_impl/eval_impl='kernel' are the structured hex engine's kernels; "
                 "the windowed engine launches its own kernels on CUDA tensors, and "
-                "the gather engine runs 'plain'"
+                "the gather and lattice engines run 'plain'"
             )
             raise ValueError(msg)
         if len(geos) > 1:

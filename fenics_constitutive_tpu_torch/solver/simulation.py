@@ -36,7 +36,7 @@ from ..ops.cuda_matvec import build_cuda_matvec, hot_path_geometry
 from ..ops.structured import build_structured_geometry, build_structured_tet_geometry
 from ..ops.windowed import WindowedGeometry
 from .amg import build_amg
-from .multigrid import build_multigrid
+from .multigrid import build_multigrid, build_p2_node_preconditioner, refined_p1_geometry
 from .packed_step import (
     PackedState,
     build_packed_problem,
@@ -140,10 +140,18 @@ class PackedSimulation:
         self.state: PackedState = state
         geo = geos[0]
         #: the engine the mesh resolved to: "structured", "structured_tet",
-        #: "windowed" or "gather"
+        #: "lattice", "windowed" or "gather"
         self.engine = geo.engine
         windowed = self.engine == "windowed"
-        box = self.engine in ("structured", "structured_tet")
+        box = self.engine in ("structured", "structured_tet", "lattice")
+        # one degree-2 law on a cell subset of a box of hexes or quads (the
+        # windowed or gather engine): the refined-P1 hierarchy on node-major
+        # vectors (build_p2_node_preconditioner)
+        mesh = space.mesh
+        p2_subset = (
+            not box and len(geos) == 1 and space.degree == 2
+            and mesh.structured_shape is not None and mesh.cell_type in ("hex", "quad")
+        )
         zeros = torch.zeros(space.ndofs, dtype=dtype, device=self.device)
         #: external load, node-major [ndofs] (reassign between steps)
         self.f_ext = zeros if f_ext is None else torch.as_tensor(
@@ -155,7 +163,7 @@ class PackedSimulation:
 
         if preconditioner == "auto":
             preconditioner = "amg" if windowed else None
-        allowed = (None, "vcycle", "bpx", "amg") if box else (None, "amg")
+        allowed = (None, "vcycle", "bpx", "amg") if box or p2_subset else (None, "amg")
         if preconditioner not in allowed:
             msg = (
                 f"preconditioner {preconditioner!r} on the {self.engine} engine; "
@@ -206,21 +214,38 @@ class PackedSimulation:
                     # V(3,3) with lighter coarse smoothing and a direct
                     # coarsest solve: the configuration of the benchmark
                     opts = {"nu": 3, "nu_coarse": 2, "coarse_direct": True, **opts}
-                # several laws: one whole-grid hierarchy (an elastic
-                # surrogate either way); the K3 chains replace the fine apply
-                build = (build_structured_geometry if self.engine == "structured"
-                         else build_structured_tet_geometry)
-                geo_mg = geo if len(geos) == 1 else build(
-                    space, q_degree, geo.constraint, device=self.device, dtype=dtype
-                )
-                fine_mv = None
-                if matvec_impl == "kernel" and not opts.get("fused_smoothing", False):
-                    fine_mv = build_cuda_matvec(geo)
-                mg = build_multigrid(
-                    geo_mg, mu, kappa, free, device=self.device, dtype=dtype,
-                    fine_matvec=fine_mv, **opts,
-                )
-                pc = {"bpx": mg.bpx, "vcycle": mg}[preconditioner]
+                if p2_subset:
+                    # node-major vectors, permuted onto the refined P1 grid
+                    p2pc = build_p2_node_preconditioner(
+                        space, mu, kappa, free, device=self.device, dtype=dtype,
+                        use_bpx=preconditioner == "bpx", **opts,
+                    )
+                    pc = (lambda r: geo.to_internal(p2pc(geo.from_internal(r)))) if windowed \
+                        else p2pc
+                else:
+                    if self.engine == "lattice":
+                        # the refined-P1 hierarchy on the same dof lattice: the
+                        # grid-major vectors coincide, no permutation
+                        geo_mg, _ = refined_p1_geometry(space, geo.constraint,
+                                                        device=self.device, dtype=dtype)
+                    elif len(geos) == 1:
+                        geo_mg = geo
+                    else:
+                        # several laws: one whole-grid hierarchy (an elastic
+                        # surrogate either way)
+                        build = (build_structured_geometry if self.engine == "structured"
+                                 else build_structured_tet_geometry)
+                        geo_mg = build(space, q_degree, geo.constraint, device=self.device,
+                                       dtype=dtype)
+                    # the K3 chains replace the fine apply
+                    fine_mv = None
+                    if matvec_impl == "kernel" and not opts.get("fused_smoothing", False):
+                        fine_mv = build_cuda_matvec(geo)
+                    mg = build_multigrid(
+                        geo_mg, mu, kappa, free, device=self.device, dtype=dtype,
+                        fine_matvec=fine_mv, **opts,
+                    )
+                    pc = {"bpx": mg.bpx, "vcycle": mg}[preconditioner]
         self._mg = mg
 
         if cg_flexible is None:

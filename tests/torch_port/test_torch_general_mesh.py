@@ -212,7 +212,8 @@ def test_windowed_state_from_numpy_and_step(simulations, mat):
 
 #: the engine names of the JAX package's geometry types
 JAX_ENGINES = {"StructuredGeometry": "structured", "StructuredTetGeometry": "structured_tet",
-               "WindowedGeometry": "windowed", "PackedGeometry": "gather"}
+               "WindowedGeometry": "windowed", "PackedGeometry": "gather",
+               "LatticeGeometry": "lattice"}
 
 
 def test_engines_not_ported_raise(tets, mat):
@@ -220,8 +221,8 @@ def test_engines_not_ported_raise(tets, mat):
     under WINDOWED_MIN_CELLS takes the gather engine ("auto" and "gather")
     or the windowed one ("windowed"), a Kuhn box the structured-tet engine
     whatever ``engine`` says, an interval bar the gather engine, as in the
-    JAX package. Only the lattice engine (degree 2 on a whole hex box), not
-    ported, raises."""
+    JAX package; a degree-2 space on a whole hex or quad box takes the
+    lattice engine in both packages."""
     from fenics_constitutive_tpu import fem as jfem
     from fenics_constitutive_tpu import models as jm
     from fenics_constitutive_tpu_torch import fem as tfem
@@ -249,9 +250,20 @@ def test_engines_not_ported_raise(tets, mat):
                                   engine=engine)[0][0]
         assert JAX_ENGINES[type(gj).__name__] == expected, (engine, expected)
         assert JAX_ENGINES[type(gt).__name__] == expected == resolve_engine(Vt, engine)
-    p2_box = tfem.FunctionSpace(tfem.unit_cube_mesh(2, 2, 2, "hex"), 2, 3)
-    with pytest.raises(NotImplementedError, match="lattice"):
-        build_packed_problem(p2_box, VonMises3D(mat), 2, device="cpu", dtype=F64)
+    for kind in ("hex", "quad"):
+        p2 = {k: f.FunctionSpace(f.unit_cube_mesh(2, 2, 2, kind), 2, 3) if kind == "hex"
+              else f.FunctionSpace(f.unit_square_mesh(3, 2, kind), 2, 2)
+              for k, f in (("jax", jfem), ("torch", tfem))}
+        law = vm if kind == "hex" else jm.PlaneStrainFrom3D(vm)
+        for engine in ("auto", "windowed", "gather"):
+            gj = jax_problem(p2["jax"], law, 4, engine=engine)[0][0]
+            gt = build_packed_problem(p2["torch"], model_from_jax(law), 4, device="cpu",
+                                      dtype=F64, engine=engine)[0][0]
+            assert JAX_ENGINES[type(gj).__name__] == "lattice" == JAX_ENGINES[type(gt).__name__]
+            assert resolve_engine(p2["torch"], engine) == "lattice" == gt.engine
+        # a degree-2 law on a cell subset of the box: windowed or gather by cell count
+        assert resolve_engine(p2["torch"], "auto", whole_mesh=False) == "gather"
+        assert resolve_engine(p2["torch"], "windowed", whole_mesh=False) == "windowed"
 
 
 def test_preconditioners_not_ported_raise(box, tets, mat):

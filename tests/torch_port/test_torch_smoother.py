@@ -140,13 +140,24 @@ def test_fused_vcycle_matches_jax_and_unfused(hierarchies, direct):
 
 
 def test_quad_level_on_the_card_is_not_ported():
-    """The kernel path refuses a 2D quad level before touching the card."""
+    """A 2D quad level is a level of the K3 kernels (its 9-point stencils are
+    built on the host); a level of neither the hex nor the quad corner
+    layout is refused with ValueError before touching the card."""
+    import copy
+
     V = FunctionSpace(unit_square_mesh(4, 4, "quad"), 1, 2)
     g = build_structured_geometry(V, 2, Constraint.PLANE_STRAIN, device="cpu", dtype=F64)
     ke = np.eye(8)
     z = torch.zeros(V.ndofs, dtype=F64)
     chain = cuda_smoother.build_fused_smoother(g, ke, z, g.mask, nu=2, zero_start=True,
                                                emit_residual=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert cuda_smoother.smoother_geometry_ok(g)
+    assert cuda_smoother.quad_corner_layout(g)
+    cuda_smoother._check_card_level(chain)
+    assert chain.n_patterns == 9 and chain.pid.numel() == g.M
+    odd = copy.copy(g)
+    odd.offsets = tuple(reversed(g.offsets))
+    assert not cuda_smoother.smoother_geometry_ok(odd)
+    chain.geo = odd
+    with pytest.raises(ValueError, match="corner layouts"):
         chain._kernel(None, z)
-    assert not cuda_smoother.smoother_geometry_ok(g)

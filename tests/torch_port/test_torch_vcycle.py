@@ -180,11 +180,11 @@ def test_pattern_stencils_equal_the_gather(twins, lvl):
     chain = mg_t.fused_cycle._chain(lvl)
     n0, n1, n2 = chain.grid
     pid = chain.pid.numpy().astype(np.int64).reshape(n0, n1, n2)
-    n_pat = chain.st.numel() // cuda_smoother.STENCIL_VALUES
+    n_pat = chain.st.numel() // cuda_smoother.stencil_values(3)
     assert pid.max() < n_pat <= 27
     x = torch.tensor(np.random.default_rng(5).normal(size=3 * n0 * n1 * n2))
     ref = cuda_smoother._apply_plain(chain.geo, chain.ke, chain.mask, x).reshape(3, n0, n1, n2)
-    st = chain.st.numpy().reshape(n_pat, 3, cuda_smoother.STENCIL_K)[:, :, :81]
+    st = chain.st.numpy().reshape(n_pat, 3, cuda_smoother.stencil_k(3))[:, :, :81]
     st = st.reshape(n_pat, 3, 27, 3)  # [p][k][d][j]
     xp = np.pad(x.numpy().reshape(3, n0, n1, n2), ((0, 0), (1, 1), (1, 1), (1, 1)))
     got = np.zeros((3, n0, n1, n2))
