@@ -182,6 +182,30 @@ Degree 2, and the 2D boxes (every P2 mesh the JAX package accepts):
      operator; phase 9's protocol (fixed-3 PCG held to fixed-9 and fixed-18
      within 1.02x) with ms/step and the set-up split; 2 converged steps.
 
+The reference-parity path (IncrSmallStrainProblem, make_load_step, the AoS
+assembly, norms, sensors, checkpoints and the native-model bridge):
+
+ 22. (a) phase 9's imported 35^3 mesh (read back through read_gmsh), float64,
+     VonMises3D, 2 steps of the stretch 0.0004 k with Newton rtol 1e-10,
+     atol 1e-8 and CG rtol 1e-10: IncrSmallStrainProblem on the packed
+     engine (it must resolve to the windowed one) and on the AoS engine, both
+     preconditioned by ONE AMG hierarchy built with spmv="windowed" and
+     passed as a callable, and PackedSimulation with default options. Every
+     step converges; u and stress of the three agree within 1e-6 normwise,
+     Newton counts within one; the AoS residual is bit-equal across two
+     calls (no atomics); K4, K5 and K6 launch on the packed problem's steps
+     and K1, K2 and K3 never. Prints ms per step, Newton and CG iterations,
+     the AMG host build, the set-up and the device memory peak of each run.
+     (b) a 4^3 hex box (structured engine, Jacobi) and a shuffled 6^3 tet
+     mesh (gather engine, "amg"), float64, both engines with one law and
+     with two laws on cell subsets, and make_load_step: on the card against
+     the CPU, equal Newton counts and u and stress within 1e-10; a
+     DisplacementSensor, a QPSensor and norm() of the stress likewise; a
+     checkpoint round trip into a second problem that continues bit-equal;
+     then the native bridge (built with c++/cc): LinearElasticity3D, the
+     native linear-hardening Mises law and the C UMAT in a problem on the
+     card, each within 1e-10 of the port's own model.
+
 A kernel's time on the card and a device-op count come from torch.profiler.
 CUPTI now and then delivers a short profile on the H100, so such a profile
 is taken again, three times in all; after that the time is taken by CUDA
@@ -192,7 +216,8 @@ says how often that happened.
 Then one JSON line of per-kernel results (launches on the path's run, for
 K3 also on phase 16's tet run, phase 19's fused P2 steps and phase 20's P2
 quad steps, for K4-K6 also on phase 14's 3-step run and phase 21's timed
-run, for K6 also on phase 17's timed run, times, plain and library times,
+run, for K6 also on phase 17's timed run, for every kernel on phase 22's
+packed problem (0 for K1-K3), times, plain and library times,
 the bound; for K3 also the quad entries' numbers) and, last, the device
 JSON line.
 
@@ -2920,6 +2945,319 @@ def phase_p2_imported(results: dict, workdir: Path) -> dict:
     return counts
 
 
+# -- phase 22: the reference-parity path -----------------------------------------------
+
+#: phase 22's Newton and CG tolerances, the same for all three full-width runs
+PARITY_SOLVE = dict(rtol=1e-10, atol=1e-8, cg_rtol=1e-10)
+TOL_PARITY = 1e-6  # the three runs' u and stress, normwise
+N_PARITY_BOX, N_PARITY_TETS = 4, 6  # phase 22(b)'s hex box and shuffled tet mesh
+NATIVE_MISES = {"mu": MU, "kappa": KAPPA, "y_0": 1200.0, "h": 200.0}
+
+
+def window_counts() -> dict:
+    from fenics_constitutive_tpu_torch.ops import cuda_window
+
+    return {"K4": cuda_window.launches["gather"], "K5": cuda_window.launches["scatter"],
+            "K6": cuda_window.launches["bsr_matvec"]}
+
+
+def reset_all_counts() -> None:
+    from fenics_constitutive_tpu_torch.ops import cuda_window
+
+    reset_counts()
+    for key in cuda_window.launches:
+        cuda_window.launches[key] = 0
+
+
+def parity_steps(solve, k_max: int = 2) -> tuple[list, float]:
+    """Steps of the stretch 0.0004 k through ``solve(k) -> (niter, cg, ok)``;
+    (per-step (niter, cg), ms per step)."""
+    rows = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(1, k_max + 1):
+        niter, cg, ok = solve(k)
+        if not ok:
+            fail(f"phase 22: step {k} did not converge")
+        rows.append((niter, cg))
+    torch.cuda.synchronize()
+    return rows, (time.perf_counter() - t0) * 1e3 / k_max
+
+
+def phase_parity_full(tet: dict) -> dict:
+    """Phase 22(a): IncrSmallStrainProblem on both engines and PackedSimulation
+    on phase 9's imported 35^3 mesh, float64, with one AMG hierarchy."""
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace
+    from fenics_constitutive_tpu_torch.models import VonMises3D
+    from fenics_constitutive_tpu_torch.solver import (
+        IncrSmallStrainProblem,
+        PackedSimulation,
+        build_amg,
+    )
+
+    f64 = torch.float64
+    V = FunctionSpace(tet["mesh"], 1, 3)
+    t0 = time.perf_counter()
+    amg = build_amg(V, MU, KAPPA, free_mask(V, bench_bcs(V)), q_degree=2, spmv="windowed",
+                    device=CARD, dtype=f64)
+    amg_s = time.perf_counter() - t0
+    runs, line = {}, []
+    for name in ("packed", "aos", "simulation"):
+        bcs = bench_bcs(V)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if name == "simulation":
+            sim = PackedSimulation(
+                VonMises3D(MAT), V, bcs, 2, device=CARD, dtype=f64,
+                newton_rtol=PARITY_SOLVE["rtol"], newton_atol=PARITY_SOLVE["atol"],
+                cg_rtol=PARITY_SOLVE["cg_rtol"], cg_maxiter=5000)
+            if (sim.engine, sim.preconditioner) != ("windowed", "amg"):
+                fail(f"phase 22 PackedSimulation resolved to {sim.engine} + {sim.preconditioner}")
+            build_s, pc_s = time.perf_counter() - t0, sim._mg.build_seconds["hierarchy"]
+
+            def solve(k, sim=sim, bcs=bcs):
+                bcs[1].value = STRETCH_STEP * k
+                niter, ok = sim.solve()
+                return niter, int(sim.last_stats["cg_iters_last"]), ok
+        else:
+            p = IncrSmallStrainProblem(VonMises3D(MAT), V, bcs, 2, device=CARD, dtype=f64,
+                                       engine=name, preconditioner=amg)
+            if name == "packed" and p._pk_geos[0].engine != "windowed":
+                fail(f"phase 22's packed problem resolved to {p._pk_geos[0].engine}")
+            build_s, pc_s = time.perf_counter() - t0, amg.build_seconds["hierarchy"]
+
+            def solve(k, p=p, bcs=bcs):
+                bcs[1].value = STRETCH_STEP * k
+                niter, ok = p.solve(**PARITY_SOLVE)
+                p.update()
+                return niter, p.last_stats["cg_iters"], ok
+        reset_all_counts()
+        rows, ms = parity_steps(solve)
+        counts = {**read_counts(), **window_counts()}
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        if name == "simulation":
+            u, stress = sim.u, torch.as_tensor(sim.stress, device=CARD)
+        else:
+            u, stress = p.u, p.stress_0
+            if name == "aos":
+                # the AoS residual is a gather and a sum in a fixed order: bit-equal
+                r1 = p._eval_assemble_aos(p.u, p._time, p.del_t)[0]
+                r2 = p._eval_assemble_aos(p.u, p._time, p.del_t)[0]
+                if not torch.equal(r1, r2):
+                    fail("phase 22: the AoS residual differs between two calls")
+        if not (torch.isfinite(u).all() and torch.isfinite(stress).all()):
+            fail(f"phase 22 {name}: non-finite state")
+        runs[name] = (u, stress, [r[0] for r in rows], counts)
+        line.append(f"{name}: {ms:.1f} ms/step, newton {[r[0] for r in rows]}, cg "
+                    f"{[r[1] for r in rows]}{' (last solve)' if name == 'simulation' else ''}, "
+                    f"set-up {build_s:.1f} s (AMG host build {pc_s:.1f} s), peak "
+                    f"{mem:.2f} GiB, launches K4 {counts['K4']} K5 {counts['K5']} K6 "
+                    f"{counts['K6']} K1-K3 {counts['K1'] + counts['K2'] + counts['K3']}")
+    u0, s0, it0, _ = runs["packed"]
+    worst = 0.0
+    for name in ("aos", "simulation"):
+        u, s, its, _ = runs[name]
+        rel = max(normwise(u, u0)[1], normwise(s, s0)[1])
+        worst = max(worst, rel)
+        if rel > TOL_PARITY or any(abs(a - b) > 1 for a, b in zip(its, it0)):
+            fail(f"phase 22 {name} against the packed problem: rel {rel:.2e}, newton {its} "
+                 f"vs {it0}")
+    packed_counts = runs["packed"][3]
+    print(f"phase 22(a) the reference-parity path on the imported {N_TET}^3 mesh "
+          f"({tet['mesh'].num_cells:,} tets, {N_QP_TET:,} padded QPs) f64, 2 steps of "
+          f"{STRETCH_STEP} k, Newton rtol {PARITY_SOLVE['rtol']:g} atol {PARITY_SOLVE['atol']:g},"
+          f" CG rtol {PARITY_SOLVE['cg_rtol']:g}, one AMG (windowed levels, host build "
+          f"{amg_s:.1f} s) for both problems: " + "; ".join(line)
+          + f"; u and stress agree within {worst:.2e} (tol {TOL_PARITY:g}); the AoS residual "
+          "is bit-equal across two calls")
+    for name, (_, _, _, counts) in runs.items():
+        if counts["K1"] or counts["K2"] or counts["K3"]:
+            fail(f"phase 22 {name} launched K1-K3: {counts}")
+    if min(packed_counts["K4"], packed_counts["K5"], packed_counts["K6"]) <= 0:
+        fail(f"phase 22's packed problem did not launch K4, K5 and K6: {packed_counts}")
+    return {"packed": packed_counts, "steps": 2}
+
+
+def parity_small_cases() -> dict:
+    """Phase 22(b)'s meshes: name -> (space maker, problem options)."""
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace
+
+    return {
+        "box": (lambda: box(N_PARITY_BOX)[0], {}),
+        "tets": (lambda: FunctionSpace(imported_mesh(N_PARITY_TETS), 1, 3),
+                 {"preconditioner": "amg"}),
+    }
+
+
+def parity_laws(V, kind: str):
+    from fenics_constitutive_tpu_torch import models as m
+
+    if kind == "one law":
+        return m.VonMises3D(MAT)
+    z = V.mesh.cell_midpoints()[:, 2]
+    return [(m.LinearElasticityModel({"E": 150000.0, "nu": 0.3}, m.Constraint.FULL),
+             np.flatnonzero(z < 0.5)), (m.VonMises3D(MAT), np.flatnonzero(z >= 0.5))]
+
+
+def parity_small_run(space, opts, engine, kind, device):
+    """Two converged steps of 0.004 k; (iterations, u, stress) on the host."""
+    from fenics_constitutive_tpu_torch.solver import IncrSmallStrainProblem
+
+    V = space()
+    bcs = bench_bcs(V)
+    p = IncrSmallStrainProblem(parity_laws(V, kind), V, bcs, 2, device=device,
+                               dtype=torch.float64, engine=engine, **opts)
+    its = []
+    for k in (1, 2):
+        bcs[1].value = 0.004 * k
+        niter, ok = p.solve(rtol=1e-11, atol=1e-10, cg_rtol=1e-12)
+        if not ok:
+            fail(f"phase 22(b) {engine} {kind} on {device}: step {k} did not converge")
+        p.update()
+        its.append(niter)
+    return its, p.u.cpu(), p.stress_0.cpu(), p
+
+
+def load_step_run(space, device):
+    """make_load_step over two steps of 0.004 k from the zero state."""
+    from fenics_constitutive_tpu_torch.fem import combine_bcs
+    from fenics_constitutive_tpu_torch.solver import (
+        IncrSmallStrainProblem,
+        StepState,
+        make_load_step,
+    )
+
+    V = space()
+    bcs = bench_bcs(V)
+    law = parity_laws(V, "one law")
+    p = IncrSmallStrainProblem(law, V, bcs, 2, device=device, dtype=torch.float64, engine="aos")
+    step = make_load_step(p, newton_rtol=1e-11)
+    st = StepState(u=p.u, stress=p._stress_prev, histories=p._histories,
+                   t=torch.zeros((), dtype=torch.float64, device=device))
+    its = []
+    for k in (1, 2):
+        bcs[1].value = 0.004 * k
+        dofs, vals = combine_bcs(bcs)
+        st, stats = step(p._models, st, dofs, vals, torch.zeros_like(p.u), 1.0)
+        its.append(int(stats["newton_iters"]))
+    return its, st.u.cpu(), st.stress.cpu()
+
+
+def phase_parity_small(workdir: Path) -> None:
+    """Phase 22(b): small meshes on the card against the CPU, float64."""
+    from fenics_constitutive_tpu_torch import models as m
+    from fenics_constitutive_tpu_torch import native
+    from fenics_constitutive_tpu_torch.postprocessing import DisplacementSensor, QPSensor, norm
+    from fenics_constitutive_tpu_torch.solver import IncrSmallStrainProblem
+    from fenics_constitutive_tpu_torch.utils import (
+        load_checkpoint,
+        load_state_dict,
+        save_checkpoint,
+        state_dict,
+    )
+
+    line, worst = [], 0.0
+    for mesh_name, (space, opts) in parity_small_cases().items():
+        runs = {}
+        for engine in ("packed", "aos"):
+            for kind in ("one law", "two laws"):
+                out = {d: parity_small_run(space, opts, engine, kind, d) for d in (CARD, "cpu")}
+                runs[(engine, kind)] = out
+        runs[("load step", "one law")] = {d: load_step_run(space, d) for d in (CARD, "cpu")}
+        for (engine, kind), out in runs.items():
+            (it_c, u_c, s_c, *_), (it_h, u_h, s_h, *_) = out[CARD], out["cpu"]
+            rel = max(normwise(u_c, u_h)[1], normwise(s_c, s_h)[1])
+            worst = max(worst, rel)
+            if it_c != it_h or rel > TOL_SMALL:
+                fail(f"phase 22(b) {mesh_name} {engine} {kind}: newton {it_c} on the card, "
+                     f"{it_h} on the CPU, rel {rel:.2e}")
+        line.append(f"{mesh_name} newton {runs[('packed', 'one law')][CARD][0]}")
+
+        # observations of the card's packed one-law problem against the CPU's
+        p_c, p_h = runs[("packed", "one law")][CARD][3], runs[("packed", "one law")]["cpu"][3]
+        V = p_c.space
+        pts = [[0.5, 0.25, 0.25], [0.9, 0.6, 0.3]]
+        reads = []
+        for p in (p_c, p_h):
+            reads.append((DisplacementSensor(V, pts)(p.u).cpu(),
+                          QPSensor(V, 2, pts)(p.stress_0).cpu(), norm(p.stress_0, p.dxm).cpu()))
+        for a, b in zip(*reads):
+            rel = normwise(a, b)[1]
+            worst = max(worst, rel)
+            if rel > TOL_SMALL:
+                fail(f"phase 22(b) {mesh_name}: a sensor or norm differs from the CPU by {rel:.2e}")
+
+        # a checkpoint round trip on the card continues bit-equal
+        def problem():
+            bcs = bench_bcs(V)
+            return IncrSmallStrainProblem(parity_laws(V, "one law"), V, bcs, 2, device=CARD,
+                                          dtype=torch.float64, **opts), bcs
+
+        (pa, ba), (pb, bb) = problem(), problem()
+        ba[1].value = 0.004
+        pa.solve()
+        pa.update()
+        path = workdir / f"parity_{mesh_name}.npz"
+        save_checkpoint(path, state_dict(pa))
+        load_state_dict(pb, load_checkpoint(path))
+        for p, b in ((pa, ba), (pb, bb)):
+            b[1].value = 0.008
+            p.solve()
+            p.update()
+        if not (torch.equal(pa.u, pb.u) and torch.equal(pa.stress_0, pb.stress_0)):
+            fail(f"phase 22(b) {mesh_name}: the restored problem did not continue bit-equal")
+
+    # the native bridge in a problem on the card, against the port's own models
+    E_ = 9.0 * KAPPA * MU / (3.0 * KAPPA + MU)
+    NU_ = (3.0 * KAPPA - 2.0 * MU) / (2.0 * (3.0 * KAPPA + MU))
+    elastic = lambda: m.LinearElasticityModel({"E": E_, "nu": NU_}, m.Constraint.FULL)  # noqa: E731
+    pairs = {
+        "LinearElasticity3D": (lambda: native.LinearElasticity3D({"mu": MU, "kappa": KAPPA}),
+                               elastic),
+        "mises": (lambda: native.NativeModel("mises_linear_hardening3d", NATIVE_MISES),
+                  lambda: m.MisesPlasticityLinearHardening3D(NATIVE_MISES)),
+        "C UMAT": (lambda: native.UmatModel(native.umat_demo_path(), [E_, NU_], n_statev=1),
+                   elastic),
+    }
+    t0 = time.perf_counter()
+    native.ensure_built()
+    native_s = time.perf_counter() - t0
+    nat = []
+    for name, (native_law, port_law) in pairs.items():
+        out = []
+        for law in (native_law(), port_law()):
+            V = box(N_PARITY_BOX)[0]
+            bcs = bench_bcs(V)
+            p = IncrSmallStrainProblem(law, V, bcs, 2, device=CARD, dtype=torch.float64)
+            for k in (1, 2):
+                bcs[1].value = 0.004 * k
+                if not p.solve(rtol=1e-11, atol=1e-10, cg_rtol=1e-12)[1]:
+                    fail(f"phase 22(b) {name}: step {k} did not converge")
+                p.update()
+            out.append((p.u, p.stress_0))
+        rel = max(normwise(out[0][0], out[1][0])[1], normwise(out[0][1], out[1][1])[1])
+        if rel > TOL_SMALL:
+            fail(f"phase 22(b) native {name} differs from the port's model by {rel:.2e}")
+        nat.append(f"{name} rel {rel:.1e}")
+    print(f"phase 22(b) small meshes card vs CPU f64 (a {N_PARITY_BOX}^3 hex box on the "
+          f"structured engine with Jacobi, a shuffled {N_PARITY_TETS}^3 tet mesh on the gather "
+          "engine with the AMG; both engines, one law and two laws, make_load_step; 2 steps of "
+          f"0.004 k, Newton counts equal, tol {TOL_SMALL:g}): max rel {worst:.2e}; "
+          + "; ".join(line) + "; sensors, norm and a checkpoint round trip (bit-equal) on both; "
+          f"native laws in a problem on the card (build {native_s:.1f} s): " + "; ".join(nat))
+
+
+def phase_parity(tet: dict, workdir: Path) -> dict:
+    """Phase 22: the reference-parity path."""
+    full = phase_parity_full(tet)
+    reset_all_counts()
+    phase_parity_small(workdir)
+    counts = read_counts()
+    if counts["K1"] or counts["K2"] or counts["K3"]:
+        fail(f"phase 22(b) launched K1-K3: {counts}")
+    return full
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2957,6 +3295,8 @@ def main() -> None:
     run_2d = timed("phase 20", phase_2d, results)
     with tempfile.TemporaryDirectory() as tmp:
         p2_tet = timed("phase 21", phase_p2_imported, results, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        parity = timed("phase 22", phase_parity, tet, Path(tmp))
     print(f"profiler: {PROFILER_MISSES['profiles']} short profiles taken again, "
           f"{PROFILER_MISSES['fallbacks']} measures by the fallback (gated_ms, aten_device_ops)")
     counts = box_bench["counts"]
@@ -2964,31 +3304,37 @@ def main() -> None:
     kernels = [
         {"name": "fused_matvec", "route": "cuda", "source": src + "matvec.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_matvec.py:42",
-         "launches": counts["K1"], **results["K1"]},
+         "launches": counts["K1"], "launches_parity_run": parity["packed"]["K1"],
+         **results["K1"]},
         {"name": "fused_eval", "route": "cuda", "source": src + "eval.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_eval.py:52",
-         "launches": counts["K2"], **results["K2"]},
+         "launches": counts["K2"], "launches_parity_run": parity["packed"]["K2"],
+         **results["K2"]},
         *({"name": name, "route": "cuda", "source": src + "smoother.cu",
            "replaces": "fenics_constitutive_tpu/ops/pallas_smoother.py:38",
            "launches": fused_bench["counts"][f"K3_{kind}"],
            "launches_tet_run": tet_box["counts"][f"K3_{kind}"],
            "launches_p2_run": p2_box_run["counts"][f"K3_{kind}"],
-           "launches_2d_run": run_2d["counts"][f"K3_{kind}"], **results[f"K3_{kind}"],
+           "launches_2d_run": run_2d["counts"][f"K3_{kind}"],
+           "launches_parity_run": parity["packed"][f"K3_{kind}"], **results[f"K3_{kind}"],
            "p2_levels": results[f"K3_p2_{kind}"], "quad_levels": results[f"K3_2d_{kind}"]}
           for kind, name in K3_ENTRIES.items()),
         {"name": "windowed_gather", "route": "cuda", "source": src + "window.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:89",
          "launches": tet_counts["gather"], "launches_two_law_run": two_law["gather"],
-         "launches_p2_run": p2_tet["gather"], **results["K4"]},
+         "launches_p2_run": p2_tet["gather"], "launches_parity_run": parity["packed"]["K4"],
+         **results["K4"]},
         {"name": "windowed_scatter", "route": "cuda", "source": src + "window.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:153",
          "launches": tet_counts["scatter"], "launches_two_law_run": two_law["scatter"],
-         "launches_p2_run": p2_tet["scatter"], **results["K5"]},
+         "launches_p2_run": p2_tet["scatter"], "launches_parity_run": parity["packed"]["K5"],
+         **results["K5"]},
         {"name": "windowed_bsr_matvec", "route": "cuda", "source": src + "window.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:235",
          "launches": tet_counts["bsr_matvec"], "launches_two_law_run": two_law["bsr_matvec"],
          "launches_gather_run": gather_counts["bsr_matvec"],
-         "launches_p2_run": p2_tet["bsr_matvec"], **results["K6"]},
+         "launches_p2_run": p2_tet["bsr_matvec"],
+         "launches_parity_run": parity["packed"]["K6"], **results["K6"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

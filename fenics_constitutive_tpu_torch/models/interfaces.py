@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import abc
 import math
+from typing import Any
 
 import torch
 
@@ -34,7 +35,7 @@ from ..ops import mandel
 from ..ops.mandel import Constraint
 from ..ops.packed import DenseTangent
 
-__all__ = ["Constraint", "History", "IncrSmallStrainModel"]
+__all__ = ["Constraint", "History", "IncrSmallStrainModel", "as_param_dict", "rotate_history"]
 
 History = dict[str, torch.Tensor] | None
 
@@ -90,6 +91,14 @@ class IncrSmallStrainModel(abc.ABC):
         """Name -> per-QP shape of each history variable: an int for a
         vector entry, a ``(rows, cols)`` tuple for a matrix entry."""
 
+    @property
+    def rotatable_history(self) -> frozenset[str]:
+        """Names of the history entries attached to the material frame: they
+        co-rotate with the material under a rotation increment
+        (:func:`rotate_history`). Default: nothing rotates (small-strain
+        models are frame-fixed)."""
+        return frozenset()
+
     def init_history(self, n_qp: int, *, dtype=torch.float64, device="cpu") -> History:
         """Zero history for ``n_qp`` points in the AoS layout: ``[Q, d]`` for
         a vector entry, ``[Q, rows, cols]`` for a matrix entry."""
@@ -139,3 +148,68 @@ class IncrSmallStrainModel(abc.ABC):
 def flat_history_dim(dim: int | tuple[int, int]) -> int:
     """Components of one history entry in the packed layout ``[d, *qp]``."""
     return dim if isinstance(dim, int) else math.prod(dim)
+
+
+def as_param_dict(parameters: dict[str, Any]) -> dict[str, torch.Tensor]:
+    """A user parameter dict (floats, numpy scalars) as 0-d float64 tensors.
+
+    A 0-d tensor takes part in type promotion by its category only, so a
+    float32 field it meets stays float32 (as a float64 tensor with
+    dimensions would not), and a CPU 0-d tensor combines with CUDA fields.
+    """
+    return {k: torch.tensor(float(v), dtype=torch.float64) for k, v in parameters.items()}
+
+
+def _conjugate(R: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """R A R^T per point, [Q, g, g] (R broadcasts over Q), as broadcast
+    multiplies and sums (never TF32)."""
+    RA = (R[:, :, :, None] * A[:, None, :, :]).sum(dim=2)
+    return (RA[:, :, None, :] * R[:, None, :, :]).sum(dim=-1)
+
+
+def rotate_history(model: IncrSmallStrainModel, history: History, R) -> History:
+    """Co-rotate a model's frame-attached history entries by ``R``.
+
+    Entries named in ``model.rotatable_history`` transform under a uniform
+    (``[g, g]``) or per-point (``[Q, g, g]``) rotation; every other entry
+    passes through untouched, and a model that declares nothing rotatable
+    gets its history back as it is.
+
+    Rules per declared entry shape (AoS history ``{name: [Q, ...]}``):
+      * a Mandel vector (dim == stress_strain_dim): ``mandel(R A R^T)``
+        through the exact Mandel <-> matrix maps;
+      * a geometric vector (dim == geometric_dim): ``R v``;
+      * a ``(g, g)`` matrix: ``R H R^T``.
+    """
+    if history is None or not model.rotatable_history:
+        return history
+    c = model.constraint
+    s, g = c.stress_strain_dim, c.geometric_dim
+    hd = model.history_dim or {}
+    out = {}
+    for name, v in history.items():
+        if name not in model.rotatable_history:
+            out[name] = v
+            continue
+        Rt = torch.as_tensor(R, dtype=v.dtype, device=v.device)
+        if Rt.dim() == 2:
+            Rt = Rt[None]  # a uniform rotation broadcasts over the points
+        dim = hd[name]
+        if isinstance(dim, tuple):
+            if dim != (g, g):
+                msg = f"rotatable matrix history '{name}' must be ({g},{g}), got {dim}"
+                raise ValueError(msg)
+            out[name] = _conjugate(Rt, v)
+        elif dim == s:
+            out[name] = mandel.matrix_to_mandel(
+                _conjugate(Rt, mandel.mandel_to_matrix(v, c)), c
+            )
+        elif dim == g:
+            out[name] = (Rt * v[:, None, :]).sum(dim=-1)
+        else:
+            msg = (
+                f"rotatable history '{name}' has dim {dim}; expected the "
+                f"Mandel dim {s}, the geometric dim {g}, or a ({g},{g}) matrix"
+            )
+            raise ValueError(msg)
+    return out

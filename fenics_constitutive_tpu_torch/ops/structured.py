@@ -249,6 +249,16 @@ class StructuredGeometry(nn.Module):
 
     # -- observation ---------------------------------------------------------------
 
+    def grad(self, u: torch.Tensor) -> torch.Tensor:
+        """Displacement gradient [g, vs, Q*M] of a node-major dof vector
+        (observation path; zero at invalid origins)."""
+        U = self._corner_dofs(self.to_grid_major(u).reshape(self.vs, self.M))
+        U = U.reshape(self.n_nodes, self.vs, self.M) * self.mask.to(u.dtype)
+        dN = torch.as_tensor(self.dN_host, dtype=u.dtype, device=u.device)  # [n, g, Q]
+        # [g, vs, Q, M]: sum_a dN[a, i, q] U[a, j, m]
+        out = (dN[:, :, None, :, None] * U[:, None, :, None, :]).sum(dim=0)
+        return out.reshape(self.gdim, self.vs, self.n_qp * self.M)
+
     def extract_cells(self, field: torch.Tensor) -> torch.Tensor:
         """[k, Q, M] cell-at-origin field -> dense [k, Q, C] in mesh cell order."""
         return field[:, :, self.cell_index]

@@ -1,5 +1,7 @@
-"""Newton-Krylov stepping on the structured, structured-tet, windowed and
-gather engines."""
+"""Newton-Krylov stepping on the structured, structured-tet, lattice,
+windowed and gather engines, and the reference-parity problem
+(``IncrSmallStrainProblem``, ``make_load_step``) on them or on the AoS
+layouts."""
 
 from .amg import AmgPreconditioner, WindowedAmgPreconditioner, build_amg
 from .linear import cg_solve
@@ -11,19 +13,25 @@ from .packed_step import (
     make_packed_step,
     resolve_engine,
 )
+from .problem import IncrSmallStrainProblem, SimulationTime
 from .simulation import PackedSimulation
+from .step import StepState, make_load_step
 
 __all__ = [
     "WINDOWED_MIN_CELLS",
     "AmgPreconditioner",
+    "IncrSmallStrainProblem",
     "MultigridPreconditioner",
     "PackedSimulation",
     "PackedState",
+    "SimulationTime",
+    "StepState",
     "WindowedAmgPreconditioner",
     "build_amg",
     "build_multigrid",
     "build_packed_problem",
     "cg_solve",
+    "make_load_step",
     "make_packed_step",
     "resolve_engine",
 ]

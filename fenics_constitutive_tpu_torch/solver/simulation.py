@@ -35,6 +35,7 @@ from ..models.interfaces import IncrSmallStrainModel
 from ..ops.cuda_matvec import build_cuda_matvec, hot_path_geometry
 from ..ops.structured import build_structured_geometry, build_structured_tet_geometry
 from ..ops.windowed import WindowedGeometry
+from ..utils.checkpoint import restore_like
 from .amg import build_amg
 from .multigrid import build_multigrid, build_p2_node_preconditioner, refined_p1_geometry
 from .packed_step import (
@@ -440,46 +441,12 @@ class PackedSimulation:
             msg = f"checkpoint of the {np.asarray(marker)} engine, simulation on {self.engine}"
             raise ValueError(msg)
 
-        def restore(node, like, where):
-            if like is None:
-                if node is not None:
-                    msg = f"checkpoint {where}: values where the state has none"
-                    raise ValueError(msg)
-                return None
-            if isinstance(like, torch.Tensor):
-                if node is None:
-                    msg = f"checkpoint {where}: missing"
-                    raise ValueError(msg)
-                if not isinstance(node, torch.Tensor):
-                    node = torch.as_tensor(np.asarray(node))
-                if tuple(node.shape) != tuple(like.shape):
-                    msg = (f"checkpoint {where}: shape {tuple(node.shape)}, the engine's "
-                           f"state has {tuple(like.shape)}")
-                    raise ValueError(msg)
-                return node.detach().to(dtype=like.dtype, device=like.device).clone()
-            if isinstance(like, tuple):
-                if isinstance(node, dict):
-                    keys = [str(i) for i in range(len(like))]
-                    if set(node) != set(keys):
-                        msg = f"checkpoint {where}: entries {sorted(node)}, expected {keys}"
-                        raise ValueError(msg)
-                    node = [node[k] for k in keys]
-                if not isinstance(node, (tuple, list)) or len(node) != len(like):
-                    msg = f"checkpoint {where}: expected {len(like)} entries"
-                    raise ValueError(msg)
-                return tuple(restore(n, li, f"{where}[{i}]")
-                             for i, (n, li) in enumerate(zip(node, like)))
-            if not isinstance(node, dict) or set(node) != set(like):
-                msg = f"checkpoint {where}: expected the entries {sorted(like)}"
-                raise ValueError(msg)
-            return {k: restore(node[k], like[k], f"{where}.{k}") for k in like}
-
         cur = self.state
         self.state = PackedState(
-            u=restore(st["u"], cur.u, "u"),
-            stress=restore(st["stress"], cur.stress, "stress"),
-            histories=restore(st["histories"], cur.histories, "histories"),
-            t=restore(st["t"], cur.t, "t"),
+            u=restore_like(st["u"], cur.u, "u"),
+            stress=restore_like(st["stress"], cur.stress, "stress"),
+            histories=restore_like(st["histories"], cur.histories, "histories"),
+            t=restore_like(st["t"], cur.t, "t"),
         )
 
     # -- observation ----------------------------------------------------------------

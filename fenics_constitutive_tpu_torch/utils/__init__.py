@@ -1,12 +1,20 @@
-"""Utilities: conversion of JAX-package models and state, checkpoints."""
+"""Utilities: conversion of JAX-package models and state, checkpoints,
+timers."""
 
-from .checkpoint import load_checkpoint, save_checkpoint
+from .checkpoint import load_checkpoint, load_state_dict, save_checkpoint, state_dict
 from .convert import model_from_jax, params_from_numpy, state_from_numpy
+from .timers import get_timings, reset_timings, timed, timing
 
 __all__ = [
+    "get_timings",
     "load_checkpoint",
+    "load_state_dict",
     "model_from_jax",
     "params_from_numpy",
+    "reset_timings",
     "save_checkpoint",
+    "state_dict",
     "state_from_numpy",
+    "timed",
+    "timing",
 ]

@@ -1,7 +1,11 @@
-"""Checkpoints of a simulation's committed state as ``.npz`` files.
+"""Checkpoints of a simulation's or a problem's committed state as ``.npz``
+files.
 
     save_checkpoint(path, sim.state_dict())
     sim.load_state_dict(load_checkpoint(path))
+
+    save_checkpoint(path, state_dict(problem))      # IncrSmallStrainProblem
+    load_state_dict(problem, load_checkpoint(path))
 
 The file format is the JAX package's (``fenics_constitutive_tpu.utils.
 checkpoint``): one array per leaf, keyed by its path in the tree joined with
@@ -16,7 +20,7 @@ import pathlib
 import numpy as np
 import torch
 
-__all__ = ["load_checkpoint", "save_checkpoint"]
+__all__ = ["load_checkpoint", "load_state_dict", "restore_like", "save_checkpoint", "state_dict"]
 
 _SEP = "::"
 
@@ -50,8 +54,9 @@ def load_checkpoint(path) -> dict:
     """Load a checkpoint into a nested dict of numpy arrays.
 
     Tuples and lists come back as dicts keyed by their stringified indices
-    and None leaves as None; ``PackedSimulation.load_state_dict`` restores
-    the tree against its own state, so it never has to guess which is which.
+    and None leaves as None; ``PackedSimulation.load_state_dict`` and
+    :func:`load_state_dict` restore the tree against the live state
+    (:func:`restore_like`), so they never have to guess which is which.
     """
     root: dict = {}
     with np.load(path) as data:
@@ -64,3 +69,78 @@ def load_checkpoint(path) -> dict:
             leafname = parts[-1] if parts else ""
             node[leafname] = None if kind == "none" else data[key]
     return root
+
+
+def restore_like(node, like, where: str = "state"):
+    """``node`` (a loaded tree: tensors or numpy arrays, with tuples possibly
+    as index-keyed dicts) restored against the live tree ``like``: the same
+    structure, tuples by index and dicts by name, every leaf of like's shape,
+    copied to like's dtype and device. Raises ValueError on a mismatch."""
+    if like is None:
+        if node is not None and not (isinstance(node, dict) and not node):
+            msg = f"checkpoint {where}: values where the state has none"
+            raise ValueError(msg)
+        return None
+    if isinstance(like, torch.Tensor):
+        if node is None:
+            msg = f"checkpoint {where}: missing"
+            raise ValueError(msg)
+        if not isinstance(node, torch.Tensor):
+            node = torch.as_tensor(np.asarray(node))
+        if tuple(node.shape) != tuple(like.shape):
+            msg = (f"checkpoint {where}: shape {tuple(node.shape)}, the live state has "
+                   f"{tuple(like.shape)}")
+            raise ValueError(msg)
+        return node.detach().to(dtype=like.dtype, device=like.device).clone()
+    if isinstance(like, (tuple, list)):
+        if isinstance(node, dict):
+            keys = [str(i) for i in range(len(like))]
+            if set(node) != set(keys):
+                msg = f"checkpoint {where}: entries {sorted(node)}, expected {keys}"
+                raise ValueError(msg)
+            node = [node[k] for k in keys]
+        if not isinstance(node, (tuple, list)) or len(node) != len(like):
+            msg = f"checkpoint {where}: expected {len(like)} entries"
+            raise ValueError(msg)
+        return type(like)(restore_like(n, li, f"{where}[{i}]")
+                          for i, (n, li) in enumerate(zip(node, like)))
+    if not isinstance(node, dict) or set(node) != set(like):
+        msg = f"checkpoint {where}: expected the entries {sorted(like)}"
+        raise ValueError(msg)
+    return {k: restore_like(node[k], like[k], f"{where}.{k}") for k in like}
+
+
+def state_dict(problem) -> dict:
+    """The committed state of an ``IncrSmallStrainProblem``: displacements,
+    the committed stress (a tuple of per-law fields on the packed engine,
+    one [C, Q, s] tensor on the AoS engine), the histories, time and dt."""
+    return {
+        "engine": problem.engine,
+        "u": problem.u,
+        "u_prev": problem.u_prev,
+        "stress_prev": problem._stress_prev,
+        "histories": tuple(problem._histories),
+        "t": torch.tensor(float(problem.sim_time.current), dtype=torch.float64),
+        "dt": torch.tensor(float(problem.sim_time.dt), dtype=torch.float64),
+    }
+
+
+def load_state_dict(problem, state: dict) -> None:
+    """Restore a :func:`state_dict` (or ``load_checkpoint`` of one) into a
+    problem of the same engine and mesh, against its own state: the stress
+    layout of its engine, histories by name. Raises ValueError on another
+    engine's checkpoint or a mismatched tree."""
+    marker = state.get("engine")
+    if marker is not None and str(np.asarray(marker)) != problem.engine:
+        msg = f"checkpoint of the {np.asarray(marker)} engine, problem on {problem.engine}"
+        raise ValueError(msg)
+    problem.u = restore_like(state["u"], problem.u, "u")
+    problem.u_prev = restore_like(state["u_prev"], problem.u_prev, "u_prev")
+    problem._stress_prev = restore_like(state["stress_prev"], problem._stress_prev,
+                                        "stress_prev")
+    problem._stress_curr = problem._stress_prev
+    problem._histories = restore_like(state["histories"], tuple(problem._histories),
+                                      "histories")
+    problem._histories_trial = problem._histories
+    problem.sim_time.current = float(np.asarray(state["t"]))
+    problem.sim_time.dt = float(np.asarray(state["dt"]))

@@ -42,7 +42,10 @@ def test_port_never_imports_jax():
                    "ops/cuda_window.py", "solver/amg.py", "ops/cuda_smoother.py",
                    "fem/facets.py", "models/linear_elasticity.py", "utils/checkpoint.py",
                    "models/drucker_prager.py", "models/plasticity_general.py",
-                   "models/viscoelasticity.py", "models/conversions.py", "utils/convert.py"):
+                   "models/viscoelasticity.py", "models/conversions.py", "utils/convert.py",
+                   "solver/problem.py", "solver/step.py", "solver/maps.py", "fem/assembly.py",
+                   "postprocessing/norms.py", "postprocessing/sensors.py", "utils/timers.py",
+                   "native/__init__.py", "models/interfaces.py"):
         assert module in scanned, module
     bad = {
         str(f.relative_to(PKG)): name
@@ -117,7 +120,8 @@ def test_window_kernels_refuse_cpu_tensors(tets, kernel):
 
 
 @pytest.mark.parametrize("entry", ["PackedSimulation", "build_packed_problem", "build_amg",
-                                   "build_multigrid", "build_structured_geometry"])
+                                   "build_multigrid", "build_structured_geometry",
+                                   "IncrSmallStrainProblem"])
 def test_entry_points_default_to_the_card(entry):
     """The entry points run on the card unless the caller asks for the CPU
     (no fallback: without a card the default fails at the first allocation)."""
