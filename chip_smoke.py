@@ -206,6 +206,30 @@ assembly, norms, sensors, checkpoints and the native-model bridge):
      native linear-hardening Mises law and the C UMAT in a problem on the
      card, each within 1e-10 of the port's own model.
 
+Sharding (parallel/, torch.distributed):
+
+ 23. (a) phase 22's packed problem (phase 9's mesh, written with
+     write_gmsh41_binary and read by every rank, f64, 2 steps of 0.0004 k,
+     Newton and CG rtol 1e-10, the same AMG built by every rank) sharded with
+     shard_problem over 2 gloo ranks spawned on the one card, timed after an
+     untimed run of its first load in the same rank: Newton and CG
+     counts equal to phase 22's, u and stress_0 within 1e-12 of it, the ranks'
+     u bit-equal, K4, K5 and K6 launched by every rank, and after the steps
+     each rank holds K4 (bit-equal) and K5 (repeatable, within TOL_K5) to
+     their plain versions on its own plan, in f64 and f32; per rank ms/step,
+     set-up, the memory peaks, its QP state, its all-reduces and the time of
+     one all_reduce of the internal vector. The same run in this process on
+     a 1-rank group, through the same wrappers (the same checks), after an
+     unsharded run (phase 22's AMG for both), splits the 2-rank step's time:
+     the wrappers and all-reduces against the second process on the card.
+     (b) in the 2 ranks, the reference's MPI test
+     problem (4x6x7 tets, AoS engine, 10 steps at Newton rtol 1e-14) within
+     1e-14 and the 7^3 hex box with linear hardening (structured slabs)
+     within 1e-12 of the card's one-process runs. (c) dryrun_multichip(2,
+     device="cuda"), first, while the card's one-process runs of (b) are
+     taken. A rank's exception, or a rank that does not end within the
+     process group's timeout, fails the phase.
+
 A kernel's time on the card and a device-op count come from torch.profiler.
 CUPTI now and then delivers a short profile on the H100, so such a profile
 is taken again, three times in all; after that the time is taken by CUDA
@@ -217,7 +241,8 @@ Then one JSON line of per-kernel results (launches on the path's run, for
 K3 also on phase 16's tet run, phase 19's fused P2 steps and phase 20's P2
 quad steps, for K4-K6 also on phase 14's 3-step run and phase 21's timed
 run, for K6 also on phase 17's timed run, for every kernel on phase 22's
-packed problem (0 for K1-K3), times, plain and library times,
+packed problem (0 for K1-K3), for K4-K6 per rank on phase 23's sharded
+run, times, plain and library times,
 the bound; for K3 also the quad entries' numbers) and, last, the device
 JSON line.
 
@@ -3048,6 +3073,9 @@ def phase_parity_full(tet: dict) -> dict:
         if not (torch.isfinite(u).all() and torch.isfinite(stress).all()):
             fail(f"phase 22 {name}: non-finite state")
         runs[name] = (u, stress, [r[0] for r in rows], counts)
+        if name == "packed":  # phase 23 holds its sharded run to this one
+            packed_run = {"u": u.cpu(), "stress": stress.cpu(), "rows": [list(r) for r in rows],
+                          "ms": ms, "amg": amg}
         line.append(f"{name}: {ms:.1f} ms/step, newton {[r[0] for r in rows]}, cg "
                     f"{[r[1] for r in rows]}{' (last solve)' if name == 'simulation' else ''}, "
                     f"set-up {build_s:.1f} s (AMG host build {pc_s:.1f} s), peak "
@@ -3075,7 +3103,7 @@ def phase_parity_full(tet: dict) -> dict:
             fail(f"phase 22 {name} launched K1-K3: {counts}")
     if min(packed_counts["K4"], packed_counts["K5"], packed_counts["K6"]) <= 0:
         fail(f"phase 22's packed problem did not launch K4, K5 and K6: {packed_counts}")
-    return {"packed": packed_counts, "steps": 2}
+    return {"packed": packed_counts, "steps": 2, **packed_run}
 
 
 def parity_small_cases() -> dict:
@@ -3258,6 +3286,182 @@ def phase_parity(tet: dict, workdir: Path) -> dict:
     return full
 
 
+# phase 23's small problems: the reference's MPI test problem (the JAX
+# package's tests/parallel/test_sharding.py, 10 steps at its tight
+# tolerances) on the AoS engine, and the 7^3 hex box with linear hardening on
+# the structured engine
+SHARD_TIGHT = dict(rtol=1e-14, atol=1e-12, cg_rtol=1e-15)
+SHARD_SMALL = {
+    "aos": {"mesh": ("box", (4, 6, 7), "tetra"), "law": "mises", "q": 1, "engine": "aos",
+            "loads": [0.05 * k / 10 for k in range(1, 11)], "solve": SHARD_TIGHT},
+    "hardening": {"mesh": ("box", (7, 7, 7), "hex"), "law": "hardening", "q": 2,
+                  "loads": [0.01, 0.02, 0.03],
+                  "solve": dict(rtol=1e-14, atol=1e-13, cg_rtol=1e-15)},
+}
+SHARD_BAR = {"full": 1e-12, "aos": 1e-14, "hardening": 1e-12}
+N_RANKS = 2
+RANK_DEVICE = None  # each rank computes on cuda:{rank % device_count}: here the one card
+SHARD_TIMEOUT = 600.0  # the process group's and the join's, seconds
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def kernel_check_errors(res: dict, label: str) -> str:
+    """Fail unless a rank's run held K4 and K5 to their plain versions on
+    its windowed plan (``check_window_kernels``); the checks in words."""
+    checks = res.get("kernel_checks") or []
+    if not checks:
+        fail(f"{label}: K4 and K5 were not held to their plain versions on its plan")
+    for c in checks:
+        tol = TOL_K5[getattr(torch, c["dtype"])]
+        if not (c["k4_equal"] and c["k5_repeatable"]) or c["k5_rel"] > tol:
+            fail(f"{label} on its plan {c['plan']} {c['dtype']}: K4 bit-equal {c['k4_equal']}, "
+                 f"K5 repeatable {c['k5_repeatable']}, K5 rel {c['k5_rel']:.2e} (tol {tol:g})")
+    return (f"plan {checks[0]['plan']}: " + ", ".join(
+        f"{c['dtype']} K4 bit-equal, K5 rel {c['k5_rel']:.1e}" for c in checks))
+
+
+def phase_sharded(tet: dict, parity: dict, workdir: Path) -> list:
+    """Phase 23: IncrSmallStrainProblem sharded over 2 gloo ranks spawned on
+    the one card (parallel/), and over 1 rank through the same wrappers;
+    returns each of the 2 ranks' K4-K6 launches in the full-width run."""
+    from fenics_constitutive_tpu_torch.fem import write_gmsh41_binary
+    import datetime
+
+    import torch.distributed as dist
+
+    from fenics_constitutive_tpu_torch.parallel import dryrun_multichip, make_device_mesh, run_ranks
+    from fenics_constitutive_tpu_torch.parallel.runs import (
+        allreduce_run,
+        cases_rank,
+        pair_run,
+        problem_run,
+    )
+
+    path = workdir / "tet35.msh"
+    write_gmsh41_binary(path, tet["mesh"])
+    # phase 22's packed problem: its mesh (read back by every rank), its AMG
+    # (built by every rank: windowed levels, passed as a node-major callable);
+    # timed after an untimed run of the first load in the same process, and
+    # after the steps each rank holds K4 and K5 to their plain versions on
+    # its own plan
+    full = {"mesh": ("gmsh", str(path)), "law": "mises", "q": 2,
+            "preconditioner": "amg_windowed", "loads": [STRETCH_STEP * k for k in (1, 2)],
+            "solve": PARITY_SOLVE, "check_window_kernels": True}
+    # the dry run's ranks (a check, not timed) while this process computes
+    # the card's one-process runs of the small problems
+    with ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        dry_run = pool.submit(dryrun_multichip, N_RANKS, CARD, SHARD_TIMEOUT)
+        refs = {name: problem_run(spec, CARD) for name, spec in SHARD_SMALL.items()}
+        dry = dry_run.result()
+        refs_s = time.perf_counter() - t0
+    print(f"phase 23(c) dryrun_multichip({N_RANKS}, device={CARD!r}): "
+          + ", ".join(f"{k} rel {v['rel_u']:.2e} QP share {v['qp_share']:.2f}"
+                      for k, v in dry[0].items()))
+    refs["full"] = {"u": parity["u"], "stress": parity["stress"], "iters": parity["rows"]}
+    n_int = tet["geos"][0].ndofs_int  # the internal vector every CG iteration sums
+    reduce_case = ("allreduce", {"numel": n_int, "dtype": "float64", "iters": 50})
+    cases = {"full": ("warm", full),
+             **{name: ("problem", spec) for name, spec in SHARD_SMALL.items()},
+             "allreduce": reduce_case}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(cases_rank, N_RANKS, cases, RANK_DEVICE, workdir=workdir / "ranks",
+                      timeout=SHARD_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    # the same full-width run in this process, unsharded and then sharded
+    # over a 1-rank group (the wrappers and a 1-rank gloo all-reduce), with
+    # phase 22's AMG and no second process on the card
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"file://{workdir / 'store1'}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT))
+    try:
+        mesh1 = make_device_mesh(1, device=RANK_DEVICE)
+        pair = pair_run(full, mesh1, pc=parity["amg"])
+        alone = {"full": pair["sharded"], "allreduce": allreduce_run(reduce_case[1], mesh1)}
+    finally:
+        dist.destroy_process_group()
+    alone_s = time.perf_counter() - t0
+    line = []
+    for name in ("full", "aos", "hardening"):
+        ref = refs[name]
+        for rank, res in enumerate([*ranks, alone] if name == "full" else ranks):
+            r = res[name]
+            who = "the 1-rank run" if rank == N_RANKS else f"rank {rank}"
+            ru, rs = rel_l2(r["u"], ref["u"]), rel_l2(r["stress"], ref["stress"])
+            newton = [k for k, _ in r["iters"]]
+            if max(ru, rs) > SHARD_BAR[name] or newton != [k for k, _ in ref["iters"]]:
+                fail(f"phase 23 {name} {who}: rel u {ru:.2e}, stress {rs:.2e} (bar "
+                     f"{SHARD_BAR[name]:g}), iterations {r['iters']} vs {ref['iters']}")
+            if name == "full" and r["iters"] != ref["iters"]:
+                fail(f"phase 23 full {who}: Newton/CG {r['iters']} vs phase 22's "
+                     f"{ref['iters']}")
+            if not r["u_bitequal"]:
+                fail(f"phase 23 {name}: the ranks' u differ")
+            if rank == 0:
+                line.append(f"{name} rel u {ru:.2e} stress {rs:.2e}")
+    per_rank, launches = [], []
+    for rank, res in enumerate(ranks):
+        r = res["full"]
+        k = {"K4": r["launches"]["gather"], "K5": r["launches"]["scatter"],
+             "K6": r["launches"]["bsr_matvec"]}
+        if min(k.values()) <= 0:
+            fail(f"phase 23 rank {rank} did not launch K4, K5 and K6: {k}")
+        launches.append(k)
+        per_rank.append(
+            f"rank {rank}: {r['ms_step']:.1f} ms/step, set-up {r['setup_s']:.1f} s and the AMG "
+            f"{r['pc_s']:.1f} s (peak "
+            f"{r['setup_mem_peak'] / 2**30:.2f} GiB), steps' peak {r['mem_peak'] / 2**30:.2f} "
+            f"GiB, QP state {r['qp_numel']:,} of {r['whole_qp_numel']:,}, launches K4 {k['K4']} "
+            f"K5 {k['K5']} K6 {k['K6']}, {r['all_reduces']} all-reduces; "
+            + kernel_check_errors(r, f"phase 23 rank {rank}")
+            + f"; aos {res['aos']['ms_step']:.1f} ms/step, hardening "
+            f"{res['hardening']['ms_step']:.1f} ms/step; all_reduce of {n_int:,} f64 on the "
+            f"card {res['allreduce']['ms']:.3f} ms")
+    a = alone["full"]
+    one = pair["one"]
+    ru = rel_l2(one["u"], refs["full"]["u"])
+    if one["iters"] != refs["full"]["iters"] or ru > SHARD_BAR["full"]:
+        fail(f"phase 23's 1-rank process, unsharded: Newton/CG {one['iters']}, rel u {ru:.2e} "
+             "against phase 22")
+    one = one["ms_step"]
+    ka = {"K4": a["launches"]["gather"], "K5": a["launches"]["scatter"],
+          "K6": a["launches"]["bsr_matvec"]}
+    if min(ka.values()) <= 0:
+        fail(f"phase 23's 1-rank run did not launch K4, K5 and K6: {ka}")
+    checks_1 = kernel_check_errors(a, "phase 23's 1-rank run")
+    # where the 2-rank step's time goes, from this call's measurements
+    steps = len(full["loads"])
+    n_red = ranks[0]["full"]["all_reduces"] / steps
+    red_1, red_2 = alone["allreduce"]["ms"], max(res["allreduce"]["ms"] for res in ranks)
+    ms_2 = max(res["full"]["ms_step"] for res in ranks)
+    print(f"phase 23(a, b) {N_RANKS} gloo ranks on the one card: phase 22's packed problem "
+          f"({tet['mesh'].num_cells:,} tets, {N_QP_TET:,} padded QPs, f64, {steps} steps) "
+          f"sharded, Newton/CG {ranks[0]['full']['iters']} as phase 22's; the AoS problem of "
+          f"the reference's MPI test (10 steps) and the 7^3 hardening box against the card's "
+          f"one-process runs (with the dry run, {refs_s:.1f} s): " + "; ".join(line)
+          + "; ranks bit-equal; " + "; ".join(per_rank)
+          + f"; ranks spawned and joined in {ranks_s:.1f} s")
+    print(f"phase 23(a) 1 rank in this process through the same wrappers: {a['ms_step']:.1f} "
+          f"ms/step, set-up {a['setup_s']:.1f} s (without the AMG), steps' peak {a['mem_peak'] / 2**30:.2f} GiB, Newton/CG "
+          f"{a['iters']}, launches K4 {ka['K4']} K5 {ka['K5']} K6 {ka['K6']}, "
+          f"{a['all_reduces']} all-reduces, all_reduce of {n_int:,} f64 {red_1:.3f} ms; "
+          f"{checks_1}; in the same process unsharded before it {one:.1f} ms/step (phase "
+          f"22's counts); both with the warm-up in {alone_s:.1f} s")
+    print(f"phase 23 split of the 2-rank step (ms/step): one process {one:.1f} (phase 22 in "
+          f"this call {parity['ms']:.1f}); 1 rank {a['ms_step']:.1f} (of which "
+          f"its {n_red:.0f} all-reduces a step {n_red * red_1:.1f}); 2 ranks {ms_2:.1f} "
+          f"(all-reduces {n_red * red_2:.1f}); the wrappers and the 1-rank all-reduces add "
+          f"{a['ms_step'] - one:.1f}, the second rank {ms_2 - a['ms_step']:.1f}, of which the "
+          f"2-rank all-reduces' extra {n_red * (red_2 - red_1):.1f} and the rest "
+          f"{ms_2 - a['ms_step'] - n_red * (red_2 - red_1):.1f}")
+    return launches
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3297,6 +3501,8 @@ def main() -> None:
         p2_tet = timed("phase 21", phase_p2_imported, results, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         parity = timed("phase 22", phase_parity, tet, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        sharded = timed("phase 23", phase_sharded, tet, parity, Path(tmp))
     print(f"profiler: {PROFILER_MISSES['profiles']} short profiles taken again, "
           f"{PROFILER_MISSES['fallbacks']} measures by the fallback (gated_ms, aten_device_ops)")
     counts = box_bench["counts"]
@@ -3323,18 +3529,21 @@ def main() -> None:
          "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:89",
          "launches": tet_counts["gather"], "launches_two_law_run": two_law["gather"],
          "launches_p2_run": p2_tet["gather"], "launches_parity_run": parity["packed"]["K4"],
+         "launches_sharded_run": [r["K4"] for r in sharded],
          **results["K4"]},
         {"name": "windowed_scatter", "route": "cuda", "source": src + "window.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:153",
          "launches": tet_counts["scatter"], "launches_two_law_run": two_law["scatter"],
          "launches_p2_run": p2_tet["scatter"], "launches_parity_run": parity["packed"]["K5"],
+         "launches_sharded_run": [r["K5"] for r in sharded],
          **results["K5"]},
         {"name": "windowed_bsr_matvec", "route": "cuda", "source": src + "window.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:235",
          "launches": tet_counts["bsr_matvec"], "launches_two_law_run": two_law["bsr_matvec"],
          "launches_gather_run": gather_counts["bsr_matvec"],
          "launches_p2_run": p2_tet["bsr_matvec"],
-         "launches_parity_run": parity["packed"]["K6"], **results["K6"]},
+         "launches_parity_run": parity["packed"]["K6"],
+         "launches_sharded_run": [r["K6"] for r in sharded], **results["K6"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -47,6 +47,32 @@ __all__ = [
 ]
 
 
+@dataclass(frozen=True)
+class CellSlots:
+    """The cell layout of a q-major QP field ``[k, Q * n_slots]``: cell c's
+    QPs sit in slot ``slot_of_cell[c]`` (a windowed plan, with padded
+    slots), or in slot c when ``slot_of_cell`` is None (the gather engine)."""
+
+    n_qp: int
+    n_slots: int
+    slot_of_cell: torch.Tensor | None = None
+
+    def extract_cells(self, field: torch.Tensor) -> torch.Tensor:
+        """QP field [k, Q * n_slots] -> [k, Q, n_cells] in cell order."""
+        f = field.reshape(field.shape[0], self.n_qp, self.n_slots)
+        return f if self.slot_of_cell is None else f[:, :, self.slot_of_cell]
+
+    def insert_cells(self, dense: torch.Tensor, dtype=None) -> torch.Tensor:
+        """[k, Q, n_cells] in cell order -> the QP field [k, Q * n_slots] (of
+        ``dtype``, default the field's; zero on padded slots)."""
+        k = dense.shape[0]
+        if self.slot_of_cell is None:
+            return dense.reshape(k, -1).to(dtype or dense.dtype)
+        out = dense.new_zeros((k, self.n_qp, self.n_slots), dtype=dtype)
+        out[:, :, self.slot_of_cell] = dense.to(out.dtype)
+        return out.reshape(k, -1)
+
+
 class PackedGeometry(nn.Module):
     """SoA tabulated geometry of one law's cells on the gather engine.
 
@@ -132,9 +158,18 @@ class PackedGeometry(nn.Module):
 
     # -- observation -----------------------------------------------------------
 
+    @property
+    def slots(self) -> CellSlots:
+        """The QP fields' cell layout: cell c in slot c."""
+        return CellSlots(self.n_qp, self.n_cells)
+
     def extract_cells(self, field: torch.Tensor) -> torch.Tensor:
         """QP field [k, N] -> [k, Q, n_cells] in the law's cell order."""
-        return field.reshape(field.shape[0], self.n_qp, self.n_cells)
+        return self.slots.extract_cells(field)
+
+    def insert_cells(self, dense: torch.Tensor, dtype=None) -> torch.Tensor:
+        """[k, Q, n_cells] in the law's cell order -> the QP field [k, N]."""
+        return self.slots.insert_cells(dense, dtype)
 
 
 def _map_fields(tangent, N: int, fn):
@@ -358,6 +393,17 @@ class IsotropicTangent:
             self.kappa * trB**2
             + self.beta * (BB - trB**2 / 3.0)
             + self.gamma * ndotB**2
+        )
+
+    def full_matrix(self) -> torch.Tensor:
+        """The tangent as a dense [6, 6, N] matrix (for debugging and tests)."""
+        ioi = torch.as_tensor(3.0 * mandel.projection_vol(6), dtype=self.n.dtype,
+                              device=self.n.device)
+        pdev = torch.as_tensor(mandel.projection_dev(6), dtype=self.n.dtype, device=self.n.device)
+        return (
+            self.kappa * ioi[:, :, None]
+            + self.beta * pdev[:, :, None]
+            + self.gamma * self.n[:, None, :] * self.n[None, :, :]
         )
 
 

@@ -42,6 +42,7 @@ __all__ = [
     "build_structured_tet_geometry",
     "restrict_structured_geometry",
     "restrict_structured_tet_geometry",
+    "slab_geometry",
 ]
 
 
@@ -208,9 +209,19 @@ class StructuredGeometry(nn.Module):
         sig = sig.reshape(self.sdim * self.qp_layout, self.M)
         return _matmul(self.KDIV_c.to(sig.dtype), sig)
 
+    def assemble_gm(self, F: torch.Tensor) -> torch.Tensor:
+        """Per-cell arrays [n*vs, M] (``element_forces_gm``,
+        ``element_diag_gm``; one column per cell origin) -> the grid-major
+        assembled vector [vs*M]."""
+        return self._scatter_corners(F).reshape(-1)
+
+    def element_forces_gm(self, sigma: torch.Tensor) -> torch.Tensor:
+        """sigma [s, Q, M] -> masked per-corner forces [n*vs, M], before assembly."""
+        return self._corner_forces(sigma)
+
     def residual_gm(self, sigma: torch.Tensor) -> torch.Tensor:
         """sigma [s, Q, M] -> grid-major assembled force [vs*M]."""
-        return self._scatter_corners(self._corner_forces(sigma)).reshape(-1)
+        return self.assemble_gm(self.element_forces_gm(sigma))
 
     def matvec_gm(self, v_gm: torch.Tensor, tangent) -> torch.Tensor:
         """Tangent operator apply on a grid-major vector."""
@@ -229,8 +240,13 @@ class StructuredGeometry(nn.Module):
 
     def jacobi_diag_gm(self, tangent) -> torch.Tensor:
         """diag(A) in grid-major layout via per-corner B^T C B, for an
-        IsotropicTangent or a DenseTangent. The small contractions are
-        broadcast multiplies and sums, so none runs in TF32 on the card."""
+        IsotropicTangent or a DenseTangent."""
+        return self.assemble_gm(self.element_diag_gm(tangent))
+
+    def element_diag_gm(self, tangent) -> torch.Tensor:
+        """The per-corner diagonal blocks [n*vs, M] before assembly. The
+        small contractions are broadcast multiplies and sums, so none runs in
+        TF32 on the card."""
         dtype, device = self.dtype, self.device
         M_map = torch.as_tensor(
             mandel._mandel_matrix_map(self.constraint), dtype=dtype, device=device
@@ -245,7 +261,7 @@ class StructuredGeometry(nn.Module):
             q = tangent.quad_diag(B_a) * w[:, None]
             q = q.expand(self.vs, self.n_qp, self.M)
             rows.append(q.sum(dim=1) * self.mask)
-        return self._scatter_corners(torch.cat(rows, dim=0)).reshape(-1)
+        return torch.cat(rows, dim=0)
 
     # -- observation ---------------------------------------------------------------
 
@@ -263,11 +279,12 @@ class StructuredGeometry(nn.Module):
         """[k, Q, M] cell-at-origin field -> dense [k, Q, C] in mesh cell order."""
         return field[:, :, self.cell_index]
 
-    def insert_cells(self, dense: torch.Tensor) -> torch.Tensor:
-        """Dense [k, Q, C] per-cell field -> the [k, Q, M] cell-at-origin layout."""
+    def insert_cells(self, dense: torch.Tensor, dtype=None) -> torch.Tensor:
+        """Dense [k, Q, C] per-cell field -> the [k, Q, M] cell-at-origin layout
+        (of ``dtype``, default the field's)."""
         k, Q, _ = dense.shape
-        out = dense.new_zeros((k, Q, self.M))
-        out[:, :, self.cell_index] = dense
+        out = dense.new_zeros((k, Q, self.M), dtype=dtype)
+        out[:, :, self.cell_index] = dense.to(out.dtype)
         return out
 
 
@@ -476,9 +493,11 @@ class StructuredTetGeometry(StructuredGeometry):
         dense = blk.permute(0, 2, 3, 1).reshape(k, self.n_qp, -1)
         return dense if self.tet_index is None else dense[:, :, self.tet_index]
 
-    def insert_cells(self, dense: torch.Tensor) -> torch.Tensor:
-        """Dense [k, Q, C] per-simplex field -> the [k, K*Q, M] layout."""
+    def insert_cells(self, dense: torch.Tensor, dtype=None) -> torch.Tensor:
+        """Dense [k, Q, C] per-simplex field -> the [k, K*Q, M] layout (of
+        ``dtype``, default the field's)."""
         k, Q, _ = dense.shape
+        dense = dense.to(dtype or dense.dtype)
         if self.tet_index is not None:  # a subset view: expand to every simplex
             full = dense.new_zeros((k, Q, self.cell_index.shape[0] * self.n_classes))
             full[:, :, self.tet_index] = dense
@@ -505,9 +524,10 @@ class StructuredTetGeometry(StructuredGeometry):
 
     # -- Jacobi diagonal from the folded strain rows ----------------------------
 
-    def jacobi_diag_gm(self, tangent) -> torch.Tensor:
-        """diag(A) in grid-major layout via per-corner B^T C B, with B the
-        per-corner columns of KEPS_c (broadcast multiplies and sums)."""
+    def element_diag_gm(self, tangent) -> torch.Tensor:
+        """The per-corner diagonal blocks [n*vs, M] before assembly, B^T C B
+        with B the per-corner columns of KEPS_c (broadcast multiplies and
+        sums)."""
         B = self.KEPS_c.reshape(self.sdim, self.qp_layout, self.n_nodes * self.vs)
         w = torch.as_tensor(self.w_host, dtype=self.dtype, device=self.device)  # [K*Q]
         qpm = self._qp_mask(self.dtype)
@@ -518,7 +538,7 @@ class StructuredTetGeometry(StructuredGeometry):
             q = tangent.quad_diag(B_a) * w[:, None]
             q = q.expand(self.vs, self.qp_layout, self.M) * qpm
             rows.append(q.sum(dim=1))
-        return self._scatter_corners(torch.cat(rows, dim=0)).reshape(-1)
+        return torch.cat(rows, dim=0)
 
 
 def restrict_structured_tet_geometry(
@@ -745,8 +765,8 @@ class LatticeGeometry(nn.Module):
     def extract_cells(self, field: torch.Tensor) -> torch.Tensor:
         return field
 
-    def insert_cells(self, dense: torch.Tensor) -> torch.Tensor:
-        return dense
+    def insert_cells(self, dense: torch.Tensor, dtype=None) -> torch.Tensor:
+        return dense if dtype is None else dense.to(dtype)
 
     # -- layout plumbing --------------------------------------------------------
 
@@ -819,25 +839,38 @@ class LatticeGeometry(nn.Module):
         e = _matmul(self.KEPS_c.to(U.dtype), U)
         return e.reshape(self.sdim, self.n_qp, self.n_cells)
 
+    def assemble_gm(self, F: torch.Tensor) -> torch.Tensor:
+        """Per-cell arrays [n*vs, C] (``element_forces_gm``,
+        ``element_diag_gm``) -> the grid-major assembled vector [vs*M]."""
+        return self._scatter_nodes(F)
+
+    def element_forces_gm(self, sigma: torch.Tensor) -> torch.Tensor:
+        """sigma [s, Q, C] -> per-node forces [n*vs, C], before assembly."""
+        sig = sigma.reshape(self.sdim * self.n_qp, self.n_cells)
+        return _matmul(self.KDIV_c.to(sig.dtype), sig)
+
     def residual_gm(self, sigma: torch.Tensor) -> torch.Tensor:
         """sigma [s, Q, C] -> grid-major assembled force [vs*M]."""
-        sig = sigma.reshape(self.sdim * self.n_qp, self.n_cells)
-        return self._scatter_nodes(_matmul(self.KDIV_c.to(sig.dtype), sig))
+        return self.assemble_gm(self.element_forces_gm(sigma))
 
     def matvec_gm(self, v_gm: torch.Tensor, tangent) -> torch.Tensor:
         return self.residual_gm(tangent.apply(self.strain_gm(v_gm)))
 
     def jacobi_diag_gm(self, tangent) -> torch.Tensor:
-        """diag(A) in grid-major layout via per-node B^T C B, B the node's
-        columns of KEPS_c: broadcast multiplies and sums, never a product that
-        could run in TF32."""
+        """diag(A) in grid-major layout via per-node B^T C B."""
+        return self.assemble_gm(self.element_diag_gm(tangent))
+
+    def element_diag_gm(self, tangent) -> torch.Tensor:
+        """The per-node diagonal blocks [n*vs, C] before assembly, B the
+        node's columns of KEPS_c: broadcast multiplies and sums, never a
+        product that could run in TF32."""
         KE = self.KEPS_c.reshape(self.sdim, self.n_qp, self.n_nodes, self.vs)
         rows = []
         for a in range(self.n_nodes):
             B_a = KE[:, :, a, :].permute(0, 2, 1)[..., None]  # [s, vs, Q, 1]
             q = tangent.quad_diag(B_a).expand(self.vs, self.n_qp, self.n_cells)
             rows.append((q * self.w[None, :, None]).sum(dim=1))
-        return self._scatter_nodes(torch.cat(rows, dim=0))
+        return torch.cat(rows, dim=0)
 
     # -- node-major engine interface ---------------------------------------------
 
@@ -913,3 +946,72 @@ def build_lattice_geometry(
         KEPS_c=dev(KEPS_c), KDIV_c=dev(KDIV_c), w=dev(w), grid=tuple(grid), degree=d, vs=vs,
         ndofs=space.ndofs, constraint=constraint, n_nodes=n, n_qp=Q, dN_host=dN,
     )
+
+
+# ---------------------------------------------------------------------------
+# Slabs of a box: the rank-local geometries of a sharded problem
+# ---------------------------------------------------------------------------
+
+
+def slab_geometry(geo, x0: int, x1: int) -> tuple:
+    """The geometry of the cells ``x0 <= ix < x1`` of a box, as a box of its own.
+
+    Axis 0 is the slowest axis of the flat node order (and of the mesh's cell
+    order), so the slab's nodes are ONE contiguous range ``[lo, lo + M_s)`` of
+    ``geo``'s grid-major vectors: ``u_gm.reshape(vs, M)[:, lo:lo + M_s]`` is
+    the slab's own grid-major vector, and its assembled forces go back into
+    the same range. The slab shares every constant (the corner offsets do not
+    depend on axis 0) and sweeps its own nodes only: its fields are ``[k,
+    qp_layout, M_s]`` (StructuredGeometry, StructuredTetGeometry) or ``[k, Q,
+    C_s]`` (LatticeGeometry). A subset view keeps the law's cells that fall in
+    the slab. Returns ``(slab, lo, pos)``: ``pos`` indexes ``geo``'s dense cell
+    axis (``extract_cells`` order) at the cells the slab keeps, in the slab's
+    own order.
+    """
+    X = geo.grid[0]
+    if not 0 <= x0 < x1 <= X:
+        msg = f"slab [{x0}, {x1}) is not a non-empty cell range of axis 0 (0..{X})"
+        raise ValueError(msg)
+    grid = (x1 - x0, *geo.grid[1:])
+    n_plane = int(np.prod(geo.grid[1:]))  # cells of one x layer
+    if isinstance(geo, LatticeGeometry):
+        plane = int(np.prod(geo.lattice[1:]))
+        slab = LatticeGeometry(
+            KEPS_c=geo.KEPS_c, KDIV_c=geo.KDIV_c, w=geo.w, grid=grid, degree=geo.degree,
+            vs=geo.vs, ndofs=geo.vs * (geo.degree * (x1 - x0) + 1) * plane,
+            constraint=geo.constraint, n_nodes=geo.n_nodes, n_qp=geo.n_qp, dN_host=geo.dN_host,
+        )
+        return slab, geo.degree * x0 * plane, np.arange(x0 * n_plane, x1 * n_plane)
+    plane = int(np.prod([g + 1 for g in geo.grid[1:]]))  # nodes of one x plane
+    lo, M_s = x0 * plane, (x1 - x0 + 1) * plane
+    top = (x1 - x0) * plane  # the slab's last node plane holds no cell origin
+
+    def cut(t: torch.Tensor) -> torch.Tensor:
+        out = t[..., lo : lo + M_s].clone()
+        out[..., top:] = 0
+        return out
+
+    ci = geo.cell_index.cpu().numpy()
+    keep = (ci >= lo) & (ci < lo + top)
+    cell_index = torch.as_tensor(ci[keep] - lo, dtype=torch.int64, device=geo.device)
+    base = _base_fields(geo, grid=grid, mask=cut(geo.mask), cell_index=cell_index,
+                        ndofs=geo.vs * M_s)
+    if not isinstance(geo, StructuredTetGeometry):
+        return StructuredGeometry(**{**base, "n_cells": int(keep.sum())}), lo, np.flatnonzero(keep)
+    K = geo.n_classes
+    first = x0 * n_plane  # the slab's first cube in mesh order
+    if geo.tet_index is None:
+        tet_index, pos = None, np.arange(first * K, x1 * n_plane * K)
+    else:
+        t = geo.tet_index.cpu().numpy()
+        cube = t // K
+        sel = (cube >= first) & (cube < x1 * n_plane)
+        pos = np.flatnonzero(sel)
+        tet_index = torch.as_tensor((cube[sel] - first) * K + t[sel] % K, dtype=torch.int64,
+                                    device=geo.device)
+    slab = StructuredTetGeometry(
+        n_classes=K, class_dN_host=geo.class_dN_host, class_channels=geo.class_channels,
+        class_mask=None if geo.class_mask is None else cut(geo.class_mask),
+        tet_index=tet_index, **{**base, "n_cells": len(pos)},
+    )
+    return slab, lo, pos

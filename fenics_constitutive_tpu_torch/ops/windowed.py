@@ -36,6 +36,7 @@ from torch import nn
 
 from . import mandel
 from .mandel import Constraint
+from .packed import CellSlots
 from .structured import _matmul
 
 __all__ = [
@@ -110,10 +111,6 @@ def reverse_cuthill_mckee(cell_nodes: np.ndarray, n_nodes: int) -> np.ndarray:
     perm = np.empty(n_nodes, np.int64)
     perm[order_new] = np.arange(n_nodes)
     return perm
-
-
-#: a plan with more padded cell slots than this per cell warns
-_MAX_PAD_RATIO = 4.0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -218,11 +215,14 @@ def build_windowed_exchange(
     *,
     device,
     tile: int = 1024,
+    max_pad_ratio: float = 4.0,
     perm: np.ndarray | None = None,
 ) -> WindowedExchange:
     """Build the blocked window plan for ``cell_nodes`` [C, n].
 
     tile: nodes per block (T); windows are W = ceil((T + span_max)/T) * T.
+    max_pad_ratio: a plan with more padded cell slots than this per cell
+        warns.
     perm: precomputed node ordering (old -> new); default computes RCM of
         ``cell_nodes``.
     """
@@ -264,7 +264,7 @@ def build_windowed_exchange(
     # kept so that both packages build identical plans)
     C_B = _round_up(max(int(counts.max()), 1), 128)
     pad_ratio = (B * C_B) / max(C, 1)
-    if pad_ratio > _MAX_PAD_RATIO:
+    if pad_ratio > max_pad_ratio:
         import warnings
 
         warnings.warn(
@@ -477,11 +477,19 @@ class WindowedGeometry(nn.Module):
 
     # -- observation -----------------------------------------------------------
 
+    @property
+    def slots(self) -> CellSlots:
+        """The QP fields' cell layout: the plan's slots, padded."""
+        return CellSlots(self.n_qp, self.ex.C_pad, self.slot_of_cell)
+
     def extract_cells(self, field: torch.Tensor) -> torch.Tensor:
         """QP field [k, N] -> [k, Q, n_cells] in original cell order."""
-        k = field.shape[0]
-        f = field.reshape(k, self.n_qp, self.ex.C_pad)
-        return f[:, :, self.slot_of_cell]
+        return self.slots.extract_cells(field)
+
+    def insert_cells(self, dense: torch.Tensor, dtype=None) -> torch.Tensor:
+        """[k, Q, n_cells] in original cell order -> the QP field [k, N]
+        (zero on padded slots)."""
+        return self.slots.insert_cells(dense, dtype)
 
 
 def build_windowed_geometry(
@@ -494,6 +502,7 @@ def build_windowed_geometry(
     dtype: torch.dtype,
     tile: int = 1024,
     perm: np.ndarray | None = None,
+    node_range: tuple | None = None,
 ) -> WindowedGeometry:
     """Tabulate the windowed SoA geometry (host-side, once per mesh or law).
 
@@ -503,6 +512,12 @@ def build_windowed_geometry(
     the whole mesh's RCM that several laws share; by default the RCM of the
     plan's cells. The internal layout spans every node of the space either
     way, so laws built on one ``perm`` share ``M_pad``.
+
+    ``node_range``: ``(n0, n1)``, a window of ``perm``'s order that holds
+    every node of ``cells`` (a rank's part of a sharded mesh). The plan and
+    the internal layout then span the nodes ``n0 <= perm[node] < n1`` only,
+    renumbered from 0 in that order: the window is the contiguous range
+    ``[n0, n1)`` of each component of the whole layout.
     """
     from ..fem.elements import tabulate_element
     from ..fem.kinematics import _geometry_grad_at
@@ -518,6 +533,13 @@ def build_windowed_geometry(
     t0 = time.perf_counter()
     if perm is None:
         perm = reverse_cuthill_mckee(cell_nodes, M)
+    if node_range is not None:
+        n0, n1 = node_range
+        cell_nodes = np.asarray(perm, np.int64)[cell_nodes] - n0
+        if cell_nodes.min() < 0 or cell_nodes.max() >= n1 - n0:
+            msg = f"build_windowed_geometry: cells with nodes outside node_range {node_range}"
+            raise ValueError(msg)
+        M, perm = n1 - n0, np.arange(n1 - n0)
     t1 = time.perf_counter()
     ex = build_windowed_exchange(cell_nodes, M, device=device, tile=tile, perm=perm)
     t2 = time.perf_counter()
@@ -562,7 +584,7 @@ def build_windowed_geometry(
         n_qp=Q,
         n_nodes=n,
         vs=space.value_size,
-        ndofs=space.ndofs,
+        ndofs=space.value_size * M,
         M=M,
         n_cells=C,
         constraint=constraint,

@@ -1,6 +1,7 @@
 """Global norms over quadrature fields: "l2" integrates f . f and takes the
-square root, "inf" is the max norm. One process, one device: the reductions
-are plain ones."""
+square root, "inf" is the max norm. The reductions are plain ones: a sharded
+problem's observed fields (``stress_0``, ``dxm``) are whole on every rank, so
+the norm is already global there."""
 
 from __future__ import annotations
 
@@ -38,9 +39,7 @@ def dof_norm(vec: torch.Tensor, norm_type: str = "l2") -> torch.Tensor:
 
 def norm(f, dx, comm=None, norm_type: str = "l2") -> torch.Tensor:
     """The reference's signature ``norm(f, dx, comm, norm_type)``; ``dx`` is
-    the quadrature measure (``problem.dxm``). ``comm`` must be None: the
-    port runs in one process until sharding is ported."""
-    if comm is not None:
-        msg = "norm(comm=...) needs the sharded port, which does not exist yet; pass None"
-        raise NotImplementedError(msg)
+    the quadrature measure (``problem.dxm``). ``comm`` is accepted and
+    ignored, as in the JAX package: the fields are whole on every rank."""
+    del comm
     return qp_norm(f, dx, norm_type)

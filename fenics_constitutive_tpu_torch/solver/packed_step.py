@@ -35,10 +35,8 @@ import numpy as np
 import torch
 
 from ..models.interfaces import IncrSmallStrainModel, flat_history_dim
-from ..ops.packed import DenseTangent, IsotropicTangent, PackedGeometry, build_packed_geometry
+from ..ops.packed import DenseTangent, IsotropicTangent, build_packed_geometry
 from ..ops.structured import (
-    LatticeGeometry,
-    StructuredGeometry,
     build_lattice_geometry,
     build_structured_geometry,
     build_structured_tet_geometry,
@@ -185,6 +183,9 @@ def build_packed_problem(
         )
         for g in geos:  # each plan's build seconds name the shared order's
             g.build_seconds["rcm"] = rcm_s
+    for g, (_, cells) in zip(geos, laws):
+        # what parallel.shard_packed_state rebuilds a rank's part of the law from
+        g.law_source = (space, q_degree, np.asarray(cells, np.int64))
     sdim = constraint.stress_strain_dim
 
     def zeros(geo, k):
@@ -305,17 +306,15 @@ def make_packed_step(
             msg = f"{name} must be 'plain' or 'kernel', got {impl!r}"
             raise ValueError(msg)
     geo = geos[0] if geos else None
-    windowed = all(isinstance(g, WindowedGeometry) for g in geos) and (
-        len({(g.ex.M_pad, g.vs) for g in geos}) == 1
-    )
-    lattice = len(geos) == 1 and isinstance(geo, LatticeGeometry)
+    # by the engine each geometry serves, so that the wrappers of a sharded
+    # problem (parallel/sharding.py) run here as they are
+    engines = {g.engine for g in geos}
+    windowed = engines == {"windowed"} and len({(g.ndofs_int, g.vs) for g in geos}) == 1
+    lattice = len(geos) == 1 and engines == {"lattice"}
     structured = lattice or (
-        all(isinstance(g, StructuredGeometry) for g in geos)
-        and len({(g.M, g.vs) for g in geos}) == 1
+        engines <= {"structured", "structured_tet"} and len({(g.M, g.vs) for g in geos}) == 1
     )
-    gather = all(isinstance(g, PackedGeometry) for g in geos) and (
-        len({(g.ndofs, g.vs) for g in geos}) == 1
-    )
+    gather = engines == {"gather"} and len({(g.ndofs, g.vs) for g in geos}) == 1
     if not geos or not (structured or windowed or gather):
         msg = (
             "make_packed_step supports StructuredGeometry views of one grid, one "
@@ -334,6 +333,9 @@ def make_packed_step(
             raise ValueError(msg)
         if len(geos) > 1:
             msg = "matvec_impl/eval_impl='kernel' take one law; several laws run 'plain'"
+            raise ValueError(msg)
+        if getattr(geo, "sharded", False):
+            msg = "matvec_impl/eval_impl='kernel' take a whole box; a sharded geometry runs 'plain'"
             raise ValueError(msg)
         _require_cuda(geo)
 

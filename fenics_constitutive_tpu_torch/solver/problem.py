@@ -16,6 +16,11 @@ structured-tet, lattice, windowed or gather, whichever the mesh resolves
 to), and "aos", the reference-parity ``[C, Q, ...]`` layouts assembled by
 ``fem/assembly.py``. The problem lives on the card unless the caller asks
 for the CPU (``device``).
+
+``parallel.shard_problem`` splits a problem's cells over the ranks of a
+process group in place (``_shard``): every assembly then ends in one
+all-reduce (``_all_reduce``; inside the wrapped geometries on the packed
+engine), and every observation gathers the whole problem (``_whole_law``).
 """
 
 from __future__ import annotations
@@ -37,7 +42,6 @@ from ..fem.assembly import (
 from ..fem.bcs import combine_bcs
 from ..fem.kinematics import precompute_geometry
 from ..models.interfaces import IncrSmallStrainModel
-from ..ops.windowed import WindowedGeometry
 from .linear import cg_solve
 
 __all__ = ["IncrSmallStrainProblem", "SimulationTime"]
@@ -149,6 +153,7 @@ class IncrSmallStrainProblem:
         self.ndofs = space.ndofs
         self._law_data_cache = None
         self._dxm = None
+        self._shard = None  # parallel.sharding.ProblemShard once sharded
 
         zeros = torch.zeros(self.ndofs, dtype=dtype, device=self.device)
         self.u = zeros.clone()
@@ -200,7 +205,7 @@ class IncrSmallStrainProblem:
         # levels take its own node order and its internal vectors
         opts.setdefault("spmv", "windowed" if self.device.type == "cuda" else "ell")
         geo = self._pk_geos[0] if self._pk_geos is not None else None
-        internal = isinstance(geo, WindowedGeometry) and opts["spmv"] == "windowed"
+        internal = geo is not None and geo.engine == "windowed" and opts["spmv"] == "windowed"
         if opts["spmv"] == "windowed":
             opts.setdefault("select_passes", 3)
             if internal:
@@ -214,19 +219,37 @@ class IncrSmallStrainProblem:
 
     @property
     def _law_data(self):
-        """Per law ``(CellDofmap, Geometry of tensors, cells)``."""
+        """Per law ``(CellDofmap, Geometry of tensors, rows)`` of its cells
+        (a sharded problem's: this rank's), ``rows`` their rows of the AoS
+        stress (mesh cells in one process, the rank's own rows sharded)."""
         if self._law_data_cache is None:
             dofmap = np.asarray(self.space.dofmap)
-            self._law_data_cache = tuple(
-                (
+            data, start = [], 0
+            for law, cells in enumerate(self._law_cells):
+                rows = cells
+                if self._shard is not None:
+                    cells = cells[self._shard.laws[law].mine]
+                    rows = np.arange(start, start + len(cells))
+                    start += len(cells)
+                data.append((
                     build_cell_dofmap(dofmap[cells], self.ndofs, device=self.device),
                     device_geometry(precompute_geometry(self.space, self.q_degree, cells),
                                     dtype=self.dtype, device=self.device),
-                    torch.as_tensor(cells, device=self.device),
-                )
-                for cells in self._law_cells
-            )
+                    torch.as_tensor(rows, device=self.device),
+                ))
+            self._law_data_cache = tuple(data)
         return self._law_data_cache
+
+    # -- the sharded problem's two hooks ----------------------------------------------
+
+    def _all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """A rank's assembled dof vector summed over the ranks."""
+        return x if self._shard is None else self._shard.mesh.all_reduce(x)
+
+    def _whole_law(self, law: int, x: torch.Tensor) -> torch.Tensor:
+        """Rows ``[n, ...]`` of this rank's cells of a law -> the whole law's
+        rows, in its cell order."""
+        return x if self._shard is None else self._shard.laws[law].gather(x)
 
     @property
     def dxm(self) -> torch.Tensor:
@@ -235,10 +258,13 @@ class IncrSmallStrainProblem:
         if self._dxm is None:
             w = torch.zeros((self.space.mesh.num_cells, self._n_qp), dtype=self.dtype,
                             device=self.device)
-            for _, geo, cells in self._law_data:
-                w[cells] = geo.w_detJ
+            for law, (_, geo, _) in enumerate(self._law_data):
+                w[self._cells_dev(law)] = self._whole_law(law, geo.w_detJ)
             self._dxm = w
         return self._dxm
+
+    def _cells_dev(self, law: int) -> torch.Tensor:
+        return torch.as_tensor(self._law_cells[law], device=self.device)
 
     @property
     def f_ext(self) -> torch.Tensor:
@@ -254,7 +280,7 @@ class IncrSmallStrainProblem:
         g = self.constraint.geometric_dim
         sdim = self.constraint.stress_strain_dim
         du = u - self.u_prev
-        r = -self.f_ext
+        r = None
         stress_new = self._stress_prev.clone()
         tangents, hists = [], []
         for model, (dofmap, geo, cells), hist in zip(self._models, self._law_data,
@@ -267,15 +293,16 @@ class IncrSmallStrainProblem:
             )
             s_blk = s_new.reshape(n_l, Q, sdim)
             stress_new[cells] = s_blk
-            r = r + assemble_residual(s_blk, dofmap, geo, self.constraint, self.ndofs)
+            rl = assemble_residual(s_blk, dofmap, geo, self.constraint, self.ndofs)
+            r = rl if r is None else r + rl
             tangents.append(tg.reshape(n_l, Q, sdim, sdim))
             hists.append(h_new)
-        return r, stress_new, tuple(tangents), tuple(hists)
+        return -self.f_ext + self._all_reduce(r), stress_new, tuple(tangents), tuple(hists)
 
     def _eval_assemble_packed(self, u, t, dt):
         geos = self._pk_geos
         du = u - self.u_prev
-        win = isinstance(geos[0], WindowedGeometry)
+        win = geos[0].engine == "windowed"
         if win:  # the windowed engine's kinematics run on internal vectors
             du = geos[0].to_internal(du)
         r = None
@@ -320,7 +347,7 @@ class IncrSmallStrainProblem:
                 delta, k = cg_solve(matvec, r_gm, diag, **cg)
             return geo.to_node_major(delta), k
 
-        if isinstance(geos[0], WindowedGeometry):
+        if geos[0].engine == "windowed":
             # the whole CG loop on internal vectors
             g0 = geos[0]
             fi = g0.to_internal(free.to(r.dtype)) == 1.0  # pads -> False
@@ -386,7 +413,7 @@ class IncrSmallStrainProblem:
             for (dofmap, geo, _), tg in zip(self._law_data, tangents):
                 mv = tangent_matvec(vm, tg, dofmap, geo, c, n)
                 out = mv if out is None else out + mv
-            return torch.where(free, out, v)
+            return torch.where(free, self._all_reduce(out), v)
 
         b = torch.where(free, r, zero)
         if self._pc is not None:
@@ -400,6 +427,7 @@ class IncrSmallStrainProblem:
         for (dofmap, geo, _), tg in zip(self._law_data, tangents):
             d = assemble_jacobi_diag(tg, dofmap, geo, c, n)
             diag = d if diag is None else diag + d
+        diag = self._all_reduce(diag)
         return cg_solve(matvec, b, torch.where(free, diag, r.new_ones(())), **cg)
 
     # -- public API ----------------------------------------------------------------
@@ -489,11 +517,11 @@ class IncrSmallStrainProblem:
         sdim = self.constraint.stress_strain_dim
         out = torch.zeros((self.space.mesh.num_cells, self._n_qp, sdim), dtype=self.dtype,
                           device=self.device)
-        for geo, cells, s in zip(self._pk_geos, self._law_cells, stresses):
-            out[torch.as_tensor(cells, device=self.device)] = geo.extract_cells(s).permute(2, 1, 0)
+        for law, (geo, s) in enumerate(zip(self._pk_geos, stresses)):
+            out[self._cells_dev(law)] = self._whole_law(law, geo.extract_cells(s).permute(2, 1, 0))
         return out
 
-    def _pk_hist_to_aos(self, model, geo, h):
+    def _pk_hist_to_aos(self, law, model, geo, h):
         """Packed history {k: [d, *qp]} -> AoS {k: [N_l, *entry]} in the
         cell-major QP order of the AoS engine."""
         if h is None:
@@ -502,9 +530,18 @@ class IncrSmallStrainProblem:
         out = {}
         for k, v in h.items():
             blk = geo.extract_cells(v)  # [d, Q, C_l]
-            flat = blk.permute(2, 1, 0).reshape(-1, blk.shape[0])
+            flat = self._whole_law(law, blk.permute(2, 1, 0)).reshape(-1, blk.shape[0])
             dim = hd[k]
             out[k] = flat if isinstance(dim, int) else flat.reshape(flat.shape[0], *dim)
+        return out
+
+    def _aos_whole_stress(self, stress: torch.Tensor) -> torch.Tensor:
+        """The AoS stress rows -> [C, Q, s] in mesh cell order."""
+        if self._shard is None:
+            return stress
+        out = stress.new_zeros((self.space.mesh.num_cells, *stress.shape[1:]))
+        for law, (_, _, rows) in enumerate(self._law_data):
+            out[self._cells_dev(law)] = self._whole_law(law, stress[rows])
         return out
 
     # -- observation surface ---------------------------------------------------------
@@ -514,14 +551,14 @@ class IncrSmallStrainProblem:
         """Committed Mandel stress [C, Q, s]."""
         if self.engine == "packed":
             return self._pk_stress_to_cqs(self._stress_prev)
-        return self._stress_prev
+        return self._aos_whole_stress(self._stress_prev)
 
     @property
     def stress_1(self) -> torch.Tensor:
         """Trial Mandel stress [C, Q, s] of the step in progress."""
         if self.engine == "packed":
             return self._pk_stress_to_cqs(self._stress_curr)
-        return self._stress_curr
+        return self._aos_whole_stress(self._stress_curr)
 
     @property
     def _u(self) -> torch.Tensor:
@@ -533,9 +570,18 @@ class IncrSmallStrainProblem:
 
     def _aos_histories(self, histories) -> list:
         if self.engine == "packed":
-            return [self._pk_hist_to_aos(m, g, h)
-                    for m, g, h in zip(self._models, self._pk_geos, histories)]
-        return list(histories)
+            return [self._pk_hist_to_aos(law, m, g, h)
+                    for law, (m, g, h) in enumerate(zip(self._models, self._pk_geos, histories))]
+        if self._shard is None:
+            return list(histories)
+        Q = self._n_qp
+
+        def whole(law, v):
+            blk = v.reshape(-1, Q, *v.shape[1:])
+            return self._whole_law(law, blk).reshape(-1, *v.shape[1:])
+
+        return [None if h is None else {k: whole(law, v) for k, v in h.items()}
+                for law, h in enumerate(histories)]
 
     @property
     def _history_0(self) -> list:
@@ -570,14 +616,17 @@ class IncrSmallStrainProblem:
         and reads them from the AoS tables."""
         du = self.u - self.u_prev
         geos = self._pk_geos
-        if geos is None or isinstance(geos[0], WindowedGeometry):
-            return [grad_at_qp(du, dofmap, geo) for dofmap, geo, _ in self._law_data]
+        if geos is None or geos[0].engine == "windowed":
+            return [self._whole_law(law, grad_at_qp(du, dofmap, geo))
+                    for law, (dofmap, geo, _) in enumerate(self._law_data)]
         g, vs = self.constraint.geometric_dim, self.space.value_size
         out = []
-        for geo, cells in zip(geos, self._law_cells):
-            grad = geo.grad(du)  # [g, vs, N]
-            if hasattr(geo, "cell_index"):  # a cell-at-origin layout
-                grad = geo.extract_cells(grad.reshape(g * vs, geo.qp_layout, geo.M))
-            grad = grad.reshape(g, vs, self._n_qp, len(cells))
-            out.append(grad.permute(3, 2, 0, 1))
+        for law, geo in enumerate(geos):
+            # a sharded geometry observes through its rank-local part
+            loc = getattr(geo, "local", geo)
+            grad = loc.grad(geo.local_nodes(du) if loc is not geo else du)  # [g, vs, N]
+            if hasattr(loc, "cell_index"):  # a cell-at-origin layout
+                grad = loc.extract_cells(grad.reshape(g * vs, loc.qp_layout, loc.M))
+            grad = grad.reshape(g, vs, self._n_qp, -1)
+            out.append(self._whole_law(law, grad.permute(3, 2, 0, 1)))
         return out

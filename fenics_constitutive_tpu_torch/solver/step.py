@@ -44,8 +44,12 @@ def make_load_step(
 
     ``problem`` (an ``IncrSmallStrainProblem``, either engine) supplies the
     AoS law data, the constraint and the sizes. ``stats``: ``newton_iters``,
-    ``r_norm`` and ``r0_norm`` as tensors, as in the JAX package.
+    ``r_norm`` and ``r0_norm`` as tensors, as in the JAX package. The step
+    runs in one process: a sharded problem raises ValueError.
     """
+    if problem._shard is not None:
+        msg = "make_load_step steps one process's AoS state; the problem is sharded"
+        raise ValueError(msg)
     constraint = problem.constraint
     ndofs = problem.ndofs
     law_data = problem._law_data

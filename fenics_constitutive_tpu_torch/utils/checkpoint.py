@@ -113,13 +113,20 @@ def restore_like(node, like, where: str = "state"):
 def state_dict(problem) -> dict:
     """The committed state of an ``IncrSmallStrainProblem``: displacements,
     the committed stress (a tuple of per-law fields on the packed engine,
-    one [C, Q, s] tensor on the AoS engine), the histories, time and dt."""
+    one [C, Q, s] tensor on the AoS engine), the histories, time and dt.
+
+    A sharded problem gives the one-process layout, the same on every rank
+    (a collective: call it in every rank), so its checkpoint restores into
+    a one-process problem or one sharded over any number of ranks."""
+    stress, histories = problem._stress_prev, tuple(problem._histories)
+    if problem._shard is not None:
+        stress, histories = problem._shard.whole_state(problem, stress, histories)
     return {
         "engine": problem.engine,
         "u": problem.u,
         "u_prev": problem.u_prev,
-        "stress_prev": problem._stress_prev,
-        "histories": tuple(problem._histories),
+        "stress_prev": stress,
+        "histories": tuple(histories),
         "t": torch.tensor(float(problem.sim_time.current), dtype=torch.float64),
         "dt": torch.tensor(float(problem.sim_time.dt), dtype=torch.float64),
     }
@@ -128,19 +135,24 @@ def state_dict(problem) -> dict:
 def load_state_dict(problem, state: dict) -> None:
     """Restore a :func:`state_dict` (or ``load_checkpoint`` of one) into a
     problem of the same engine and mesh, against its own state: the stress
-    layout of its engine, histories by name. Raises ValueError on another
-    engine's checkpoint or a mismatched tree."""
+    layout of its engine, histories by name; a sharded problem takes the
+    one-process layout and keeps its rank's part. Raises ValueError on
+    another engine's checkpoint or a mismatched tree."""
     marker = state.get("engine")
     if marker is not None and str(np.asarray(marker)) != problem.engine:
         msg = f"checkpoint of the {np.asarray(marker)} engine, problem on {problem.engine}"
         raise ValueError(msg)
+    shard = problem._shard
+    stress, histories = problem._stress_prev, tuple(problem._histories)
+    if shard is not None:  # restored in the one-process layout, then split
+        stress, histories = shard.whole_like(problem)
+    stress = restore_like(state["stress_prev"], stress, "stress_prev")
+    histories = restore_like(state["histories"], tuple(histories), "histories")
+    if shard is not None:
+        stress, histories = shard.local_state(problem, stress, histories)
     problem.u = restore_like(state["u"], problem.u, "u")
     problem.u_prev = restore_like(state["u_prev"], problem.u_prev, "u_prev")
-    problem._stress_prev = restore_like(state["stress_prev"], problem._stress_prev,
-                                        "stress_prev")
-    problem._stress_curr = problem._stress_prev
-    problem._histories = restore_like(state["histories"], tuple(problem._histories),
-                                      "histories")
-    problem._histories_trial = problem._histories
+    problem._stress_prev = problem._stress_curr = stress
+    problem._histories = problem._histories_trial = tuple(histories)
     problem.sim_time.current = float(np.asarray(state["t"]))
     problem.sim_time.dt = float(np.asarray(state["dt"]))

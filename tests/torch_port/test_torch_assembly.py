@@ -137,10 +137,13 @@ def test_plan_lists_every_slot_of_each_dof(case):
 
 def test_no_float_atomics_in_the_new_modules():
     """No index_add_/scatter_add_/index_put_(accumulate=True) on the
-    assembly, problem, step or postprocessing paths."""
+    assembly, problem, step or postprocessing paths, nor in any module of
+    the sharding package (parallel/)."""
     pkg = pathlib.Path(tasm.__file__).resolve().parents[1]
     files = ["fem/assembly.py", "solver/problem.py", "solver/step.py", "solver/maps.py",
-             "postprocessing/norms.py", "postprocessing/sensors.py", "native/__init__.py"]
+             "postprocessing/norms.py", "postprocessing/sensors.py", "native/__init__.py",
+             *(str(f.relative_to(pkg)) for f in sorted((pkg / "parallel").glob("*.py")))]
+    assert "parallel/sharding.py" in files
     for rel in files:
         tree = ast.parse((pkg / rel).read_text())
         for node in ast.walk(tree):

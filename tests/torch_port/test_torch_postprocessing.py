@@ -61,13 +61,21 @@ def test_norms_match_jax(norm_type, shape):
 
 
 def test_norm_options_raise():
+    """Unknown norm types raise; a communicator is accepted and ignored, as
+    the JAX package ignores it (a sharded problem's fields are whole on
+    every rank, so the norm is already global)."""
     f = torch.ones(2, 2)
     with pytest.raises(ValueError, match="unknown norm"):
         qp_norm(f, f, "h1")
     with pytest.raises(ValueError, match="unknown norm"):
         dof_norm(f, "h1")
-    with pytest.raises(NotImplementedError, match="comm"):
-        norm(f, f, comm=object())
+    rng = np.random.default_rng(4)
+    g, w = rng.normal(size=(5, 4, 6)), rng.random(size=(5, 4))
+    comm = object()
+    for norm_type in ("l2", "inf"):
+        got = norm(torch.as_tensor(g), torch.as_tensor(w), comm, norm_type)
+        ref = jpost.norm(jnp.asarray(g), jnp.asarray(w), comm, norm_type)
+        assert float(got) == pytest.approx(float(ref), rel=1e-12, abs=0)
 
 
 def tet_problem(engine="auto"):
