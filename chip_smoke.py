@@ -230,6 +230,26 @@ Sharding (parallel/, torch.distributed):
      taken. A rank's exception, or a rank that does not end within the
      process group's timeout, fails the phase.
 
+The user layer (the examples on the port, examples/torch/):
+
+ 24. (a) the five examples run as a user runs them, `python
+     examples/torch/<name>/run_example.py <dir>` on the card, all at once;
+     each must exit 0 (through its own checks), and their lines are
+     printed. (b) creep_neumann's main() at 50^3 hexes, q 2 (1,000,000
+     QPs, 397,953 dofs), f64, PackedSimulation with the V-cycle and its K3
+     chains, K1 for the CG operator on the SpringKelvinModel tangent: the
+     instant step and the 40 creep steps (5 windows of 8, the first a
+     warm-up) must meet the closed form (sigma/E0 within 1e-8, sigma/E0 +
+     sigma/E1 within 1e-6); K1 and every K3 entry must launch; then K1 on
+     the run's own tangent and the run's whole fused V-cycle against their
+     plain versions (f64, bit-equal across two launches). Prints ms/step
+     (median, min and max of the timed windows), set-up seconds and the
+     device memory peak above what earlier phases hold. (c) mises_c's
+     main() at 32^3 hexes (262,144 QPs, f64) for its first 3 load steps:
+     per eval the C library's ms (host clock) and the host<->device
+     copies' ms (CUDA events around each side), ms per step with its
+     Newton and CG iterations.
+
 A kernel's time on the card and a device-op count come from torch.profiler.
 CUPTI now and then delivers a short profile on the H100, so such a profile
 is taken again, three times in all; after that the time is taken by CUDA
@@ -242,7 +262,8 @@ K3 also on phase 16's tet run, phase 19's fused P2 steps and phase 20's P2
 quad steps, for K4-K6 also on phase 14's 3-step run and phase 21's timed
 run, for K6 also on phase 17's timed run, for every kernel on phase 22's
 packed problem (0 for K1-K3), for K4-K6 per rank on phase 23's sharded
-run, times, plain and library times,
+run, for K1 and K3 on phase 24's full-width creep run, times, plain and
+library times,
 the bound; for K3 also the quad entries' numbers) and, last, the device
 JSON line.
 
@@ -3462,6 +3483,181 @@ def phase_sharded(tet: dict, parity: dict, workdir: Path) -> list:
     return launches
 
 
+#: the examples on the port (examples/torch/<name>/run_example.py)
+EXAMPLES = ("creep_neumann", "plasticity_demo", "custom_torch_model", "elasticity_cpp",
+            "mises_c")
+EXAMPLES_DIR = Path(__file__).resolve().parent / "examples" / "torch"
+N_CREEP = 50  # the full-width creep box: 1,000,000 QPs at q 2
+N_MISES_C = 32  # the C law's box: 262,144 QPs at q 2
+CREEP_WINDOWS = 5  # the 40 creep steps in 5 timed windows, the first a warm-up
+
+
+def load_example(name: str):
+    """An example on the port as a module (its main(), its classes)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  EXAMPLES_DIR / name / "run_example.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example_scripts(workdir: Path) -> None:
+    """(a) every example as a user runs it, `python examples/torch/<name>/
+    run_example.py <dir>` on the card, all five at once; each must exit 0."""
+    import sys
+
+    procs = {}
+    try:
+        for name in EXAMPLES:
+            out = workdir / name
+            out.mkdir(parents=True)
+            procs[name] = subprocess.Popen(
+                [sys.executable, str(EXAMPLES_DIR / name / "run_example.py"), str(out)],
+                cwd=out, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, proc in procs.items():
+            t0 = time.perf_counter()
+            stdout, stderr = proc.communicate(timeout=300)
+            lines = stdout.strip().splitlines()
+            print(f"phase 24 (a) {name}: exit {proc.returncode}, {len(lines)} lines, waited "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            for ln in lines:
+                print(f"  {name}: {ln}")
+            if proc.returncode != 0:
+                fail(f"examples/torch/{name} exited {proc.returncode}:\n{stderr[-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def creep_full_width(workdir: Path) -> dict:
+    """(b) the creep example at 50^3 through its main(): the V-cycle with the
+    K3 chains, K1 for the CG operator, the closed-form bars; then K1 on the
+    run's own tangent and K3's whole V-cycle against their plain versions."""
+    from fenics_constitutive_tpu_torch.ops import cuda_matvec
+
+    creep = load_example("creep_neumann")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30  # earlier phases' live tensors
+    reset_all_counts()
+    r = creep.main(str(workdir / "creep_full_width"), device=CARD, n=N_CREEP,
+                   windows=CREEP_WINDOWS, preconditioner="vcycle",
+                   mg_options={"fused_smoothing": True})
+    torch.cuda.synchronize()
+    counts = {**read_counts(), **window_counts()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    eps0, eps_inf = r["instant_strain"], r["creep_strain"]
+    err0 = abs(eps0 - creep.SIGMA / creep.E0)
+    err_inf = abs(eps_inf - (creep.SIGMA / creep.E0 + creep.SIGMA / creep.E1))
+    timed_ms = r["window_ms_per_step"][1:]  # the first window is the warm-up
+    sim = r["simulation"]
+    geo, law = sim._geos[0], sim._models[0]
+
+    # K1 on the run's own tangent (the law's uniform SLS tangent at the last dt)
+    st = sim.state
+    _, tg, _ = law.evaluate_packed(sim.time, sim.del_t, geo.strain_gm(st.u), st.stress[0],
+                                   st.histories[0])
+    v = torch.as_tensor(np.random.default_rng(24).normal(size=geo.ndofs), dtype=geo.dtype,
+                        device=CARD)
+    mv = cuda_matvec.build_cuda_matvec(geo)
+    r_k, r_k2 = mv(v, tg), mv(v, tg)
+    r_p = cuda_matvec.matvec_plain(geo, v, tg)
+    torch.cuda.synchronize()
+    k1_err, k1_rel = normwise(r_k, r_p)
+    if not torch.isfinite(r_k).all() or not torch.equal(r_k, r_k2) or k1_rel > TOL_F64:
+        fail(f"K1 on the creep tangent: rel {k1_rel:.3e} (tol {TOL_F64:g}), bit-equal "
+             f"{torch.equal(r_k, r_k2)}")
+    # K3: the run's whole fused V-cycle against its plain twin
+    mg = sim._mg
+    rv = torch.as_tensor(np.random.default_rng(25).normal(size=geo.ndofs), dtype=geo.dtype,
+                         device=CARD)
+    k3_err, k3_rel = check_k3("creep V-cycle", lambda: mg(rv), lambda: mg.fused_cycle.plain(rv),
+                              torch.float64, TOL_F64)
+
+    print(f"phase 24 (b) creep_neumann at {N_CREEP}^3 ({geo.ndofs:,} dofs, "
+          f"{geo.n_qp * N_CREEP**3:,} QPs, f64, V-cycle with K3, K1): instant strain {eps0!r} "
+          f"(|err| {err0:.2e}, bar 1e-8), creep limit {eps_inf!r} (|err| {err_inf:.2e}, bar "
+          f"1e-6); Newton instant {r['instant_newton']}, creep {sum(r['creep_newton'])} over "
+          f"40 steps; ms/step over {len(timed_ms)} windows of {40 // CREEP_WINDOWS} steps after "
+          f"a warm-up window ({r['window_ms_per_step'][0]:.1f}): median "
+          f"{float(np.median(timed_ms)):.2f}, min {min(timed_ms):.2f}, max {max(timed_ms):.2f}; "
+          f"set-up {r['setup_s']:.2f} s; peak {peak_gib - base_gib:.2f} GiB above the "
+          f"{base_gib:.2f} GiB allocated before the run; launches "
+          + ", ".join(f"{k} {c}" for k, c in counts.items())
+          + f"; K1 on the run's tangent vs plain max_abs_err {k1_err:.3e} rel {k1_rel:.3e}, "
+          f"K3 V-cycle vs plain max_abs_err {k3_err:.3e} rel {k3_rel:.3e} (tol {TOL_F64:g}), "
+          "each bit-equal across two launches", flush=True)
+    if err0 >= 1e-8 or err_inf >= 1e-6:
+        fail(f"creep at {N_CREEP}^3 misses the closed form: {err0:.3e}, {err_inf:.3e}")
+    for name in ("K1", "K3", *(f"K3_{kind}" for kind in K3_ENTRIES)):
+        if counts[name] <= 0:
+            fail(f"the full-width creep run never launched {name}")
+    return {"counts": counts}
+
+
+def mises_c_on_the_card() -> None:
+    """(c) the C law at 32^3 for its first 3 load steps: the C call's ms per
+    eval (host clock: it runs on the host), the host<->device copies' ms per
+    eval (CUDA events around each side), ms per step."""
+    mc = load_example("mises_c")
+    parts = {"to_host": [], "call_library": [], "to_device": []}
+    originals = {k: getattr(mc.MisesC3D, k) for k in parts}
+
+    def on_events(name):
+        def wrapped(self, *args):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = originals[name](self, *args)
+            e1.record()
+            e1.synchronize()
+            parts[name].append(e0.elapsed_time(e1))
+            return out
+        return wrapped
+
+    def on_host(name):
+        def wrapped(self, *args):
+            t0 = time.perf_counter()
+            out = originals[name](self, *args)
+            parts[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    mc.MisesC3D.to_host, mc.MisesC3D.to_device = on_events("to_host"), on_events("to_device")
+    mc.MisesC3D.call_library = on_host("call_library")
+    t0 = time.perf_counter()
+    r = mc.main(device=CARD, n=N_MISES_C, n_steps=3)
+    total_s = time.perf_counter() - t0
+    steps = r["steps"]
+    n_eval = len(parts["call_library"])
+    q = 8 * N_MISES_C**3
+    # per point: grad 9, stress 6, history 7 in; stress 6, tangent 36, history 7 out
+    copy_mb = q * (9 + 6 + 7 + 6 + 36 + 7) * 8 / 1e6
+    lib, down, up = (float(np.mean(parts[k])) for k in ("call_library", "to_host", "to_device"))
+    eval_share = n_eval * (lib + down + up) / 1e3 / sum(s["seconds"] for s in steps)
+    print(f"phase 24 (c) mises_c at {N_MISES_C}^3 ({q:,} QPs, f64), 3 steps in {total_s:.1f} s: "
+          f"{n_eval} evals; per eval the C library {lib:.1f} ms (host clock), the copies "
+          f"{down + up:.1f} ms ({down:.1f} to the host, {up:.1f} back; {copy_mb:.0f} MB, "
+          f"{copy_mb / (down + up):.2f} GB/s; CUDA events); per step "
+          + ", ".join(f"{s['seconds'] * 1e3:.0f} ms ({s['iters']} Newton, {s['cg_iters']} CG)"
+                      for s in steps)
+          + f"; the evals' share of the steps {eval_share:.0%}", flush=True)
+    if not all(s["converged"] for s in steps) or steps[-1]["alpha_max"] <= 0.0:
+        fail(f"mises_c at {N_MISES_C}^3 did not converge past yield: {steps}")
+
+
+def phase_examples(workdir: Path) -> dict:
+    """Phase 24: the user layer (the examples on the port)."""
+    run_example_scripts(workdir / "scripts")
+    creep = creep_full_width(workdir)
+    mises_c_on_the_card()
+    return creep
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3503,6 +3699,8 @@ def main() -> None:
         parity = timed("phase 22", phase_parity, tet, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         sharded = timed("phase 23", phase_sharded, tet, parity, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        examples = timed("phase 24", phase_examples, Path(tmp))
     print(f"profiler: {PROFILER_MISSES['profiles']} short profiles taken again, "
           f"{PROFILER_MISSES['fallbacks']} measures by the fallback (gated_ms, aten_device_ops)")
     counts = box_bench["counts"]
@@ -3511,7 +3709,7 @@ def main() -> None:
         {"name": "fused_matvec", "route": "cuda", "source": src + "matvec.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_matvec.py:42",
          "launches": counts["K1"], "launches_parity_run": parity["packed"]["K1"],
-         **results["K1"]},
+         "launches_examples_run": examples["counts"]["K1"], **results["K1"]},
         {"name": "fused_eval", "route": "cuda", "source": src + "eval.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_eval.py:52",
          "launches": counts["K2"], "launches_parity_run": parity["packed"]["K2"],
@@ -3522,7 +3720,8 @@ def main() -> None:
            "launches_tet_run": tet_box["counts"][f"K3_{kind}"],
            "launches_p2_run": p2_box_run["counts"][f"K3_{kind}"],
            "launches_2d_run": run_2d["counts"][f"K3_{kind}"],
-           "launches_parity_run": parity["packed"][f"K3_{kind}"], **results[f"K3_{kind}"],
+           "launches_parity_run": parity["packed"][f"K3_{kind}"],
+           "launches_examples_run": examples["counts"][f"K3_{kind}"], **results[f"K3_{kind}"],
            "p2_levels": results[f"K3_p2_{kind}"], "quad_levels": results[f"K3_2d_{kind}"]}
           for kind, name in K3_ENTRIES.items()),
         {"name": "windowed_gather", "route": "cuda", "source": src + "window.cu",

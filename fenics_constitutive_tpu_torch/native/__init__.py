@@ -9,6 +9,11 @@ contiguous float64 host arrays, calls the library, and returns new tensors on
 the caller's device and dtype; the operands are never written. Assembly and
 the solver stay on the device. A failed build raises; nothing falls back to
 a Python model.
+
+A law of one's own in C or C++ takes the same route (``examples/torch/
+elasticity_cpp``, ``examples/torch/mises_c``): ``build_shared_library``
+compiles its sources once, and ``host_copy`` / ``device_copy`` move its
+operands to the host and its results back.
 """
 
 from __future__ import annotations
@@ -31,14 +36,18 @@ __all__ = [
     "LinearElasticity3D",
     "NativeModel",
     "UmatModel",
+    "build_shared_library",
+    "device_copy",
     "ensure_built",
+    "host_copy",
     "load_library",
     "umat_demo_path",
     "umat_fortran_path",
 ]
 
 _NATIVE_DIR = pathlib.Path(__file__).resolve().parents[2] / "native"
-_BUILD_ROOT = pathlib.Path(__file__).resolve().parents[1] / "_build" / "native"
+_BUILD = pathlib.Path(__file__).resolve().parents[1] / "_build"
+_BUILD_ROOT = _BUILD / "native"
 _LIB = None
 
 #: target -> (compiler, sources, extra flags)
@@ -60,28 +69,58 @@ def _build_dir() -> pathlib.Path:
     return _BUILD_ROOT / h.hexdigest()[:16]
 
 
-def _compile(target: str, out: pathlib.Path) -> None:
-    """Compile one target into ``out`` (atomically: a temporary file, then a
-    rename, so concurrent builds never load a half-written library)."""
-    compiler, sources, flags = _TARGETS[target]
-    srcs = [str(_NATIVE_DIR / s) for s in sources]
+def _compile_atomic(out: pathlib.Path, attempts: list[list[str]]) -> None:
+    """Run the first of ``attempts`` (compiler commands without their output)
+    that succeeds, writing ``out`` atomically (a temporary file, then a
+    rename, so concurrent builds never load a half-written library); raise
+    RuntimeError with the compiler's message if none does."""
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    base = [compiler, "-O3", "-shared", "-fPIC", *flags, *srcs, "-o", tmp]
-    attempts = [base + ["-fopenmp", "-ldl"], base + ["-ldl"]] if target == "libcomfe.so" \
-        else [base]
     try:
         for i, cmd in enumerate(attempts):
+            cmd = [*cmd, "-o", tmp]
             proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
             if proc.returncode == 0:
                 os.replace(tmp, out)
                 return
             if i == len(attempts) - 1:
-                msg = f"building {target} failed: {' '.join(cmd)}\n{proc.stderr}"
+                msg = f"building {out.name} failed: {' '.join(cmd)}\n{proc.stderr}"
                 raise RuntimeError(msg)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+def _compile(target: str, out: pathlib.Path) -> None:
+    """Compile one target of the library into ``out``."""
+    compiler, sources, flags = _TARGETS[target]
+    srcs = [str(_NATIVE_DIR / s) for s in sources]
+    base = [compiler, "-O3", "-shared", "-fPIC", *flags, *srcs]
+    _compile_atomic(out, [base + ["-fopenmp", "-ldl"], base + ["-ldl"]]
+                    if target == "libcomfe.so" else [base])
+
+
+def build_shared_library(sources, name: str, *, compiler: str = "c++",
+                         flags=("-O2",)) -> pathlib.Path:
+    """Compile C or C++ ``sources`` with ``compiler -shared -fPIC`` into the
+    library ``name`` under ``fenics_constitutive_tpu_torch/_build/examples/
+    <hash of the sources, compiler and flags>/``, unless it is there already;
+    return its path. ``flags`` follow the sources on the command line, so
+    they may name libraries (``-lm``). A missing compiler or a failed build
+    raises RuntimeError."""
+    srcs = [pathlib.Path(s).resolve() for s in sources]
+    h = hashlib.sha256(" ".join([compiler, *flags]).encode())
+    for src in srcs:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out = _BUILD / "examples" / h.hexdigest()[:16] / name
+    if not out.exists():
+        if shutil.which(compiler) is None:
+            msg = f"building {name} needs the compiler '{compiler}', which is not on PATH"
+            raise RuntimeError(msg)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        _compile_atomic(out, [[compiler, "-shared", "-fPIC", *map(str, srcs), *flags]])
+    return out
 
 
 def ensure_built(force: bool = False) -> pathlib.Path:
@@ -140,19 +179,21 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def _host(x, shape) -> np.ndarray:
-    """A new contiguous float64 host array of ``x`` (never a view of it: the
-    C kernels write through their pointers)."""
+def host_copy(x) -> np.ndarray:
+    """A new flat, contiguous float64 host array of ``x`` (a tensor on any
+    device, or an array): never a view of ``x``, because C code writes
+    through its pointer."""
     if isinstance(x, torch.Tensor):
         x = x.detach().to("cpu", torch.float64, copy=True).numpy()
-    return np.array(x, dtype=np.float64, copy=True).reshape(shape)
+    return np.array(x, dtype=np.float64, copy=True).reshape(-1)
 
 
 def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
 
 
-def _out(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+def device_copy(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A host array as a new tensor of ``like``'s dtype and device."""
     return torch.as_tensor(a).to(dtype=like.dtype, device=like.device)
 
 
@@ -191,17 +232,18 @@ class NativeModel(IncrSmallStrainModel):
 
     def evaluate(self, t, del_t, grad_del_u, stress, history):
         q, h = grad_del_u.shape[0], self._hsize
-        grad = _host(grad_del_u, -1)
-        sig = _host(stress, -1)
+        grad = host_copy(grad_del_u)
+        sig = host_copy(stress)
         tangent = np.zeros(q * 36)
-        hist = _host(history["history"], -1) if h else None
+        hist = host_copy(history["history"]) if h else None
         params = np.asarray(list(self.params.values()), np.float64)
         load_library().comfe_evaluate(
             self._name.encode(), _ptr(params), len(params), float(t), float(del_t),
             _ptr(grad), _ptr(sig), _ptr(tangent), _ptr(hist) if h else None, q,
         )
-        h_new = {"history": _out(hist.reshape(q, h), stress)} if h else None
-        return _out(sig.reshape(q, 6), stress), _out(tangent.reshape(q, 6, 6), stress), h_new
+        h_new = {"history": device_copy(hist.reshape(q, h), stress)} if h else None
+        return (device_copy(sig.reshape(q, 6), stress),
+                device_copy(tangent.reshape(q, 6, 6), stress), h_new)
 
 
 class UmatModel(IncrSmallStrainModel):
@@ -237,10 +279,10 @@ class UmatModel(IncrSmallStrainModel):
 
     def evaluate(self, t, del_t, grad_del_u, stress, history):
         q, nsv = grad_del_u.shape[0], self._n_statev
-        grad = _host(grad_del_u, -1)
-        sig = _host(stress, -1)
-        statev = _host(history["statev"], -1)
-        strain = _host(history["strain"], -1)
+        grad = host_copy(grad_del_u)
+        sig = host_copy(stress)
+        statev = host_copy(history["statev"])
+        strain = host_copy(history["strain"])
         tangent = np.zeros(q * 36)
         props = np.asarray(self.props, np.float64)
         rc = load_library().comfe_umat_evaluate(
@@ -251,10 +293,10 @@ class UmatModel(IncrSmallStrainModel):
             msg = f"the UMAT harness failed (rc={rc})"
             raise RuntimeError(msg)
         return (
-            _out(sig.reshape(q, 6), stress),
-            _out(tangent.reshape(q, 6, 6), stress),
-            {"statev": _out(statev.reshape(q, nsv), stress),
-             "strain": _out(strain.reshape(q, 6), stress)},
+            device_copy(sig.reshape(q, 6), stress),
+            device_copy(tangent.reshape(q, 6, 6), stress),
+            {"statev": device_copy(statev.reshape(q, nsv), stress),
+             "strain": device_copy(strain.reshape(q, 6), stress)},
         )
 
 

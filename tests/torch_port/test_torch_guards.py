@@ -1,7 +1,10 @@
 """Rules of the port that hold whatever the numbers are.
 
-* No module of the port imports jax: a static AST scan (jax may be loaded
-  in the test process anyway, so ``sys.modules`` proves nothing).
+* No module of the port imports jax, nor do chip_smoke.py, the examples on
+  the port (examples/torch/), the script that executes the port's notebook
+  or that notebook's code cells: a static AST scan (jax may be loaded in
+  the test process anyway, so ``sys.modules`` proves nothing).
+* The examples on the port run on the card unless asked for the CPU.
 * The CUDA kernel paths refuse CPU tensors (at the step level for the
   structured kernels, in the wrappers for the windowed ones) instead of
   quietly running the plain path.
@@ -13,6 +16,9 @@
 
 import ast
 import importlib
+import importlib.util
+import inspect
+import json
 import pathlib
 import subprocess
 
@@ -23,10 +29,13 @@ import torch
 import fenics_constitutive_tpu_torch
 
 PKG = pathlib.Path(fenics_constitutive_tpu_torch.__file__).parent
+REPO = PKG.parent
+TWINS = ("creep_neumann", "custom_torch_model", "elasticity_cpp", "mises_c",
+         "plasticity_demo")
 
 
-def _imports(path):
-    tree = ast.parse(path.read_text(), filename=str(path))
+def _imports(path, source=None):
+    tree = ast.parse(path.read_text() if source is None else source, filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
@@ -47,13 +56,35 @@ def test_port_never_imports_jax():
                    "postprocessing/norms.py", "postprocessing/sensors.py", "utils/timers.py",
                    "native/__init__.py", "models/interfaces.py"):
         assert module in scanned, module
+    # beside the package: the chip script, the examples on the port, the
+    # notebook's executor and the notebook's code cells
+    nb = REPO / "docs" / "torch" / "basic_usage.ipynb"
+    cells = [c for c in json.loads(nb.read_text())["cells"] if c["cell_type"] == "code"]
+    others = [REPO / "chip_smoke.py", REPO / "scripts" / "execute_torch_notebook.py",
+              *sorted((REPO / "examples" / "torch").rglob("*.py"))]
+    assert len(others) == 2 + len(TWINS) and len(cells) >= 5
+    sources = [(f, f.read_text()) for f in files + others]
+    sources += [(nb, "".join(c["source"])) for c in cells]
     bad = {
-        str(f.relative_to(PKG)): name
-        for f in files
-        for name in _imports(f)
+        str(f.relative_to(REPO)): name
+        for f, src in sources
+        for name in _imports(f, src)
         if name.split(".")[0] in ("jax", "jaxlib", "fenics_constitutive_tpu")
     }
     assert not bad, bad
+
+
+@pytest.mark.parametrize("name", TWINS)
+def test_example_twins_default_to_the_card(name):
+    """No fallback: a twin runs on the card unless asked for the CPU
+    (``--device cpu`` or ``main(device="cpu")``)."""
+    path = REPO / "examples" / "torch" / name / "run_example.py"
+    spec = importlib.util.spec_from_file_location(f"twin_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert inspect.signature(mod.main).parameters["device"].default == "cuda"
+    assert mod.parse_args([]).device == "cuda"
+    assert mod.parse_args(["out", "--device", "cpu"]).device == "cpu"
 
 
 def test_kernel_sources_present():
