@@ -26,10 +26,13 @@ exits non-zero before the last line:
      bit-equal.
   5. the benchmark workload on the port (1M quadrature points, float32,
      max_newton=1, fixed-9 CG, V(3,3) multigrid with a direct coarse solve,
-     both kernels): three warm-up load steps, a timed window of 48 steps,
-     and the deep fixed-40 CG re-run of the same schedule whose settled
-     residual the timed run must match within 2%. Also a 6^3 run of the same
-     step with kernels and with plain operators, which must agree.
+     both kernels) with bench.py's eager V-cycle: bench_torch.py's run in
+     this process (the timing protocol of scripts/torch_bench/common.py:
+     three warm-up load steps, untimed windows until two agree, 5 timed
+     windows of 48 steps; the deep fixed-40 CG re-run of the whole run,
+     whose settled residual the timed run must match within 2%), its JSON
+     line printed. Also a 6^3 run of the same step with kernels and with
+     plain operators, which must agree.
   6. the user entry point: PackedSimulation(..., preconditioner="vcycle",
      eval_impl="kernel") in float64 on the 50^3 box takes 3 load steps of
      the stretch 0.0004 k; each must converge. (Steps of 0.004 k, which
@@ -50,15 +53,18 @@ padded quadrature points):
      kernel's time on the card (torch.profiler) and the library call's, and
      the host's part of one K4 call beside the indexing call's.
   8. K6 (BSR SpMV on the plan's row layout) against its plain version on
-     every A, P and R level of the mesh's AMG hierarchy: float32 with
+     every A, P and R level of the mesh's AMG hierarchy (the one
+     scripts/torch_bench/unstructured.py builds: 512 tile rows): float32 with
      select_passes 1 and 3, and float64, two launches bit-equal; per-level
      errors, threads per row, times beside the plain version, a torch CSR
      product and the bound; then the sweep of 1-32 threads per row.
-  9. the general-tet bench (the JAX package's scripts/bench_unstructured.py
-     protocol): float32, max_newton=1, fixed-3 plain PCG with the windowed
-     AMG V(3,3); warm-up load scales 0.5-2.0, 10 timed steps at
-     2.0 + 0.05 (i+1), and the fixed-9 and fixed-18 re-runs of the same
-     schedule, which the settled residual must match within 2% each. First a
+  9. the general-tet bench: scripts/torch_bench/unstructured.py's run (the
+     JAX package's scripts/bench_unstructured.py protocol) in this process
+     on that mesh: float32, max_newton=1, fixed-12 plain PCG with the
+     windowed AMG V(2,2); warm-up load scales 0.5-2.0, windows of 10 steps
+     at 2.0 + 0.05 (i+1), and the fixed-36 and fixed-72 re-runs of the whole
+     run, which the settled residual must match within 2% each; its JSON
+     line printed. First a
      5^3 float64 reference: converged Newton steps on the card (kernels) and
      on the CPU (plain versions) must agree.
  10. the user entry point on the imported mesh: PackedSimulation with
@@ -82,10 +88,10 @@ around them:
      11 x 10 x 10 box (non-nested transfers); the device ops of one fused
      V-cycle at 50^3 (torch.profiler; fails above 8); the fused V-cycle
      against the unfused one.
- 12. phase 5's workload with fused_smoothing=True: the same warm-up and 48
-     steps, the deep fixed-40 re-run with the same preconditioner, ms/step
+ 12. bench_torch.py's run as a user runs it by default, in this process:
+     phase 5's workload and protocol with fused_smoothing=True, ms/step
      beside phase 5's, the V-cycle fused against unfused, K3 launches per
-     entry.
+     entry, its JSON line printed.
  13. PackedSimulation on scripts/ab_multimat.py's two-law 50^3 box (linear
      elasticity below z = 0.5, VonMises3D above; float64, V-cycle with the
      K3 chains): solve_schedule over 3 steps of 0.0004 k, a checkpoint round
@@ -125,8 +131,9 @@ Every P1 mesh the JAX package accepts, on its own engine:
      bench's stretch, float32, max_newton=1, fixed-14 CG with V(3,3)
      multigrid (nu_coarse 2, direct coarsest solve) below the tet fine
      level: fused (K3 on the tet level and the hex levels below) and eager,
-     each timed over 16 steps at 2.0 + 1e-4 + 0.05 i after warm-up scales
-     0.5/1.0/1.5 and held to a fixed-40 re-run within 1.02x; K3's entries on
+     each through scripts/torch_bench/tet.py's run in this process (windows
+     of 16 steps, held to a fixed-40 re-run within 1.02x; its JSON line
+     printed); K3's entries on
      the tet hierarchy against their plain twins; K1 and K2 never launch.
      Then PackedSimulation with two laws on the box (linear elasticity
      below z = 0.5, VonMises3D above), float64, the V-cycle with K3, 3
@@ -135,8 +142,8 @@ Every P1 mesh the JAX package accepts, on its own engine:
      write_gmsh41_binary and read back (nodes, cells and cell sets equal to
      the ASCII read), PackedSimulation(engine="gather", preconditioner=
      "amg") (1,029,000 QPs unpadded; on the card its AMG levels are the
-     windowed ones, which K6 applies), phase 9's protocol (fixed-3 PCG with
-     AMG V(3,3), held to fixed-9 and fixed-18), one step run twice bit for
+     windowed ones, which K6 applies), fixed-3 PCG with AMG V(3,3), held to
+     fixed-9 and fixed-18 by the twins' protocol, one step run twice bit for
      bit, K6 launches a step, the set-up split (read, gather_idx, AMG host
      build, freeze, upload); the ELL levels of the same hierarchy
      (build_amg(spmv="ell")) beside the windowed ones: one V-cycle each on
@@ -250,6 +257,20 @@ The user layer (the examples on the port, examples/torch/):
      copies' ms (CUDA events around each side), ms per step with its
      Newton and CG iterations.
 
+The bench layer (bench_torch.py and scripts/torch_bench/); phases 5, 9, 12
+and 16 run bench_torch.py, unstructured.py and tet.py:
+
+ 25. the twins no earlier phase runs, each at its JAX script's default size
+     in this process: p2.py, amg.py (with half its windows' steps) with K6
+     held against its plain version on every A, P and R operator of the
+     AMG it ran (select_passes 3, node-major), roofline.py and roofline.py
+     windowed. Each JSON line must say converged and show its path's
+     kernels launched in its timed run (K3 in p2.py, K6 in amg.py, K1-K3 and
+     K4-K5 in roofline.py). Then `BENCH_FIXED_ITERS=4 python bench_torch.py`
+     in its own process, as a user runs it, which must exit 1 with converged
+     false (the self-check bites). bench_torch.py --sharded 2 --real runs
+     where there are two cards; otherwise a line says it was not run.
+
 A kernel's time on the card and a device-op count come from torch.profiler.
 CUPTI now and then delivers a short profile on the H100, so such a profile
 is taken again, three times in all; after that the time is taken by CUDA
@@ -262,8 +283,8 @@ K3 also on phase 16's tet run, phase 19's fused P2 steps and phase 20's P2
 quad steps, for K4-K6 also on phase 14's 3-step run and phase 21's timed
 run, for K6 also on phase 17's timed run, for every kernel on phase 22's
 packed problem (0 for K1-K3), for K4-K6 per rank on phase 23's sharded
-run, for K1 and K3 on phase 24's full-width creep run, times, plain and
-library times,
+run, for K1 and K3 on phase 24's full-width creep run, per bench twin on
+its timed windows, times, plain and library times,
 the bound; for K3 also the quad entries' numbers) and, last, the device
 JSON line.
 
@@ -302,10 +323,46 @@ from pathlib import Path
 import numpy as np
 import torch
 
-MAT = {"p_ka": 175000.0, "p_mu": 80769.0, "p_y0": 1200.0, "p_y00": 2500.0, "p_w": 200.0}
-MU, KAPPA = MAT["p_mu"], MAT["p_ka"]
+import bench_torch
+from scripts.torch_bench import amg as amg_bench
+from scripts.torch_bench import p2 as p2_bench
+from scripts.torch_bench import roofline as roofline_bench
+from scripts.torch_bench import tet as tet_bench
+from scripts.torch_bench import unstructured as unstructured_bench
+from scripts.torch_bench.common import (
+    K3_ENTRIES,
+    KAPPA,
+    MAT,
+    MU,
+    R_NORM_ENVELOPE,
+    bench_bcs,
+    bench_schedule,
+    bench_setup,
+    bench_step,
+    box,
+    cuda_ms,
+    fail,
+    free_mask,
+    imported_mesh,
+    nvidia_smi,
+    read_counts,
+    reset_all_counts,
+    reset_counts,
+    run_schedule,
+    step_args,
+    window_counts,
+)
+from scripts.torch_bench.roofline import (
+    bound_ms,
+    chain_cost,
+    k1_cost,
+    k2_cost,
+    k6_cost,
+    vcycle_costs,
+    window_costs,
+)
+
 N_BENCH = 50
-R_NORM_ENVELOPE = 1.02
 
 # tolerances, normwise: max|kernel - plain| <= tol * max|plain| per output.
 # float64: both sides differ only by summation order and FMA contraction,
@@ -336,45 +393,32 @@ CARD = "cuda"  # the device of the general-mesh phases
 N_TET = 35  # the general-tet bench mesh: 35^3 boxes of 6 Kuhn tets
 N_QP_TET = 1_083_392  # its padded quadrature points (T = 1024 plan)
 TET_FIXED, TET_VERIFY = 3, (9, 18)
+#: bench_torch.py's settings, as bench.py sets them (whatever the environment)
+BOX_BENCH = {"n": N_BENCH, "nu": 3, "nu_coarse": 2, "fixed": 9, "steps": 48, "verify": 40}
+#: each bench twin's JSON line of this run by label, as hold_line took it
+BENCH_LINES: dict = {}
 
 
-def fail(msg: str) -> None:
-    raise SystemExit(f"FAIL: {msg}")
+def hold_line(phase: str, label: str, line: dict, kernels=(), key: str = "launches") -> dict:
+    """Print a bench twin's JSON line (without its in-process objects); fail
+    unless it says converged and its timed run launched each of ``kernels``."""
+    line = {k: v for k, v in line.items() if k != "objects"}
+    print(f"{phase} {label}: {json.dumps(line)}", flush=True)
+    if line["converged"] is not True:
+        fail(f"{phase} {label}: the twin's self-check failed (converged "
+             f"{line['converged']})")
+    missing = [k for k in kernels if line[key][k] <= 0]
+    if missing:
+        fail(f"{phase} {label}: its timed run never launched {', '.join(missing)} "
+             f"({line[key]})")
+    BENCH_LINES[label] = line
+    return line
 
 
 def normwise(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     """(max abs error, max abs error / max|b|)."""
     err = float((a.double() - b.double()).abs().max())
     return err, err / max(float(b.double().abs().max()), 1e-300)
-
-
-# published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, and
-# operations/s outside the tensor cores per working type
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
-
-
-def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
-    """The least time the card could take: the larger of bytes over the
-    memory rate and operations over the peak rate of their type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms, by CUDA events around `iters` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / iters
 
 
 def host_us(fn, iters: int = 500) -> float:
@@ -467,59 +511,13 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, floor_ms: float = 0.0) -> fl
     return ms
 
 
-def bench_bcs(V):
-    """The bench's Dirichlet set: x=0 fixed in x, x=1 pulled by 0.004 in x,
-    y=0 and z=0 fixed in y and z."""
-    from fenics_constitutive_tpu_torch.fem import DirichletBC
-
-    def close(axis, v):
-        return lambda x: np.isclose(x[:, axis], v)
-
-    return [
-        DirichletBC(V.locate_dofs_geometrical(close(0, 0.0), component=0), 0.0),
-        DirichletBC(V.locate_dofs_geometrical(close(0, 1.0), component=0), 0.004),
-        DirichletBC(V.locate_dofs_geometrical(close(1, 0.0), component=1), 0.0),
-        DirichletBC(V.locate_dofs_geometrical(close(2, 0.0), component=2), 0.0),
-    ]
-
-
-def box(n: int):
-    from fenics_constitutive_tpu_torch.fem import FunctionSpace, unit_cube_mesh
-
-    V = FunctionSpace(unit_cube_mesh(n, n, n, "hex"), 1, 3)
-    return V, bench_bcs(V)
-
-
-def imported_mesh(n: int):
-    """A Kuhn tet box with its node numbering shuffled (seed 0) and no
-    structured metadata: it arrives like an imported mesh."""
-    from fenics_constitutive_tpu_torch.fem import Mesh, unit_cube_mesh
-
-    mesh = unit_cube_mesh(n, n, n, "tetra")
-    pi = np.random.default_rng(0).permutation(mesh.num_nodes)
-    nodes = np.empty_like(mesh.nodes)
-    nodes[pi] = mesh.nodes
-    return Mesh(nodes, pi[mesh.cells].astype(np.int32), "tetra")
-
-
-def free_mask(V, bcs) -> np.ndarray:
-    from fenics_constitutive_tpu_torch.fem import combine_bcs
-
-    free = np.ones(V.ndofs, bool)
-    free[combine_bcs(bcs)[0]] = False
-    return free
-
-
 # -- phases ----------------------------------------------------------------------
 
 
 def phase_device() -> tuple[str, str]:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script runs on a CUDA GPU only")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     print(smi)
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
@@ -592,12 +590,7 @@ def phase_k1(results: dict) -> None:
                                                       ("matvec_kernel",))
             ops = k1_launches + others
             plain_ms = cuda_ms(lambda: cuda_matvec.matvec_plain(geo, v, tg))
-            # u -> r: u, beta, gamma [8, M], n [48, M], mask in; r out. Per
-            # valid cell the strain and divergence products (2 x 1152
-            # multiply-adds) and ~40 operations per Gauss point for the tangent
-            M, cells = geo.M, float(geo.mask.sum())
-            bound, by = bound_ms(4 * (3 + 8 + 8 + 48 + 1 + 3) * M,
-                                 cells * (4 * 1152 + 8 * 40) + 21 * M, dtype)
+            bound, by = bound_ms(*k1_cost(geo), dtype)
             results["K1"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound, "bound_by": by, "library_ms": None,
                              "device_ms": dev, "device_ops": ops}
@@ -733,14 +726,7 @@ def phase_k2(results: dict) -> None:
                                                       ("eval_kernel",))
             ops = k2_launches + others
             plain_ms = cuda_ms(lambda: cuda_eval.eval_plain(geo, law, *args))
-            # du 3, stress 48, eps_n 48, alpha 8, mask 1 in; r 3, stress 48,
-            # eps_n 48, n 48, alpha 8, beta 8, gamma 8 out: 279 M values.
-            # Operations: per valid cell the gradient-structured strain and
-            # divergence (2 x 576 multiply-adds) and ~100 per Gauss point for
-            # the trial state, not counting the local Newton trips; the node
-            # sums (a lower bound)
-            M, cells = geo.M, float(geo.mask.sum())
-            bound, by = bound_ms(4 * 279 * M, cells * (4 * 576 + 8 * 100) + 21 * M, dtype)
+            bound, by = bound_ms(*k2_cost(geo), dtype)
             results["K2"] = {"max_abs_err": errs["r"][0], "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound, "bound_by": by, "library_ms": None,
                              "device_ms": dev, "device_ops": ops}
@@ -754,49 +740,6 @@ def phase_k2(results: dict) -> None:
             line.append(f"f64 kernel on the card {device_ms(lambda: fused(*args)):.4f} ms")
         print(f"phase 4 K2 vs plain {name} (tol {tol:g}; every output bit-equal across two "
               f"launches): " + "; ".join(line))
-
-
-def bench_setup(n: int, dtype, device, fused: bool = False):
-    from fenics_constitutive_tpu_torch.fem import combine_bcs
-    from fenics_constitutive_tpu_torch.models import VonMises3D
-    from fenics_constitutive_tpu_torch.solver import build_multigrid, build_packed_problem
-
-    V, bcs = box(n)
-    law = VonMises3D(MAT)
-    geos, models, state = build_packed_problem(V, law, 2, device=device, dtype=dtype)
-    bc_dofs, bc_vals = combine_bcs(bcs)
-    free0 = torch.ones(V.ndofs, dtype=torch.bool)
-    free0[torch.as_tensor(bc_dofs, dtype=torch.int64)] = False
-    mg = build_multigrid(
-        geos[0], MU, KAPPA, free0, device=device, dtype=dtype,
-        nu=3, nu_coarse=2, coarse_direct=True, fused_smoothing=fused,
-    )
-    args = (
-        torch.as_tensor(bc_dofs, dtype=torch.int64, device=device),
-        torch.as_tensor(bc_vals, dtype=dtype, device=device),
-        torch.zeros(V.ndofs, dtype=dtype, device=device),
-        1.0,
-    )
-    return geos, models, state, mg, args
-
-
-def bench_step(geos, mg, fixed_iters, impl):
-    from fenics_constitutive_tpu_torch.solver import make_packed_step
-
-    return make_packed_step(
-        geos, max_newton=1, newton_rtol=0.0, newton_atol=0.0, cg_rtol=1e-5,
-        cg_maxiter=400, preconditioner=mg, cg_fixed_iters=fixed_iters,
-        matvec_impl=impl, eval_impl=impl,
-    )
-
-
-def run_schedule(step, models, state, args, scales):
-    bc_dofs, bc_vals, f_ext, dt = args
-    probes = []
-    for sc in scales:
-        state, stats = step(models, state, bc_dofs, bc_vals * sc, f_ext, dt)
-        probes.append(stats["r_norm"])
-    return state, torch.stack(probes)
 
 
 def phase_bench(results: dict) -> dict:
@@ -826,123 +769,56 @@ def phase_bench(results: dict) -> dict:
     if max(u_rel, s_rel) > 1e-7:
         fail("the kernel step disagrees with the plain step at 6^3")
 
-    t0 = time.perf_counter()
-    geos, models, state, mg, args = bench_setup(N_BENCH, torch.float32, "cuda")
-    if geos[0].N != 1_000_000:
-        fail(f"bench box has {geos[0].N} quadrature points, expected 1,000,000")
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    step = bench_step(geos, mg, 9, "kernel")
-    st = state
-    for k in (0.5, 1.0, 1.5):  # warm-up, driven past yield
-        st, _ = step(models, st, args[0], args[1] * k, *args[2:])
-    torch.cuda.synchronize()
-
-    K, j = 48, 1
-    scales = [2.0 + 1e-4 * j + 0.05 * i for i in range(K)]
-    reset_counts()
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-    h0 = time.perf_counter()
-    ev0.record()
-    out_state, probes = run_schedule(step, models, st.clone(), args, scales)
-    ev1.record()
-    ev1.synchronize()
-    host_s = time.perf_counter() - h0
-    counts = {k: v for k, v in read_counts().items() if not k.startswith("K3")}
-    ms_step = ev0.elapsed_time(ev1) / K
-    if not (torch.isfinite(probes).all() and torch.isfinite(out_state.u).all()):
+    # bench_torch.py's run with bench.py's eager V-cycle, in this process
+    line, objs = bench_torch.measure([], **BOX_BENCH, fused=False)
+    hold_line("phase 5", "bench_torch eager", line, ("K1", "K2"))
+    final, geo, mg = objs["final"], objs["geos"][0], objs["mg"]
+    if not torch.isfinite(final.u).all():
         fail("bench run produced non-finite values")
-    if out_state.stress[0].shape != (6, 8, 51**3):
-        fail(f"bench stress has shape {tuple(out_state.stress[0].shape)}")
-    r_settled = float(probes[-1])
-
-    r = torch.as_tensor(np.random.default_rng(2).normal(size=geos[0].ndofs),
+    if final.stress[0].shape != (6, 8, 51**3):
+        fail(f"bench stress has shape {tuple(final.stress[0].shape)}")
+    r = torch.as_tensor(np.random.default_rng(2).normal(size=geo.ndofs),
                         dtype=torch.float32, device="cuda")
     vcycle_ms = cuda_ms(lambda: mg(r), iters=10)
-    elastic_ms = cuda_ms(lambda: geos[0].elastic_matvec_gm(r, KAPPA, 2 * MU))
-
-    box_mg = mg
-    step_ref = bench_step(geos, mg, 40, "kernel")
-    _, probes_ref = run_schedule(step_ref, models, st.clone(), args, scales)
-    r_ref = float(probes_ref[-1])
-    ok = r_settled <= R_NORM_ENVELOPE * r_ref
-    print(f"phase 5 bench 50^3 f32 (1,000,000 QPs): {ms_step:.3f} ms/step over {K} steps "
-          f"(CUDA events; host clock {host_s / K * 1e3:.3f} ms/step; setup {setup_s:.1f} s), "
-          f"r_norm {r_settled:.4f} vs deep fixed-40 {r_ref:.4f} (envelope {R_NORM_ENVELOPE}), "
-          f"launches K1 {counts['K1']} K2 {counts['K2']}; V-cycle {vcycle_ms:.3f} ms, "
-          f"fine elastic apply {elastic_ms:.4f} ms; "
+    elastic_ms = cuda_ms(lambda: geo.elastic_matvec_gm(r, KAPPA, 2 * MU))
+    print(f"phase 5 bench 50^3 f32 (1,000,000 QPs), eager V-cycle: {line['value']:.3f} ms/step, "
+          f"the median of {len(line['windows_ms'])} windows of {BOX_BENCH['steps']} steps "
+          f"(spread {line['spread']:.1%}; host clock {line['host_ms']:.3f} ms/step; setup "
+          f"{line['setup_s']:.1f} s), r_norm {line['r_norm']:.4f} vs deep fixed-"
+          f"{BOX_BENCH['verify']} {line['r_norm_ref']:.4f} (envelope {R_NORM_ENVELOPE}); "
+          f"V-cycle {vcycle_ms:.3f} ms, fine elastic apply {elastic_ms:.4f} ms; "
           f"K1 {results['K1']['ms']:.4f} ms vs plain {results['K1']['plain_ms']:.4f} ms, "
           f"K2 {results['K2']['ms']:.4f} ms vs plain {results['K2']['plain_ms']:.4f} ms")
-    if not ok:
-        fail(f"settled r_norm {r_settled:.4f} exceeds {R_NORM_ENVELOPE} x deep-CG {r_ref:.4f}")
-    for name, c in counts.items():
-        if c <= 0:
-            fail(f"the bench run never launched {name}")
-    return {"counts": counts, "ms_step": ms_step, "vcycle_ms": vcycle_ms, "mg": box_mg}
-
-
-def reset_counts() -> None:
-    from fenics_constitutive_tpu_torch.ops import cuda_eval, cuda_matvec, cuda_smoother
-
-    cuda_matvec.launches = cuda_eval.launches = cuda_smoother.launches = 0
-    for key in cuda_smoother.entry_launches:
-        cuda_smoother.entry_launches[key] = 0
-
-
-def read_counts() -> dict:
-    """K1-K3 launches since reset_counts(), and K3's per V-cycle entry."""
-    from fenics_constitutive_tpu_torch.ops import cuda_eval, cuda_matvec, cuda_smoother
-
-    return {"K1": cuda_matvec.launches, "K2": cuda_eval.launches, "K3": cuda_smoother.launches,
-            **{f"K3_{kind}": cuda_smoother.entry_launches[kind] for kind in K3_ENTRIES}}
+    counts = {k: v for k, v in line["launches"].items() if k in ("K1", "K2")}
+    return {"counts": counts, "ms_step": line["value"], "vcycle_ms": vcycle_ms, "mg": mg}
 
 
 def phase_bench_fused(box_bench: dict) -> dict:
-    """Phase 5's workload with the K3 chains on every level of the V-cycle."""
-    geos, models, state, mg, args = bench_setup(N_BENCH, torch.float32, "cuda", fused=True)
-    step = bench_step(geos, mg, 9, "kernel")
-    st = state
-    for k in (0.5, 1.0, 1.5):  # warm-up, driven past yield
-        st, _ = step(models, st, args[0], args[1] * k, *args[2:])
-    torch.cuda.synchronize()
-
-    K, j = 48, 1
-    scales = [2.0 + 1e-4 * j + 0.05 * i for i in range(K)]
-    reset_counts()
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-    ev0.record()
-    out_state, probes = run_schedule(step, models, st.clone(), args, scales)
-    ev1.record()
-    ev1.synchronize()
-    counts = read_counts()
-    ms_step = ev0.elapsed_time(ev1) / K
-    if not (torch.isfinite(probes).all() and torch.isfinite(out_state.u).all()):
+    """bench_torch.py's run (phase 5's workload with the K3 chains on every
+    level of the V-cycle), in this process."""
+    line, objs = bench_torch.measure([], **BOX_BENCH, fused=True)
+    hold_line("phase 12", "bench_torch", line,
+              ("K1", "K2", "K3", *(f"K3_{kind}" for kind in K3_ENTRIES)))
+    geo, mg = objs["geos"][0], objs["mg"]
+    if not torch.isfinite(objs["final"].u).all():
         fail("fused bench run produced non-finite values")
-    r_settled = float(probes[-1])
+    counts = line["launches"]
 
     # V-cycle alone, fused and unfused in turns (A B B A)
     mg_plain = box_bench["mg"]
-    r = torch.as_tensor(np.random.default_rng(2).normal(size=geos[0].ndofs),
+    r = torch.as_tensor(np.random.default_rng(2).normal(size=geo.ndofs),
                         dtype=torch.float32, device="cuda")
     t_f1, t_p1 = cuda_ms(lambda: mg(r), iters=10), cuda_ms(lambda: mg_plain(r), iters=10)
     t_p2, t_f2 = cuda_ms(lambda: mg_plain(r), iters=10), cuda_ms(lambda: mg(r), iters=10)
-    _, probes_ref = run_schedule(bench_step(geos, mg, 40, "kernel"), models, st.clone(),
-                                 args, scales)
-    r_ref = float(probes_ref[-1])
-    print(f"phase 12 bench 50^3 f32 with the fused V-cycle: {ms_step:.3f} ms/step over {K} "
-          f"steps (phase 5, unfused, same call: {box_bench['ms_step']:.3f} ms/step), r_norm "
-          f"{r_settled:.4f} vs deep fixed-40 {r_ref:.4f} (envelope {R_NORM_ENVELOPE}); V-cycle "
-          f"fused {t_f1:.3f}/{t_f2:.3f} ms vs unfused {t_p1:.3f}/{t_p2:.3f} ms; launches "
-          f"K1 {counts['K1']} K2 {counts['K2']} K3 {counts['K3']} ("
-          + ", ".join(f"{kind} {counts['K3_' + kind]}" for kind in K3_ENTRIES) + ")")
-    if r_settled > R_NORM_ENVELOPE * r_ref:
-        fail(f"fused settled r_norm {r_settled:.4f} exceeds {R_NORM_ENVELOPE} x {r_ref:.4f}")
-    for name, c in counts.items():
-        if c <= 0:
-            fail(f"the fused bench run never launched {name}")
-    return {"counts": counts, "ms_step": ms_step}
+    print(f"phase 12 bench 50^3 f32 with the fused V-cycle: {line['value']:.3f} ms/step, the "
+          f"median of {len(line['windows_ms'])} windows (spread {line['spread']:.1%}; phase 5, "
+          f"eager, same call: {box_bench['ms_step']:.3f} ms/step), r_norm "
+          f"{line['r_norm']:.4f} vs deep fixed-{BOX_BENCH['verify']} {line['r_norm_ref']:.4f} "
+          f"(envelope {R_NORM_ENVELOPE}); V-cycle fused {t_f1:.3f}/{t_f2:.3f} ms vs unfused "
+          f"{t_p1:.3f}/{t_p2:.3f} ms; launches K1 {counts['K1']} K2 {counts['K2']} K3 "
+          f"{counts['K3']} (" + ", ".join(f"{kind} {counts['K3_' + kind]}"
+                                         for kind in K3_ENTRIES) + ")")
+    return {"counts": counts, "ms_step": line["value"]}
 
 
 def multimat_sim(V, bcs, **kw):
@@ -1078,35 +954,15 @@ def phase_simulation() -> None:
 # -- the general-mesh path ---------------------------------------------------------
 
 
-def tet_setup(workdir: Path) -> dict:
-    """The imported 35^3 tet mesh through write_gmsh/read_gmsh, its windowed
-    geometry (float32, on the card) and its AMG hierarchy (V(3,3)), timed."""
-    from fenics_constitutive_tpu_torch.fem import FunctionSpace, read_gmsh, write_gmsh
-    from fenics_constitutive_tpu_torch.models import VonMises3D
-    from fenics_constitutive_tpu_torch.solver import build_amg, build_packed_problem
-
-    t0 = time.perf_counter()
-    written = imported_mesh(N_TET)
-    path = workdir / "tet35.msh"
-    write_gmsh(path, written)
-    mesh = read_gmsh(path)
-    io_s = time.perf_counter() - t0
-    if not (np.array_equal(mesh.cells, written.cells) and np.array_equal(mesh.nodes, written.nodes)):
-        fail("read_gmsh did not give back the mesh write_gmsh wrote")
-    if mesh.structured_shape is not None:
-        fail("the imported mesh carries structured metadata")
-    V = FunctionSpace(mesh, 1, 3)
-    bcs = bench_bcs(V)
-    geos, models, state = build_packed_problem(
-        V, VonMises3D(MAT), 2, device=CARD, dtype=torch.float32, engine="windowed"
-    )
-    geo = geos[0]
-    if geo.N != N_QP_TET:
-        fail(f"the tet bench has {geo.N} quadrature points, expected {N_QP_TET}")
-    amg = build_amg(V, MU, KAPPA, free_mask(V, bcs), q_degree=2, nu=3, spmv="windowed",
-                    node_perm=geo.ex.perm, device=CARD, dtype=torch.float32)
-    return {"mesh": mesh, "V": V, "bcs": bcs, "geos": geos, "models": models,
-            "state": state, "amg": amg, "io_s": io_s}
+def tet_setup() -> dict:
+    """unstructured.py's set-up: the imported 35^3 tet mesh through
+    write_gmsh/read_gmsh, its windowed geometry (float32, on the card) and
+    its AMG hierarchy (V(2,2), 512 tile rows), timed."""
+    tet = unstructured_bench.setup(N_TET, torch.device(CARD), torch.float32, "amg", nu=2,
+                                   tile_rows=512)
+    if tet["geos"][0].N != N_QP_TET:
+        fail(f"the tet bench has {tet['geos'][0].N} quadrature points, expected {N_QP_TET}")
+    return tet
 
 
 def phase_k4_k5(results: dict, tet: dict) -> None:
@@ -1151,16 +1007,7 @@ def phase_k4_k5(results: dict, tet: dict) -> None:
                        lambda: cuda_window.scatter_plain(ex, f),
                        lambda: acc.index_add_(1, gi_flat, f_rows)),
             }
-            # bytes only: u2 (or f) and the plan's indices read, the rows written
-            rows = ex.B * 3 * ex.Rn * 4
-            idx5 = (ex.node_ptr.numel() * ex.node_ptr.element_size()
-                    + ex.node_rows.numel() * ex.node_rows.element_size())
-            bounds = {
-                "K4": bound_ms(u2.numel() * 4 + ex.loc.numel() * ex.loc.element_size() + rows,
-                               0.0, dtype),
-                "K5": bound_ms(rows + idx5 + 3 * ex.M_pad * 4, 3.0 * ex.node_rows.numel(),
-                               dtype),
-            }
+            bounds = {k: bound_ms(*cost, dtype) for k, cost in window_costs(ex).items()}
             errs = {"K4": 0.0, "K5": err}
             for key, (kernel, plain, lib) in calls.items():
                 # CUDA events time the calls back to back (host launch path
@@ -1193,16 +1040,6 @@ def phase_k4_k5(results: dict, tet: dict) -> None:
 
 
 LANES = (1, 2, 4, 8, 16, 32)
-
-
-def k6_cost(w) -> tuple[float, float]:
-    """(bytes, flops) of one K6 apply: the row layout (row_ptr, col, blk) and
-    x read once, y written once; two operations per block entry."""
-    size = w.blk.element_size()
-    nnzb = w.col.numel()
-    nbytes = ((w.NR_pad + 1 + nnzb) * 4
-              + (nnzb * w.br * w.bc + w.bc * w.NC_pad + w.br * w.NR_pad) * size)
-    return nbytes, 2.0 * nnzb * w.br * w.bc
 
 
 def phase_k6(results: dict, tet: dict) -> None:
@@ -1324,15 +1161,7 @@ def tet_step(geos, pc, fixed: int | None, **newton):
 
 
 def tet_args(geo, bcs, dtype, device):
-    from fenics_constitutive_tpu_torch.fem import combine_bcs
-
-    bc_dofs, bc_vals = combine_bcs(bcs)
-    return (
-        torch.as_tensor(bc_dofs, dtype=torch.int64, device=device),
-        torch.as_tensor(bc_vals, dtype=dtype, device=device),
-        torch.zeros(geo.ndofs_int, dtype=dtype, device=device),  # internal f_ext
-        1.0,
-    )
+    return step_args(bcs, geo.ndofs_int, dtype, device)  # internal f_ext
 
 
 def tet_reference() -> float:
@@ -1365,70 +1194,34 @@ def tet_reference() -> float:
 
 
 def phase_tet_bench(tet: dict) -> dict:
-    from fenics_constitutive_tpu_torch.ops import cuda_window
-
     ref_rel = tet_reference()
     print(f"phase 9 small reference 5^3 tets f64, converged Newton, kernels (card) vs plain "
           f"(CPU) after 4 load steps: max rel {ref_rel:.2e} (tol 1e-7)")
     if ref_rel > 1e-7:
         fail("the kernel tet step disagrees with the plain step at 5^3")
 
-    geos, models, amg = tet["geos"], tet["models"], tet["amg"]
-    geo = geos[0]
-    pc = amg.wrap_internal(geo.ex.M_pad)
-    args = tet_args(geo, tet["bcs"], torch.float32, CARD)
-    step = tet_step(geos, pc, TET_FIXED)
-    st = tet["state"]
-    for k in (0.5, 1.0, 1.5, 2.0):  # warm-up, driven past yield
-        st, _ = step(models, st, args[0], args[1] * k, *args[2:])
-    torch.cuda.synchronize()
-
-    K = 10
-    scales = [2.0 + 0.05 * (i + 1) for i in range(K)]
-    for key in cuda_window.launches:
-        cuda_window.launches[key] = 0
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-    h0 = time.perf_counter()
-    ev0.record()
-    out_state, probes = run_schedule(step, models, st.clone(), args, scales)
-    ev1.record()
-    ev1.synchronize()
-    host_s = time.perf_counter() - h0
-    counts = dict(cuda_window.launches)
-    ms_step = ev0.elapsed_time(ev1) / K
-    tet["bench_ms_step"] = ms_step  # phase 17 prints it beside the gather engine's
-    if not (torch.isfinite(probes).all() and torch.isfinite(out_state.u).all()):
+    # unstructured.py's run at its defaults on the set-up's mesh and AMG
+    line = unstructured_bench.run(tet, torch.device(CARD), torch.float32)
+    final = line.pop("objects")["final"]
+    hold_line("phase 9", "unstructured", line, ("K4", "K5", "K6"))
+    if not torch.isfinite(final.u).all():
         fail("tet bench run produced non-finite values")
-    if out_state.stress[0].shape != (6, N_QP_TET):
-        fail(f"tet bench stress has shape {tuple(out_state.stress[0].shape)}")
-    r_settled = float(probes[-1])
-
+    if final.stress[0].shape != (6, N_QP_TET):
+        fail(f"tet bench stress has shape {tuple(final.stress[0].shape)}")
+    geo, amg, counts = tet["geos"][0], tet["amg"], line["launches"]
     r = torch.as_tensor(np.random.default_rng(2).normal(size=geo.ndofs_int),
                         dtype=torch.float32, device=CARD)
-    vcycle_ms = cuda_ms(lambda: pc(r), iters=10)
-    refs = []
-    for fk in TET_VERIFY:
-        _, pr = run_schedule(tet_step(geos, pc, fk), models, st.clone(), args, scales)
-        refs.append(float(pr[-1]))
-    ok = r_settled <= R_NORM_ENVELOPE * refs[0] and refs[0] <= R_NORM_ENVELOPE * refs[1]
-    bs_g, bs_a = geo.build_seconds, amg.build_seconds
-    print(f"phase 9 tet bench 35^3 f32 ({N_QP_TET:,} QPs): {ms_step:.3f} ms/step over {K} steps "
-          f"(CUDA events; host clock {host_s / K * 1e3:.3f} ms/step), settled r_norm "
-          f"{r_settled:.4f} vs fixed-{TET_VERIFY[0]} {refs[0]:.4f} and fixed-{TET_VERIFY[1]} "
-          f"{refs[1]:.4f} (envelope {R_NORM_ENVELOPE} each); setup s: gmsh write+read "
-          f"{tet['io_s']:.2f}, RCM {bs_g['rcm']:.2f} + plan {bs_g['plan']:.2f}, geometry "
-          f"{bs_g['geometry']:.2f}, AMG host build {bs_a['hierarchy']:.2f} + freeze "
-          f"{bs_a['freeze']:.2f}, upload {bs_a['upload']:.2f}; AMG {amg.n_levels} levels; "
-          f"launches K4 {counts['gather']} K5 {counts['scatter']} K6 {counts['bsr_matvec']}; "
-          f"V-cycle {vcycle_ms:.3f} ms")
-    if not ok:
-        fail(f"settled r_norm {r_settled:.4f} is outside the {R_NORM_ENVELOPE} envelopes of "
-             f"the deep re-runs {refs}")
-    for name, c in counts.items():
-        if c <= 0:
-            fail(f"the tet bench run never launched {name}")
-    return counts
+    vcycle_ms = cuda_ms(lambda: tet["pc"](r), iters=10)
+    print(f"phase 9 tet bench 35^3 f32 ({N_QP_TET:,} QPs): {line['value']:.3f} ms/step, the "
+          f"median of {len(line['windows_ms'])} windows of 10 steps (spread "
+          f"{line['spread']:.1%}; host clock {line['host_ms']:.3f}), settled r_norm "
+          f"{line['r_norm']:.4f} vs fixed-{line['verify_iters']} {line['r_norm_ref']:.4f} and "
+          f"fixed-{2 * line['verify_iters']} {line['r_norm_ref2']:.4f} (envelope "
+          f"{R_NORM_ENVELOPE} each); setup s: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in line["setup_split_s"].items())
+          + f"; AMG {amg.n_levels} levels; launches K4 {counts['K4']} K5 {counts['K5']} K6 "
+          f"{counts['K6']}; V-cycle {vcycle_ms:.3f} ms")
+    return {"gather": counts["K4"], "scatter": counts["K5"], "bsr_matvec": counts["K6"]}
 
 
 def phase_tet_simulation(tet: dict) -> None:
@@ -1787,31 +1580,6 @@ def phase_library() -> None:
 # -- K3: the fused multigrid smoothing chains ---------------------------------------
 
 
-def stencil_flops(geo) -> float:
-    """Operations of one stencil apply at a node: 3^d neighbours of vs x vs
-    blocks, a multiply and an add each (486 on a hex level, 72 on a quad)."""
-    return 2.0 * 3**geo.gdim * geo.vs**2
-
-
-def chain_cost(chain) -> tuple[float, float]:
-    """(bytes, flops) one call of a K3 chain needs: b, the level data (and x)
-    read once, x (and r) written once; per operator apply the 3^d-point
-    stencil of vs x vs blocks on every node (243 multiply-adds on a hex
-    level), per sweep 3 operations per dof."""
-    geo = chain.geo
-    M, vs, size = geo.M, geo.vs, chain.inv_d.element_size()
-    vecs = 1 + (0 if chain.zero_start else 1) + 1 + int(chain.emit_residual)
-    nbytes = vecs * vs * M * size + level_bytes(chain)
-    sweeps = max(chain.nu - 1, 0) if chain.zero_start else chain.nu
-    applies = sweeps + int(chain.emit_residual)
-    return nbytes, applies * M * stencil_flops(geo) + sweeps * 3 * M * vs
-
-
-def level_bytes(chain) -> int:
-    """What a K3 kernel reads of a level: inv_d, the pattern ids and stencils."""
-    return sum(t.numel() * t.element_size() for t in (chain.inv_d, chain.pid, chain.st))
-
-
 def k3_chains(mg, mg_coarse):
     """Every chain of one fused V-cycle (levels above the coarsest: pre and
     post) and the coarsest level's chain of a hierarchy without coarse_direct."""
@@ -1822,55 +1590,30 @@ def k3_chains(mg, mg_coarse):
     return out
 
 
-#: the entries of the fused V-cycle, as the kernels JSON line names them
-K3_ENTRIES = {"pre_restrict": "fused_smoother_pre_restrict",
-              "tail": "fused_smoother_tail",
-              "prolong_post": "fused_smoother_prolong_post"}
-
-
 def k3_entries(fc, b0: torch.Tensor, first: int | None = None):
     """Every K3 entry one fused V-cycle from b0 runs, in its order, with the
     inputs the cycle gives it (taken from the plain twins): (label, kind,
-    kernel call, plain call, (bytes, flops)). ``first``: the tail's first
-    level (default: the card's rule)."""
+    kernel call, plain call, (bytes, flops)), the costs by
+    roofline.vcycle_costs. ``first``: the tail's first level (default: the
+    card's rule)."""
     first = fc.tail_start(b0.device) if first is None else first
-    g0 = fc._chain(0).geo
-    vs, apply_ops = g0.vs, stencil_flops(g0)
-    n_nb, n_corner = 3**g0.gdim, 2**g0.gdim  # restriction and prolongation weights
-    vec = b0.element_size() * vs
+    costs = iter(vcycle_costs(fc, b0.element_size(), first))
     out, xs, bs, b = [], [], [], b0
     for lvl in range(first):
-        pre, M, Mc = fc.chains[lvl]["pre"], fc._chain(lvl).geo.M, fc._chain(lvl + 1).geo.M
+        label, kind, cost = next(costs)
         x, bc = fc.pre_restrict_plain(lvl, b)
-        cost = (level_bytes(pre) + vec * (2 * M + Mc),
-                pre.nu * M * apply_ops + (pre.nu - 1) * 3 * vs * M + n_nb * 2 * vs * Mc)
-        out.append((f"L{lvl} pre_restrict", "pre_restrict",
-                    lambda lvl=lvl, b=b: fc.pre_restrict(lvl, b),
+        out.append((label, kind, lambda lvl=lvl, b=b: fc.pre_restrict(lvl, b),
                     lambda lvl=lvl, b=b: fc.pre_restrict_plain(lvl, b), cost))
         xs.append(x)
         bs.append(b)
         b = bc
     xc = fc.plain(b, first)
-    nbytes = vec * 2 * fc._chain(first).geo.M + sum(
-        level_bytes(fc._chain(t)) for t in range(first, fc.n_levels))
-    flops = 0.0
-    for t in range(first, fc.n_levels - 1):
-        c, M = fc._chain(t), fc._chain(t).geo.M
-        flops += (2 * c.nu * M * apply_ops + 2 * c.nu * 3 * vs * M
-                  + n_nb * 2 * vs * fc._chain(t + 1).geo.M + 2 * n_corner * vs * M)
-    Nc = vs * fc._chain(fc.n_levels - 1).geo.M
-    if fc.coarse_inv is not None:
-        nbytes += fc.coarse_inv.numel() * fc.coarse_inv.element_size()
-        flops += 2.0 * Nc * Nc
-    else:
-        flops += fc.chains[-1]["coarse"].nu * (Nc / vs) * apply_ops
-    out.append((f"L{first}-{fc.n_levels - 1} tail", "tail",
-                lambda b=b: fc.tail(b, first), lambda b=b: fc.plain(b, first), (nbytes, flops)))
+    label, kind, cost = next(costs)
+    out.append((label, kind, lambda b=b: fc.tail(b, first), lambda b=b: fc.plain(b, first),
+                cost))
     for lvl in reversed(range(first)):
-        post, M = fc.chains[lvl]["post"], fc._chain(lvl).geo.M
-        cost = (level_bytes(post) + vec * (3 * M + fc._chain(lvl + 1).geo.M),
-                post.nu * M * apply_ops + post.nu * 3 * vs * M + 2 * n_corner * vs * M)
-        out.append((f"L{lvl} prolong_post", "prolong_post",
+        label, kind, cost = next(costs)
+        out.append((label, kind,
                     lambda lvl=lvl, x=xs[lvl], b=bs[lvl], xc=xc: fc.prolong_post(lvl, x, b, xc),
                     lambda lvl=lvl, x=xs[lvl], b=bs[lvl], xc=xc: fc.prolong_post_plain(
                         lvl, x, b, xc), cost))
@@ -2112,12 +1855,7 @@ def kuhn_box_setup(dtype):
 
 
 def tet_box_args(V, bcs, dtype):
-    from fenics_constitutive_tpu_torch.fem import combine_bcs
-
-    bc_dofs, bc_vals = combine_bcs(bcs)
-    return (torch.as_tensor(bc_dofs, dtype=torch.int64, device=CARD),
-            torch.as_tensor(bc_vals, dtype=dtype, device=CARD),
-            torch.zeros(V.ndofs, dtype=dtype, device=CARD), 1.0)
+    return step_args(bcs, V.ndofs, dtype, CARD)
 
 
 def timed_schedule(step, models, state, args, scales):
@@ -2162,25 +1900,21 @@ def phase_tet_box(results: dict) -> dict:
     t_e2, t_f2 = cuda_ms(lambda: mgs[False](r_gm), iters=10), cuda_ms(lambda: mgs[True](r_gm),
                                                                        iters=10)
 
-    scales = [2.0 + 1e-4 + 0.05 * i for i in range(TET_BOX_STEPS)]
+    # tet.py's run on this hierarchy, fused and eager, in this process
     runs = {}
     for fused in (True, False):
-        step = tet_box_step(geos, mgs[fused], TET_BOX_FIXED)
-        st = state
-        for k in (0.5, 1.0, 1.5):  # warm-up, driven past yield
-            st, _ = step(models, st, args[0], args[1] * k, *args[2:])
-        torch.cuda.synchronize()
-        reset_counts()
-        out, probes, ms_step = timed_schedule(step, models, st.clone(), args, scales)
-        counts = read_counts()
-        _, probes_ref = run_schedule(tet_box_step(geos, mgs[fused], TET_BOX_VERIFY), models,
-                                     st.clone(), args, scales)
-        runs[fused] = {"ms_step": ms_step, "r": float(probes[-1]),
-                       "r_ref": float(probes_ref[-1]), "counts": counts, "state": out}
-    for fused, run in runs.items():
-        if run["r"] > R_NORM_ENVELOPE * run["r_ref"]:
-            fail(f"phase 16 {'fused' if fused else 'eager'}: settled r_norm {run['r']:.4f} "
-                 f"exceeds {R_NORM_ENVELOPE} x fixed-{TET_BOX_VERIFY} {run['r_ref']:.4f}")
+        b = {"geos": geos, "models": models, "state": state, "mg": mgs[fused], "fused": fused,
+             "args": args, "setup_s": setup["mesh"] + setup["geometry"]
+             + setup["multigrid fused" if fused else "multigrid eager"]}
+        line = tet_bench.run(b, torch.device(CARD), dtype, TET_BOX_FIXED, TET_BOX_STEPS,
+                             TET_BOX_VERIFY)
+        final = line.pop("objects")["final"]
+        hold_line("phase 16", "tet" if fused else "tet eager", line, ("K3",) if fused else ())
+        if not torch.isfinite(final.u).all():
+            fail("a tet box run produced non-finite values")
+        runs[fused] = {"ms_step": line["value"], "r": line["r_norm"],
+                       "r_ref": line["r_norm_ref"], "counts": line["launches"],
+                       "state": final, "spread": line["spread"]}
     counts = runs[True]["counts"]
     if counts["K3"] <= 0 or counts["K1"] or counts["K2"] or runs[False]["counts"]["K3"]:
         fail(f"phase 16 launches: fused {counts}, eager {runs[False]['counts']} (K3 on the "
@@ -2190,27 +1924,24 @@ def phase_tet_box(results: dict) -> dict:
     results["tet_box"] = {"counts": counts, "ms_step": runs[True]["ms_step"],
                           "eager_ms_step": runs[False]["ms_step"]}
     K = TET_BOX_STEPS
+    n_steps = K * len(BENCH_LINES["tet"]["windows_ms"])
     print(f"phase 16 Kuhn box {N_TET_BOX}^3 f32 ({N_QP_TET_BOX:,} QPs, structured-tet engine, "
           f"{mgs[True].n_levels} levels {fc.node_grids}): fused V-cycle "
-          f"{runs[True]['ms_step']:.3f} ms/step, eager {runs[False]['ms_step']:.3f} ms/step "
-          f"over {K} steps (CUDA events, same call); settled r_norm fused {runs[True]['r']:.4f} "
+          f"{runs[True]['ms_step']:.3f} ms/step, eager {runs[False]['ms_step']:.3f} ms/step, "
+          f"medians of windows of {K} steps (spread {runs[True]['spread']:.1%} / "
+          f"{runs[False]['spread']:.1%}; CUDA events, same call); settled r_norm fused "
+          f"{runs[True]['r']:.4f} "
           f"vs fixed-{TET_BOX_VERIFY} {runs[True]['r_ref']:.4f}, eager {runs[False]['r']:.4f} vs "
           f"{runs[False]['r_ref']:.4f} (envelope {R_NORM_ENVELOPE}); V-cycle fused "
           f"{t_f1:.3f}/{t_f2:.3f} ms vs eager {t_e1:.3f}/{t_e2:.3f} ms, rel {rel_v:.1e}; "
-          f"launches per step K1 {counts['K1']} K2 {counts['K2']} K3 {counts['K3'] / K:g} ("
-          + ", ".join(f"{kind} {counts['K3_' + kind] / K:g}" for kind in K3_ENTRIES)
+          f"launches per step K1 {counts['K1']} K2 {counts['K2']} K3 "
+          f"{counts['K3'] / n_steps:g} ("
+          + ", ".join(f"{kind} {counts['K3_' + kind] / n_steps:g}" for kind in K3_ENTRIES)
           + "); setup s: " + ", ".join(f"{k} {v:.2f}" for k, v in setup.items()))
     print(f"phase 16 K3 on the tet hierarchy vs plain f32 (tol {TOL_F32_K1:g}, bit-equal across "
           f"two launches; tail from level {fc.tail_start(r_gm.device)}): " + "; ".join(held))
     phase_tet_box_laws(V)
     return results["tet_box"]
-
-
-def tet_box_step(geos, mg, fixed: int):
-    from fenics_constitutive_tpu_torch.solver import make_packed_step
-
-    return make_packed_step(geos, max_newton=1, newton_rtol=0.0, newton_atol=0.0, cg_rtol=1e-5,
-                            cg_maxiter=400, preconditioner=mg, cg_fixed_iters=fixed)
 
 
 def phase_tet_box_laws(V) -> None:
@@ -2265,8 +1996,8 @@ def phase_gather(tet: dict, workdir: Path) -> dict:
     """Phase 9's imported mesh written as binary Gmsh v4.1 and read back
     (equal to the ASCII read), then PackedSimulation(engine="gather",
     preconditioner="amg") on it: the gather engine with the AMG at 1,029,000
-    QPs, whose levels K6 applies on the card, driven by phase 9's protocol;
-    one step run twice (bit for bit); the ELL levels of the same hierarchy
+    QPs, whose levels K6 applies on the card, fixed-3 PCG held to fixed-9
+    and fixed-18 by the bench twins' protocol; one step run twice (bit for bit); the ELL levels of the same hierarchy
     beside them (V-cycle and step); the displacement and stress through
     write_vtu/read_vtu. Returns the K6 launches of the timed run."""
     from fenics_constitutive_tpu_torch.fem import (
@@ -2277,7 +2008,7 @@ def phase_gather(tet: dict, workdir: Path) -> dict:
         write_vtu,
     )
     from fenics_constitutive_tpu_torch.models import VonMises3D
-    from fenics_constitutive_tpu_torch.ops import PackedGeometry, cuda_window
+    from fenics_constitutive_tpu_torch.ops import PackedGeometry
     from fenics_constitutive_tpu_torch.solver import (
         AmgPreconditioner,
         PackedSimulation,
@@ -2312,31 +2043,25 @@ def phase_gather(tet: dict, workdir: Path) -> dict:
     if geo.N != N_QP_TET_BOX:
         fail(f"the gather engine holds {geo.N} QPs, expected {N_QP_TET_BOX:,}")
 
-    # phase 9's protocol on the gather engine's node-major vectors
+    # fixed-3 PCG held to fixed-9 and fixed-18, by the bench twins' protocol,
+    # on the gather engine's node-major vectors
     args = tet_box_args(V, bcs, torch.float32)
-    step = tet_step(geos, amg, TET_FIXED)
-    st = sim.state
-    for k in (0.5, 1.0, 1.5, 2.0):  # warm-up, driven past yield
-        st, _ = step(models, st, args[0], args[1] * k, *args[2:])
-    torch.cuda.synchronize()
-    once = [step(models, st, args[0], args[1] * 2.05, *args[2:])[0] for _ in range(2)]
-    repeat = torch.equal(once[0].u, once[1].u) and torch.equal(once[0].stress[0],
-                                                               once[1].stress[0])
-    if not repeat:
-        fail("two runs of one gather-engine step differ")
-    scales = [2.0 + 0.05 * (i + 1) for i in range(10)]
-    for key in cuda_window.launches:
-        cuda_window.launches[key] = 0
-    out, probes, ms_step = timed_schedule(step, models, st.clone(), args, scales)
-    counts = dict(cuda_window.launches)
-    if counts["bsr_matvec"] <= 0 or counts["gather"] or counts["scatter"]:
+    K = 10
+    run = bench_schedule(lambda fk: tet_step(geos, amg, fk), TET_FIXED, TET_VERIFY, models,
+                         sim.state, args, K, CARD, first=1, warm_loads=(0.5, 1.0, 1.5, 2.0))
+    st, out, counts = run["warm"], run["final"], run["launches"]
+    if counts["K6"] <= 0 or counts["K4"] or counts["K5"]:
         fail(f"phase 17 launches {counts}: K6 on the AMG levels, never K4 or K5")
-    refs = [float(run_schedule(tet_step(geos, amg, fk), models, st.clone(), args, scales)[1][-1])
-            for fk in TET_VERIFY]
-    r_settled = float(probes[-1])
-    if not (r_settled <= R_NORM_ENVELOPE * refs[0] and refs[0] <= R_NORM_ENVELOPE * refs[1]):
-        fail(f"gather bench settled r_norm {r_settled:.4f} is outside the {R_NORM_ENVELOPE} "
-             f"envelopes of the deep re-runs {refs}")
+    if not (run["converged"] and torch.isfinite(out.u).all()):
+        fail(f"gather bench settled r_norm {run['r_norm']:.4f} is outside the "
+             f"{R_NORM_ENVELOPE} envelopes of the deep re-runs {run['r_norm_ref']:.4f}, "
+             f"{run['r_norm_ref2']:.4f}")
+    step = tet_step(geos, amg, TET_FIXED)
+    once = [step(models, st, args[0], args[1] * 2.05, *args[2:])[0] for _ in range(2)]
+    if not (torch.equal(once[0].u, once[1].u)
+            and torch.equal(once[0].stress[0], once[1].stress[0])):
+        fail("two runs of one gather-engine step differ")
+    scales = [2.0 + 0.05 * (i + 1) for i in range(K)]
     r = torch.as_tensor(np.random.default_rng(2).normal(size=V.ndofs), dtype=torch.float32,
                         device=CARD)
     apply_ms = cuda_ms(lambda: geo.residual(geo.strain(r)), iters=10)
@@ -2375,16 +2100,16 @@ def phase_gather(tet: dict, workdir: Path) -> dict:
             and np.array_equal(cdata["stress"], s_cells.astype(np.float64))):
         fail("the VTU round trip of the displacement and stress is not bit-equal")
 
-    K = len(scales)
     bs_g, bs_a, bs_e = geo.build_seconds, amg.build_seconds, ell.build_seconds
+    n_steps = K * len(run["windows_ms"])
     print(f"phase 17 gather engine + AMG on the imported {N_TET}^3 mesh f32 ({geo.N:,} QPs "
           f"unpadded, gather_idx {tuple(geo.gather_idx.shape)}, AMG {amg.n_levels} windowed "
-          f"levels; build {build_s:.1f} s): {ms_step:.3f} ms/step over {K} steps (CUDA "
-          f"events; the windowed engine on the same mesh, phase 9: "
-          f"{tet.get('bench_ms_step', float('nan')):.3f} ms/step), settled r_norm "
-          f"{r_settled:.4f} vs fixed-{TET_VERIFY[0]} {refs[0]:.4f} and fixed-{TET_VERIFY[1]} "
-          f"{refs[1]:.4f} (envelope {R_NORM_ENVELOPE} each); one step run twice bit-equal; "
-          f"K6 {counts['bsr_matvec'] / K:g} launches a step; strain + residual {apply_ms:.3f} "
+          f"levels; build {build_s:.1f} s): {run['value']:.3f} ms/step, the median of "
+          f"{len(run['windows_ms'])} windows of {K} steps (spread {run['spread']:.1%}; CUDA "
+          f"events), settled r_norm {run['r_norm']:.4f} vs fixed-{TET_VERIFY[0]} "
+          f"{run['r_norm_ref']:.4f} and fixed-{TET_VERIFY[1]} {run['r_norm_ref2']:.4f} "
+          f"(envelope {R_NORM_ENVELOPE} each); one step run twice bit-equal; "
+          f"K6 {counts['K6'] / n_steps:g} launches a step; strain + residual {apply_ms:.3f} "
           f"ms; setup s: binary write {write_s:.2f}, read {read_s:.2f}, geometry "
           f"{bs_g['geometry']:.2f}, gather_idx {bs_g['gather_idx']:.2f}, geometry upload "
           f"{bs_g['upload']:.2f}, AMG host build {bs_a['hierarchy']:.2f}, windowed freeze "
@@ -2998,21 +2723,6 @@ PARITY_SOLVE = dict(rtol=1e-10, atol=1e-8, cg_rtol=1e-10)
 TOL_PARITY = 1e-6  # the three runs' u and stress, normwise
 N_PARITY_BOX, N_PARITY_TETS = 4, 6  # phase 22(b)'s hex box and shuffled tet mesh
 NATIVE_MISES = {"mu": MU, "kappa": KAPPA, "y_0": 1200.0, "h": 200.0}
-
-
-def window_counts() -> dict:
-    from fenics_constitutive_tpu_torch.ops import cuda_window
-
-    return {"K4": cuda_window.launches["gather"], "K5": cuda_window.launches["scatter"],
-            "K6": cuda_window.launches["bsr_matvec"]}
-
-
-def reset_all_counts() -> None:
-    from fenics_constitutive_tpu_torch.ops import cuda_window
-
-    reset_counts()
-    for key in cuda_window.launches:
-        cuda_window.launches[key] = 0
 
 
 def parity_steps(solve, k_max: int = 2) -> tuple[list, float]:
@@ -3658,6 +3368,104 @@ def phase_examples(workdir: Path) -> dict:
     return creep
 
 
+#: phase 25: amg.py runs half its windows' steps (8): at 16 its fixed-400
+#: Jacobi runs took most of the 106 s amg.py took alone (NVIDIA H100 80GB
+#: HBM3, 700 W)
+AMG_BENCH_STEPS = "8"
+TWIN_TIMEOUT = 600  # seconds, a twin run in its own process
+#: the kernels line's names -> the twins' launch keys
+TWIN_LAUNCH_KEYS = {"fused_matvec": "K1", "fused_eval": "K2",
+                    **{name: f"K3_{kind}" for kind, name in K3_ENTRIES.items()},
+                    "windowed_gather": "K4", "windowed_scatter": "K5",
+                    "windowed_bsr_matvec": "K6"}
+
+
+def run_twin(argv: list, env: dict, timeout: float = TWIN_TIMEOUT):
+    """``python <argv>`` from the repository's root with ``env`` added:
+    (exit code, its JSON line or None, its standard error)."""
+    import os
+    import sys
+
+    proc = subprocess.run([sys.executable, *argv], cwd=Path(__file__).resolve().parent,
+                          env={**os.environ, **env}, capture_output=True, text=True,
+                          timeout=timeout, check=False)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    return proc.returncode, json.loads(lines[-1]) if lines else None, proc.stderr
+
+
+def hold_k6(amg, label: str) -> str:
+    """K6 against its plain version on every A, P and R operator of ``amg``,
+    at its plans' own type and select_passes, two launches bit-equal."""
+    from fenics_constitutive_tpu_torch.ops import cuda_window
+
+    worst, passes = 0.0, set()
+    for lvl in range(amg.n_levels - 1):
+        for name in ("A", "P", "R"):
+            w = getattr(amg, name + "_win")[lvl]
+            dtype = w.vals.dtype
+            x = torch.as_tensor(np.random.default_rng(11).normal(size=w.bc * w.NC_pad),
+                                dtype=dtype, device=CARD)
+            y_k = cuda_window.windowed_bsr_matvec(w, x)
+            y_k2 = cuda_window.windowed_bsr_matvec(w, x)
+            y_p = cuda_window.bsr_matvec_plain(w, x)
+            if not (torch.isfinite(y_k).all() and torch.equal(y_k, y_k2)):
+                fail(f"K6 {label} {name}{lvl}: non-finite or not bit-equal across two launches")
+            rel = normwise(y_k, y_p)[1]
+            if rel > TOL_K6[dtype]:
+                fail(f"K6 {label} {name}{lvl} disagrees with plain: rel {rel:.3e} > "
+                     f"{TOL_K6[dtype]:g}")
+            worst = max(worst, rel)
+            passes.add(w.select_passes)
+    return (f"K6 vs plain on {label}'s {3 * (amg.n_levels - 1)} level operators (select_passes "
+            f"{sorted(passes)}, tol {TOL_K6[torch.float32]:g}, two launches bit-equal): worst "
+            f"rel {worst:.1e}")
+
+
+def phase_bench_twins() -> None:
+    """Phase 25: the twins no earlier phase runs, in this process (p2.py,
+    amg.py with K6 held against its plain version on every operator of the
+    AMG it ran, roofline.py in both modes); then bench_torch.py with fixed-4
+    CG in its own process as a user runs it, which must exit 1 with
+    converged false; then bench_torch.py --sharded 2 --real where there are
+    two cards."""
+    import os
+
+    hold_line("phase 25", "p2", p2_bench.measure([]), ("K3",))
+    saved = os.environ.get("AMG_STEPS")
+    os.environ["AMG_STEPS"] = AMG_BENCH_STEPS
+    try:
+        line, objs = amg_bench.measure([])
+    finally:
+        if saved is None:
+            del os.environ["AMG_STEPS"]
+        else:
+            os.environ["AMG_STEPS"] = saved
+    hold_line("phase 25", "amg", line, ("K6",), key="amg_launches")
+    print(f"phase 25 {hold_k6(objs['amg'], 'amg.py')}", flush=True)
+    del objs
+    for label, argv in (("roofline", []), ("roofline windowed", ["windowed"])):
+        line, kernels = roofline_bench.measure(argv)
+        hold_line("phase 25", label, line, kernels)
+
+    t0 = time.perf_counter()
+    code, line, err = run_twin(["bench_torch.py"], {"BENCH_FIXED_ITERS": "4"})
+    print(f"phase 25 bench_torch fixed-4 (BENCH_FIXED_ITERS=4 python bench_torch.py; exit "
+          f"{code}, {time.perf_counter() - t0:.1f} s): {json.dumps(line)}", flush=True)
+    if code != 1 or line is None or line["converged"] is not False:
+        fail(f"phase 25: BENCH_FIXED_ITERS=4 python bench_torch.py exited {code}, expected 1 "
+             f"with converged false:\n{err[-3000:]}")
+
+    if torch.cuda.device_count() >= 2:
+        code, line, err = run_twin(["bench_torch.py", "--sharded", "2", "--real"], {})
+        print(f"phase 25 bench_torch --sharded 2 --real (exit {code}): {json.dumps(line)}")
+        if code != 0 or line is None or not line["converged"]:
+            fail(f"phase 25 bench_torch.py --sharded 2 --real exited {code}:\n" + err[-3000:])
+        BENCH_LINES["bench_torch sharded2"] = line
+    else:
+        print(f"phase 25 bench_torch.py --sharded 2 --real: not run ("
+              f"{torch.cuda.device_count()} card; it needs 2)")
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3675,8 +3483,7 @@ def main() -> None:
     timed("phase 4", phase_k2, results)
     box_bench = timed("phase 5", phase_bench, results)
     timed("phase 6", phase_simulation)
-    with tempfile.TemporaryDirectory() as tmp:
-        tet = timed("tet setup", tet_setup, Path(tmp))
+    tet = timed("tet setup", tet_setup)
     timed("phase 7", phase_k4_k5, results, tet)
     timed("phase 8", phase_k6, results, tet)
     tet_counts = timed("phase 9", phase_tet_bench, tet)
@@ -3701,6 +3508,7 @@ def main() -> None:
         sharded = timed("phase 23", phase_sharded, tet, parity, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         examples = timed("phase 24", phase_examples, Path(tmp))
+    timed("phase 25", phase_bench_twins)
     print(f"profiler: {PROFILER_MISSES['profiles']} short profiles taken again, "
           f"{PROFILER_MISSES['fallbacks']} measures by the fallback (gated_ms, aten_device_ops)")
     counts = box_bench["counts"]
@@ -3739,11 +3547,16 @@ def main() -> None:
         {"name": "windowed_bsr_matvec", "route": "cuda", "source": src + "window.cu",
          "replaces": "fenics_constitutive_tpu/ops/pallas_window.py:235",
          "launches": tet_counts["bsr_matvec"], "launches_two_law_run": two_law["bsr_matvec"],
-         "launches_gather_run": gather_counts["bsr_matvec"],
+         "launches_gather_run": gather_counts["K6"],
          "launches_p2_run": p2_tet["bsr_matvec"],
          "launches_parity_run": parity["packed"]["K6"],
          "launches_sharded_run": [r["K6"] for r in sharded], **results["K6"]},
     ]
+    for k in kernels:  # the bench twins' timed runs (phases 5, 9, 12, 16 and 25)
+        key = TWIN_LAUNCH_KEYS[k["name"]]
+        runs = {label: line.get("amg_launches", line.get("launches"))[key]
+                for label, line in BENCH_LINES.items()}
+        k["launches_bench_run"] = {label: n for label, n in runs.items() if n}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,
@@ -3800,17 +3613,16 @@ def profile_box() -> None:
 
 def profile_tet() -> None:
     """``--profile``: 3 steps of the general-tet bench (phase 9's workload)."""
-    with tempfile.TemporaryDirectory() as tmp:
-        tet = tet_setup(Path(tmp))
-    geos, models, amg = tet["geos"], tet["models"], tet["amg"]
-    step = tet_step(geos, amg.wrap_internal(geos[0].ex.M_pad), TET_FIXED)
+    tet = tet_setup()
+    geos, models = tet["geos"], tet["models"]
+    step = unstructured_bench.step_of(geos, tet["pc"], 12)
     args = tet_args(geos[0], tet["bcs"], torch.float32, CARD)
     st = tet["state"]
     for k in (0.5, 1.0, 1.5, 2.0):
         st, _ = step(models, st, args[0], args[1] * k, *args[2:])
     K = 3
     scales = [2.0 + 0.05 * (i + 1) for i in range(K)]
-    profile_steps(f"tet {N_TET}^3 f32 AMG V(3,3), fixed-{TET_FIXED} PCG",
+    profile_steps(f"tet {N_TET}^3 f32 AMG V(2,2), fixed-12 PCG",
                   lambda: run_schedule(step, models, st.clone(), args, scales), K)
 
 
@@ -3821,7 +3633,7 @@ def profile_tet_box() -> None:
     K = 3
     scales = [2.0 + 0.05 * i for i in range(K)]
     for fused in (True, False):
-        step = tet_box_step(geos, mgs[fused], TET_BOX_FIXED)
+        step = bench_step(geos, mgs[fused], TET_BOX_FIXED, "plain")
         st = state
         for k in (0.5, 1.0, 1.5):
             st, _ = step(models, st, args[0], args[1] * k, *args[2:])
@@ -3896,7 +3708,7 @@ def profiler_check(reps: int = 25, iters: int = 20) -> None:
 #: phases 3, 4, 11 and 12 (the box, with the box profile) and 7-9 (the tets), as
 #: both the parent commit's and this script's checkouts have them
 AB_PHASES = """
-import pathlib, tempfile, torch, chip_smoke as c
+import inspect, pathlib, tempfile, torch, chip_smoke as c
 c.phase_device()
 c.phase_build()
 results = {}
@@ -3906,8 +3718,9 @@ c.timed("phase 11", c.phase_k3, results)
 box = {"mg": c.bench_setup(c.N_BENCH, torch.float32, "cuda")[3], "ms_step": float("nan")}
 c.timed("phase 12", c.phase_bench_fused, box)
 c.timed("profile box", c.profile_box)
-with tempfile.TemporaryDirectory() as tmp:
-    tet = c.timed("tet setup", c.tet_setup, pathlib.Path(tmp))
+with tempfile.TemporaryDirectory() as tmp:  # older checkouts' tet_setup takes a directory
+    where = (pathlib.Path(tmp),) if inspect.signature(c.tet_setup).parameters else ()
+    tet = c.timed("tet setup", c.tet_setup, *where)
 c.timed("phase 7", c.phase_k4_k5, results, tet)
 c.timed("phase 8", c.phase_k6, results, tet)
 c.timed("phase 9", c.phase_tet_bench, tet)

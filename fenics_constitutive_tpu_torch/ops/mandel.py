@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 __all__ = [
+    "SQRT2",
     "Constraint",
     "StressStrainConstraint",
     "deviatoric",
@@ -40,7 +41,8 @@ __all__ = [
     "vol_dev",
 ]
 
-_INV_SQRT2 = 1.0 / math.sqrt(2.0)
+SQRT2 = math.sqrt(2.0)
+_INV_SQRT2 = 1.0 / SQRT2
 
 
 class Constraint(enum.Enum):

@@ -1,7 +1,8 @@
 """Start ranks for a sharded run: ``run_ranks(fn, n_ranks, *args, workdir=...)``
-spawns ``n_ranks`` processes, initialises a gloo process group in each from
-a file store under ``workdir`` (gloo runs on the CPU and, staged through the
-host, on CUDA tensors, so several ranks may share one card), calls
+spawns ``n_ranks`` processes, initialises a process group in each from a
+file store under ``workdir`` (gloo by default: it runs on the CPU and, staged
+through the host, on CUDA tensors, so several ranks may share one card;
+``backend="nccl"`` for one rank per card), calls
 ``fn(*args)`` in every rank and returns what each rank's call returned
 (saved with ``torch.save``), in rank order.
 
@@ -25,10 +26,10 @@ import torch.multiprocessing as mp
 __all__ = ["run_ranks"]
 
 
-def _rank_entry(rank, fn, n_ranks, args, workdir, timeout) -> None:
+def _rank_entry(rank, fn, n_ranks, args, workdir, timeout, backend) -> None:
     torch.set_num_threads(1)
     dist.init_process_group(
-        "gloo", init_method=f"file://{Path(workdir) / 'store'}", rank=rank,
+        backend, init_method=f"file://{Path(workdir) / 'store'}", rank=rank,
         world_size=n_ranks, timeout=datetime.timedelta(seconds=timeout),
     )
     try:
@@ -38,8 +39,9 @@ def _rank_entry(rank, fn, n_ranks, args, workdir, timeout) -> None:
         dist.destroy_process_group()
 
 
-def run_ranks(fn, n_ranks: int, *args, workdir, timeout: float = 180.0) -> list:
-    """``fn(*args)`` in ``n_ranks`` spawned ranks of one gloo process group;
+def run_ranks(fn, n_ranks: int, *args, workdir, timeout: float = 180.0,
+              backend: str = "gloo") -> list:
+    """``fn(*args)`` in ``n_ranks`` spawned ranks of one process group;
     returns each rank's result. Raises the first rank's exception, or
     TimeoutError when the ranks have not all ended within ``timeout``
     seconds (they are killed then)."""
@@ -48,7 +50,7 @@ def run_ranks(fn, n_ranks: int, *args, workdir, timeout: float = 180.0) -> list:
     for old in [workdir / "store", *(workdir / f"rank{r}.pt" for r in range(n_ranks))]:
         old.unlink(missing_ok=True)
     ctx = mp.start_processes(
-        _rank_entry, args=(fn, n_ranks, args, str(workdir), timeout),
+        _rank_entry, args=(fn, n_ranks, args, str(workdir), timeout, backend),
         nprocs=n_ranks, join=False, start_method="spawn",
     )
     deadline = time.monotonic() + timeout

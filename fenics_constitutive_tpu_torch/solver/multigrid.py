@@ -36,9 +36,9 @@ import torch
 from torch import nn
 
 from ..ops.cuda_smoother import coarse_len, prolong_gm, restrict_gm
+from ..ops.mandel import Constraint
 from ..ops.packed import IsotropicTangent
 from ..ops.structured import StructuredGeometry, _matmul
-from .amg import space_constraint
 
 __all__ = [
     "MultigridPreconditioner",
@@ -438,6 +438,13 @@ def build_multigrid(
         fused=fused,
         fused_cycle=fused_cycle,
     )
+
+
+def space_constraint(space) -> Constraint:
+    """The constraint of the elastic operator a multigrid hierarchy of
+    ``space`` needs (its block structure): FULL for a 3-component space,
+    PLANE_STRAIN otherwise."""
+    return Constraint.FULL if space.value_size == 3 else Constraint.PLANE_STRAIN
 
 
 def refined_p1_geometry(space, constraint, *, device="cuda", dtype: torch.dtype):

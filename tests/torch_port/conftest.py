@@ -88,3 +88,25 @@ def tets():
         return out
 
     return make
+
+
+@pytest.fixture
+def no_repo_writes(monkeypatch):
+    """While active, opening a file for writing inside the repository
+    raises: the bench twins write no file there."""
+    import builtins
+    import os
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[2]
+    real_open = builtins.open
+
+    def guarded(file, mode="r", *args, **kwargs):
+        if isinstance(file, (str, os.PathLike)) and any(c in mode for c in "wax+"):
+            path = Path(file).resolve()
+            if path == repo or repo in path.parents:
+                msg = f"a write into the repository: {path}"
+                raise AssertionError(msg)
+        return real_open(file, mode, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "open", guarded)

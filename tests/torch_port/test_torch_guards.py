@@ -1,10 +1,13 @@
 """Rules of the port that hold whatever the numbers are.
 
 * No module of the port imports jax, nor do chip_smoke.py, the examples on
-  the port (examples/torch/), the script that executes the port's notebook
-  or that notebook's code cells: a static AST scan (jax may be loaded in
-  the test process anyway, so ``sys.modules`` proves nothing).
-* The examples on the port run on the card unless asked for the CPU.
+  the port (examples/torch/), the bench twins (bench_torch.py,
+  scripts/torch_bench/), the script that executes the port's notebook or
+  that notebook's code cells: a static AST scan (jax may be loaded in the
+  test process anyway, so ``sys.modules`` proves nothing).
+* The examples on the port and the bench twins run on the card unless asked
+  for the CPU; the twins write no file (their runs in
+  test_torch_bench_*.py also refuse any write into the repository).
 * The CUDA kernel paths refuse CPU tensors (at the step level for the
   structured kernels, in the wrappers for the windowed ones) instead of
   quietly running the plain path.
@@ -32,6 +35,9 @@ PKG = pathlib.Path(fenics_constitutive_tpu_torch.__file__).parent
 REPO = PKG.parent
 TWINS = ("creep_neumann", "custom_torch_model", "elasticity_cpp", "mises_c",
          "plasticity_demo")
+BENCH_TWINS = (REPO / "bench_torch.py",
+               *(REPO / "scripts" / "torch_bench" / f"{name}.py"
+                 for name in ("common", "unstructured", "tet", "p2", "amg", "roofline")))
 
 
 def _imports(path, source=None):
@@ -61,8 +67,10 @@ def test_port_never_imports_jax():
     nb = REPO / "docs" / "torch" / "basic_usage.ipynb"
     cells = [c for c in json.loads(nb.read_text())["cells"] if c["cell_type"] == "code"]
     others = [REPO / "chip_smoke.py", REPO / "scripts" / "execute_torch_notebook.py",
-              *sorted((REPO / "examples" / "torch").rglob("*.py"))]
-    assert len(others) == 2 + len(TWINS) and len(cells) >= 5
+              *sorted((REPO / "examples" / "torch").rglob("*.py")),
+              *sorted((REPO / "scripts" / "torch_bench").glob("*.py")), REPO / "bench_torch.py"]
+    assert set(BENCH_TWINS) <= set(others)
+    assert len(others) == 2 + len(TWINS) + len(BENCH_TWINS) + 1 and len(cells) >= 5
     sources = [(f, f.read_text()) for f in files + others]
     sources += [(nb, "".join(c["source"])) for c in cells]
     bad = {
@@ -85,6 +93,32 @@ def test_example_twins_default_to_the_card(name):
     assert inspect.signature(mod.main).parameters["device"].default == "cuda"
     assert mod.parse_args([]).device == "cuda"
     assert mod.parse_args(["out", "--device", "cpu"]).device == "cpu"
+
+
+@pytest.mark.parametrize("path", BENCH_TWINS[:1] + BENCH_TWINS[2:], ids=lambda p: p.stem)
+def test_bench_twins_default_to_the_card(path):
+    """No fallback: a bench twin runs on the card unless given --device cpu,
+    and without a card its default run fails."""
+    spec = importlib.util.spec_from_file_location(f"bench_twin_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.parse_args([]).device == "cuda"
+    assert mod.parse_args(["--device", "cpu"]).device == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            mod.main([])
+
+
+@pytest.mark.parametrize("path", BENCH_TWINS, ids=lambda p: p.stem)
+def test_bench_twins_write_no_file(path):
+    """A twin prints its line and writes nothing: no open(), save or dump
+    call in its source (the Gmsh round trip of unstructured.py goes through
+    a temporary directory)."""
+    tree = ast.parse(path.read_text())
+    calls = {(n.func.attr if isinstance(n.func, ast.Attribute) else getattr(n.func, "id", None))
+             for n in ast.walk(tree) if isinstance(n, ast.Call)}
+    assert not calls & {"open", "write_text", "write_bytes", "dump", "save", "savez",
+                        "savetxt", "to_csv"}, path.name
 
 
 def test_kernel_sources_present():

@@ -183,3 +183,33 @@ def test_fused_smoothing_guards(box, mat, bad):
     with pytest.raises(ValueError, match="fused smoothing"):
         build_multigrid(geo, mat["p_mu"], mat["p_ka"], device="cpu", dtype=torch.float64,
                         fused_smoothing=True, **kw)
+
+
+SPACES = {"1d": ("unit_interval_mesh", (4,), 1), "2d": ("unit_square_mesh", (3, 3, "quad"), 2),
+          "3d": ("unit_cube_mesh", (2, 2, 2, "hex"), 3)}
+
+
+@pytest.mark.parametrize("dim", SPACES)
+def test_space_constraint_matches_jax(dim):
+    """The port's multigrid.space_constraint (JAX solver/multigrid.py) and
+    amg.space_constraint (JAX solver/amg.py) give JAX's constraint on a 1D,
+    a 2D and a 3D space (the two functions differ in 1D, in both packages)."""
+    from fenics_constitutive_tpu import fem as jfem
+    from fenics_constitutive_tpu.solver import amg as jamg
+    from fenics_constitutive_tpu.solver import multigrid as jmg
+    from fenics_constitutive_tpu_torch import fem as tfem
+    from fenics_constitutive_tpu_torch.solver import amg as tamg
+    from fenics_constitutive_tpu_torch.solver import multigrid as tmg
+
+    maker, args, vs = SPACES[dim]
+    Vj = jfem.FunctionSpace(getattr(jfem, maker)(*args), 1, vs)
+    Vt = tfem.FunctionSpace(getattr(tfem, maker)(*args), 1, vs)
+    assert tmg.space_constraint(Vt).name == jmg.space_constraint(Vj).name
+    assert tamg.space_constraint(Vt).name == jamg.space_constraint(Vj).name
+
+
+def test_sqrt2_matches_jax():
+    from fenics_constitutive_tpu.ops import mandel as jmandel
+    from fenics_constitutive_tpu_torch.ops import mandel
+
+    assert mandel.SQRT2 == jmandel.SQRT2 and "SQRT2" in mandel.__all__
