@@ -12,6 +12,10 @@ levels and a direct coarsest solve, K = 48 steps a window at the load scales
 the eval and assembly, K1 for the CG operator, and the V-cycle's smoothing
 chains as K3 (``BENCH_FUSED=0``: the eager V-cycle, as bench.py runs it).
 
+The step is compiled (``solver/compiled.py``): on the card each step replays
+one captured CUDA graph, as bench.py times one jitted program (``captured``
+says so); off the card, and when sharded, it runs eagerly.
+
 Timing (``scripts/torch_bench/common.py``): the three warm-up loads and
 untimed windows in this process until two agree within 10%, then 5 timed
 windows by CUDA events, with the host clock beside them; ``value`` is the
@@ -46,7 +50,7 @@ One JSON line: ``metric`` (``mises_1MQP_newton_step_converged``, with
 re-run's), ``r_norm_ref2`` (the 2x-deep one's, where made), ``converged``,
 ``windows_ms``, ``host_windows_ms``, ``spread``, ``host_ms``, ``clock``,
 ``probes`` (the timed window's residual per step), ``n_qp``, ``dtype``,
-``fused``, ``launches`` (K1-K6 over the timed windows), ``setup_s``,
+``fused``, ``captured``, ``launches`` (K1-K6 over the timed windows), ``setup_s``,
 ``warmup_s``, ``peak_gib`` and ``device`` (name and power limit). bench.py's
 ``vs_baseline`` (80 ms over the v5p-8's chip count) is a TPU number and is
 not printed.
@@ -104,8 +108,9 @@ def config(args) -> dict:
 def run(cfg: dict, mesh=None) -> dict:
     """Build, warm up, time and verify the bench step (on ``mesh``'s rank
     when sharded). Returns the line's measured fields and, under
-    ``objects``, the run's geometries and multigrid, its state after the
-    warm-up loads and after the last timed window."""
+    ``objects``, the run's geometries, multigrid, models and step
+    arguments, its state after the warm-up loads and after the last timed
+    window."""
     from fenics_constitutive_tpu_torch.parallel import shard_packed_state
 
     device = mesh.device if mesh is not None else torch.device(cfg["device"])
@@ -130,7 +135,8 @@ def run(cfg: dict, mesh=None) -> dict:
         deep.append(2 * cfg["verify"])
     out = common.bench_schedule(lambda fk: common.bench_step(geos, mg, fk, impl), cfg["fixed"],
                                 deep, models, state, args, cfg["steps"], device)
-    out["objects"] = {"geos": geos, "mg": mg, "warm": out.pop("warm"),
+    out["objects"] = {"geos": geos, "mg": mg, "models": models, "args": args,
+                      "warm": out.pop("warm"),
                       "final": out.pop("final")}
     return {**out, "n_qp": n_qp, "setup_s": setup_s, "peak_gib": common.peak_gib(device)}
 
@@ -169,8 +175,9 @@ def sharded(cfg: dict, real: bool) -> dict:
 
 def measure(argv=None, **overrides) -> tuple[dict, dict | None]:
     """(the JSON line, the run's objects: its ``geos``, its multigrid
-    ``mg``, its ``warm`` state and its ``final`` state; None when sharded). ``overrides`` replace
-    settings of ``config``."""
+    ``mg``, its ``models`` and step ``args``, its ``warm`` state and its
+    ``final`` state; None when sharded). ``overrides`` replace settings of
+    ``config``."""
     args = parse_args(argv)
     cfg = {**config(args), **overrides}
     device, _ = common.resolve_device(argparse.Namespace(device=cfg["device"], dtype=args.dtype))

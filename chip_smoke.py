@@ -57,7 +57,8 @@ padded quadrature points):
      scripts/torch_bench/unstructured.py builds: 512 tile rows): float32 with
      select_passes 1 and 3, and float64, two launches bit-equal; per-level
      errors, threads per row, times beside the plain version, a torch CSR
-     product and the bound; then the sweep of 1-32 threads per row.
+     product and the bound; each operator also held to plain at 1-32
+     threads per row (untimed).
   9. the general-tet bench: scripts/torch_bench/unstructured.py's run (the
      JAX package's scripts/bench_unstructured.py protocol) in this process
      on that mesh: float32, max_newton=1, fixed-12 plain PCG with the
@@ -218,17 +219,13 @@ Sharding (parallel/, torch.distributed):
  23. (a) phase 22's packed problem (phase 9's mesh, written with
      write_gmsh41_binary and read by every rank, f64, 2 steps of 0.0004 k,
      Newton and CG rtol 1e-10, the same AMG built by every rank) sharded with
-     shard_problem over 2 gloo ranks spawned on the one card, timed after an
-     untimed run of its first load in the same rank: Newton and CG
+     shard_problem over 2 gloo ranks spawned on the one card: Newton and CG
      counts equal to phase 22's, u and stress_0 within 1e-12 of it, the ranks'
      u bit-equal, K4, K5 and K6 launched by every rank, and after the steps
      each rank holds K4 (bit-equal) and K5 (repeatable, within TOL_K5) to
-     their plain versions on its own plan, in f64 and f32; per rank ms/step,
-     set-up, the memory peaks, its QP state, its all-reduces and the time of
-     one all_reduce of the internal vector. The same run in this process on
-     a 1-rank group, through the same wrappers (the same checks), after an
-     unsharded run (phase 22's AMG for both), splits the 2-rank step's time:
-     the wrappers and all-reduces against the second process on the card.
+     their plain versions on its own plan, in f64 and f32; per rank ms/step
+     (untimed warm-up no longer run: CUDA's lazy set-up included), set-up,
+     the memory peaks, its QP state and its all-reduces.
      (b) in the 2 ranks, the reference's MPI test
      problem (4x6x7 tets, AoS engine, 10 steps at Newton rtol 1e-14) within
      1e-14 and the 7^3 hex box with linear hardening (structured slabs)
@@ -258,7 +255,8 @@ The user layer (the examples on the port, examples/torch/):
      Newton and CG iterations.
 
 The bench layer (bench_torch.py and scripts/torch_bench/); phases 5, 9, 12
-and 16 run bench_torch.py, unstructured.py and tet.py:
+and 16 run bench_torch.py, unstructured.py and tet.py, each step replayed
+from a captured CUDA graph:
 
  25. the twins no earlier phase runs, each at its JAX script's default size
      in this process: p2.py, amg.py (with half its windows' steps) with K6
@@ -269,7 +267,34 @@ and 16 run bench_torch.py, unstructured.py and tet.py:
      K4-K5 in roofline.py). Then `BENCH_FIXED_ITERS=4 python bench_torch.py`
      in its own process, as a user runs it, which must exit 1 with converged
      false (the self-check bites). bench_torch.py --sharded 2 --real runs
-     where there are two cards; otherwise a line says it was not run.
+     where there are two cards; otherwise a line says it was not run. Every
+     twin's line must say captured true (its step replays a CUDA graph),
+     p2.py's false (adaptive CG reads back).
+
+The compiled step (solver/compiled.py, the counterpart of jax.jit):
+
+ 26. on each path at its twin's full size, from the warm state an earlier
+     phase left (phase 12: the hex box with the K3 V-cycle, K1 and K2; phase
+     5: with the eager V-cycle; phase 16: the Kuhn box, whose plain Mises
+     eval runs every local trip under capture; phase 9: the windowed engine
+     with the windowed AMG, K4-K6; phase 17: the gather engine with the AMG,
+     K6): 8 steps eager (inside disable_capture()) and 8 steps replayed
+     from one captured CUDA graph, the replays under
+     torch.cuda.set_sync_debug_mode("error"), bit-equal in u, the stresses,
+     the histories and the stats, with equal launch counts; ms/step eager,
+     replayed and eager again by the twins' protocol (windows of 8 steps);
+     the capture's seconds and what the copy into the static buffers and
+     the clone of the outputs cost a call. Then PackedSimulation on the
+     50^3 box with max_newton=1 and fixed-9 CG: solve_schedule over 3 steps
+     and solve() twice through the graph, bit-equal to the same calls
+     inside disable_capture(), last_stats captured true; with converged
+     Newton, captured false; SpringKelvinModel (f64), which reads dt, over
+     a schedule of three dts replayed within 1e-6 of disable_capture() in
+     the stress, where the same schedule with the first dt throughout lies
+     more than 1e-4 away.
+     Last, K1 on a uniform tangent whose
+     coefficients are device tensors (an SLS law's under capture) inside
+     no_host_sync(): three launches, held to its plain version.
 
 A kernel's time on the card and a device-op count come from torch.profiler.
 CUPTI now and then delivers a short profile on the H100, so such a profile
@@ -292,9 +317,9 @@ JSON line.
 
 instead profiles 3 steps each of the bench workload with the unfused and
 the fused V-cycle, the general-tet bench, phase 16's Kuhn box (fused and
-eager) and phase 17's gather engine (torch.profiler: device time per step,
-busy share, device ops per step, the costliest kernels), and prints no
-JSON.
+eager) and phase 17's gather engine, each replayed from its CUDA graph and
+eagerly (torch.profiler: device time per step, busy share, device ops per
+step, the costliest kernels), and prints no JSON.
 
     python3 chip_smoke.py --profiler-check
 
@@ -312,6 +337,7 @@ process on the same card, and prints no JSON.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -340,6 +366,7 @@ from scripts.torch_bench.common import (
     bench_setup,
     bench_step,
     box,
+    compiled_step,
     cuda_ms,
     fail,
     free_mask,
@@ -385,6 +412,12 @@ TOL_K5 = {torch.float64: 1e-13, torch.float32: 1e-6}
 # another order than the plain version; both round x to bf16 alike when
 # select_passes = 1, so the tolerance is that of the float sum either way.
 TOL_K6 = {torch.float64: 1e-12, torch.float32: 1e-5}
+# phase 26's dt-reading law, replayed against eager (f64): inside a capture
+# K1 applies the SLS tangent by parts (one launch per coefficient), a sum in
+# another order whose ulp-level differences fixed-20 CG amplifies over the
+# schedule (on the H100: 2.2e-9 in u, 6.7e-8 in the stress); a dt frozen at
+# capture moves the stress by 9.1e-2, and the phase requires 100x the tol
+TOL_SLS_REPLAY = 1e-6
 
 N_MULTIMAT = 50  # the two-law box of phase 13
 TRACTION = 600.0  # phase 13's x = 1 face load: elastic in both laws
@@ -397,16 +430,24 @@ TET_FIXED, TET_VERIFY = 3, (9, 18)
 BOX_BENCH = {"n": N_BENCH, "nu": 3, "nu_coarse": 2, "fixed": 9, "steps": 48, "verify": 40}
 #: each bench twin's JSON line of this run by label, as hold_line took it
 BENCH_LINES: dict = {}
+#: each compiled path's problem as an earlier phase left it (phase 26 reads
+#: it): make_step(), models, the warm state and the step's arguments
+PATHS: dict = {}
 
 
-def hold_line(phase: str, label: str, line: dict, kernels=(), key: str = "launches") -> dict:
+def hold_line(phase: str, label: str, line: dict, kernels=(), key: str = "launches",
+              captured: bool = True) -> dict:
     """Print a bench twin's JSON line (without its in-process objects); fail
-    unless it says converged and its timed run launched each of ``kernels``."""
+    unless it says converged, its step was captured in a CUDA graph as
+    ``captured`` says, and its timed run launched each of ``kernels``."""
     line = {k: v for k, v in line.items() if k != "objects"}
     print(f"{phase} {label}: {json.dumps(line)}", flush=True)
     if line["converged"] is not True:
         fail(f"{phase} {label}: the twin's self-check failed (converged "
              f"{line['converged']})")
+    if line.get("captured") is not captured:
+        fail(f"{phase} {label}: the twin's step reports captured {line.get('captured')}, "
+             f"expected {captured}")
     missing = [k for k in kernels if line[key][k] <= 0]
     if missing:
         fail(f"{phase} {label}: its timed run never launched {', '.join(missing)} "
@@ -773,6 +814,7 @@ def phase_bench(results: dict) -> dict:
     line, objs = bench_torch.measure([], **BOX_BENCH, fused=False)
     hold_line("phase 5", "bench_torch eager", line, ("K1", "K2"))
     final, geo, mg = objs["final"], objs["geos"][0], objs["mg"]
+    PATHS["box eager V-cycle"] = box_path(objs)
     if not torch.isfinite(final.u).all():
         fail("bench run produced non-finite values")
     if final.stress[0].shape != (6, 8, 51**3):
@@ -793,6 +835,14 @@ def phase_bench(results: dict) -> dict:
     return {"counts": counts, "ms_step": line["value"], "vcycle_ms": vcycle_ms, "mg": mg}
 
 
+def box_path(objs: dict) -> dict:
+    """The compiled path of a bench_torch run's objects (phase 26)."""
+    geos, mg = objs["geos"], objs["mg"]
+    return {"make_step": lambda: bench_step(geos, mg, BOX_BENCH["fixed"], "kernel"),
+            "models": objs["models"], "state": objs["warm"], "args": objs["args"],
+            "kernels": ("K1", "K2", "K3") if mg.fused_cycle is not None else ("K1", "K2")}
+
+
 def phase_bench_fused(box_bench: dict) -> dict:
     """bench_torch.py's run (phase 5's workload with the K3 chains on every
     level of the V-cycle), in this process."""
@@ -800,6 +850,7 @@ def phase_bench_fused(box_bench: dict) -> dict:
     hold_line("phase 12", "bench_torch", line,
               ("K1", "K2", "K3", *(f"K3_{kind}" for kind in K3_ENTRIES)))
     geo, mg = objs["geos"][0], objs["mg"]
+    PATHS["box"] = box_path(objs)
     if not torch.isfinite(objs["final"].u).all():
         fail("fused bench run produced non-finite values")
     counts = line["launches"]
@@ -1046,14 +1097,14 @@ def phase_k6(results: dict, tet: dict) -> None:
     """K6 against its plain version on every A, P and R operator of the AMG
     hierarchy (f32 with select_passes 1 and 3, f64; two launches bit-equal),
     its time beside the plain version, the CSR product and the bound, and
-    the sweep of threads per row."""
+    every operator held to plain at each number of threads per row."""
     from fenics_constitutive_tpu_torch.ops import cuda_window
 
     amg = tet["amg"]
     ops = [(f"{name}{lvl}", getattr(amg, name + "_win")[lvl])
            for lvl in range(amg.n_levels - 1) for name in ("A", "P", "R")]
     tot = dict.fromkeys(("ms", "device_ms", "plain_ms", "library_ms"), 0.0)
-    worst, parts, sweeps = 0.0, [], []
+    worst, parts = 0.0, []
     bnd_bytes = bnd_flops = 0.0
     for label, w32 in ops:
         w64 = copy.deepcopy(w32).double()
@@ -1098,16 +1149,11 @@ def phase_k6(results: dict, tet: dict) -> None:
                     nbytes, flops = k6_cost(w)
                     b_ms, _ = bound_ms(nbytes, flops, dtype)
                     bnd_bytes, bnd_flops = bnd_bytes + nbytes, bnd_flops + flops
-                    # threads per row: every power of two, each checked
-                    sweep = {}
+                    # threads per row: every power of two, each held to plain
                     for lanes in LANES:
                         y_s = cuda_window.windowed_bsr_matvec(w, x, lanes=lanes)
                         if normwise(y_s, y_p)[1] > TOL_K6[dtype]:
                             fail(f"K6 {label} with {lanes} lanes disagrees with plain")
-                        sweep[lanes] = device_ms(
-                            lambda w=w, x=x, n=lanes: cuda_window.windowed_bsr_matvec(
-                                w, x, lanes=n), iters=10)
-                    sweeps.append((label, w32.lanes, sweep))
             finally:
                 w.select_passes = saved
         nnzb = w32.col.numel()
@@ -1125,11 +1171,8 @@ def phase_k6(results: dict, tet: dict) -> None:
           f"bit-equal); f32 sel1 times: " + "; ".join(parts) + f"; one apply of every operator "
           f"{tot['ms']:.4f} ms (on the card {tot['device_ms']:.4f}) vs plain "
           f"{tot['plain_ms']:.4f} ms, CSR library {tot['library_ms']:.4f} ms, bound "
-          f"{bound:.4f} ms ({by})")
-    print("phase 8 K6 lanes sweep, f32 sel1 kernel ms on the card per apply at lanes " + "/".join(map(str, LANES))
-          + ": " + "; ".join(
-              f"{label} (rule {rule}, best {min(sw, key=sw.get)}) "
-              + "/".join(f"{sw[n]:.4f}" for n in LANES) for label, rule, sw in sweeps))
+          f"{bound:.4f} ms ({by}); every operator also within tol at "
+          + "/".join(map(str, LANES)) + " threads per row")
 
 
 def bsr_as_csr(w) -> torch.Tensor:
@@ -1153,11 +1196,11 @@ def bsr_as_csr(w) -> torch.Tensor:
 
 
 def tet_step(geos, pc, fixed: int | None, **newton):
-    from fenics_constitutive_tpu_torch.solver import make_packed_step
-
+    """The general-mesh step, compiled: captured on the card unless
+    ``newton`` or adaptive CG (``fixed`` None) make it read back."""
     opts = dict(max_newton=1, newton_rtol=0.0, newton_atol=0.0, cg_rtol=1e-5, cg_maxiter=500)
     opts.update(newton)
-    return make_packed_step(geos, preconditioner=pc, cg_fixed_iters=fixed, **opts)
+    return compiled_step(geos, preconditioner=pc, cg_fixed_iters=fixed, **opts)
 
 
 def tet_args(geo, bcs, dtype, device):
@@ -1202,8 +1245,14 @@ def phase_tet_bench(tet: dict) -> dict:
 
     # unstructured.py's run at its defaults on the set-up's mesh and AMG
     line = unstructured_bench.run(tet, torch.device(CARD), torch.float32)
-    final = line.pop("objects")["final"]
+    objects = line.pop("objects")
+    final = objects["final"]
     hold_line("phase 9", "unstructured", line, ("K4", "K5", "K6"))
+    PATHS["windowed"] = {
+        "make_step": lambda: unstructured_bench.step_of(tet["geos"], tet["pc"],
+                                                        line["fixed_iters"]),
+        "models": tet["models"], "state": objects["warm"], "kernels": ("K4", "K5", "K6"),
+        "args": tet_args(tet["geos"][0], tet["bcs"], torch.float32, CARD)}
     if not torch.isfinite(final.u).all():
         fail("tet bench run produced non-finite values")
     if final.stress[0].shape != (6, N_QP_TET):
@@ -1908,8 +1957,14 @@ def phase_tet_box(results: dict) -> dict:
              + setup["multigrid fused" if fused else "multigrid eager"]}
         line = tet_bench.run(b, torch.device(CARD), dtype, TET_BOX_FIXED, TET_BOX_STEPS,
                              TET_BOX_VERIFY)
-        final = line.pop("objects")["final"]
+        objects = line.pop("objects")
+        final = objects["final"]
         hold_line("phase 16", "tet" if fused else "tet eager", line, ("K3",) if fused else ())
+        if fused:
+            mg = mgs[True]
+            PATHS["Kuhn box"] = {
+                "make_step": lambda: bench_step(geos, mg, TET_BOX_FIXED, "plain"),
+                "models": models, "state": objects["warm"], "args": args, "kernels": ("K3",)}
         if not torch.isfinite(final.u).all():
             fail("a tet box run produced non-finite values")
         runs[fused] = {"ms_step": line["value"], "r": line["r_norm"],
@@ -2050,6 +2105,10 @@ def phase_gather(tet: dict, workdir: Path) -> dict:
     run = bench_schedule(lambda fk: tet_step(geos, amg, fk), TET_FIXED, TET_VERIFY, models,
                          sim.state, args, K, CARD, first=1, warm_loads=(0.5, 1.0, 1.5, 2.0))
     st, out, counts = run["warm"], run["final"], run["launches"]
+    if run["captured"] is not True:
+        fail("phase 17: the gather engine's fixed-count step was not captured in a CUDA graph")
+    PATHS["gather"] = {"make_step": lambda: tet_step(geos, amg, TET_FIXED), "models": models,
+                       "state": st, "args": args, "kernels": ("K6",)}
     if counts["K6"] <= 0 or counts["K4"] or counts["K5"]:
         fail(f"phase 17 launches {counts}: K6 on the AMG levels, never K4 or K5")
     if not (run["converged"] and torch.isfinite(out.u).all()):
@@ -3056,26 +3115,16 @@ def kernel_check_errors(res: dict, label: str) -> str:
 
 def phase_sharded(tet: dict, parity: dict, workdir: Path) -> list:
     """Phase 23: IncrSmallStrainProblem sharded over 2 gloo ranks spawned on
-    the one card (parallel/), and over 1 rank through the same wrappers;
-    returns each of the 2 ranks' K4-K6 launches in the full-width run."""
+    the one card (parallel/); returns each rank's K4-K6 launches in the
+    full-width run."""
     from fenics_constitutive_tpu_torch.fem import write_gmsh41_binary
-    import datetime
-
-    import torch.distributed as dist
-
-    from fenics_constitutive_tpu_torch.parallel import dryrun_multichip, make_device_mesh, run_ranks
-    from fenics_constitutive_tpu_torch.parallel.runs import (
-        allreduce_run,
-        cases_rank,
-        pair_run,
-        problem_run,
-    )
+    from fenics_constitutive_tpu_torch.parallel import dryrun_multichip, run_ranks
+    from fenics_constitutive_tpu_torch.parallel.runs import cases_rank, problem_run
 
     path = workdir / "tet35.msh"
     write_gmsh41_binary(path, tet["mesh"])
     # phase 22's packed problem: its mesh (read back by every rank), its AMG
     # (built by every rank: windowed levels, passed as a node-major callable);
-    # timed after an untimed run of the first load in the same process, and
     # after the steps each rank holds K4 and K5 to their plain versions on
     # its own plan
     full = {"mesh": ("gmsh", str(path)), "law": "mises", "q": 2,
@@ -3093,43 +3142,26 @@ def phase_sharded(tet: dict, parity: dict, workdir: Path) -> list:
           + ", ".join(f"{k} rel {v['rel_u']:.2e} QP share {v['qp_share']:.2f}"
                       for k, v in dry[0].items()))
     refs["full"] = {"u": parity["u"], "stress": parity["stress"], "iters": parity["rows"]}
-    n_int = tet["geos"][0].ndofs_int  # the internal vector every CG iteration sums
-    reduce_case = ("allreduce", {"numel": n_int, "dtype": "float64", "iters": 50})
-    cases = {"full": ("warm", full),
-             **{name: ("problem", spec) for name, spec in SHARD_SMALL.items()},
-             "allreduce": reduce_case}
+    cases = {"full": ("problem", full),
+             **{name: ("problem", spec) for name, spec in SHARD_SMALL.items()}}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = run_ranks(cases_rank, N_RANKS, cases, RANK_DEVICE, workdir=workdir / "ranks",
                       timeout=SHARD_TIMEOUT)
     ranks_s = time.perf_counter() - t0
-    # the same full-width run in this process, unsharded and then sharded
-    # over a 1-rank group (the wrappers and a 1-rank gloo all-reduce), with
-    # phase 22's AMG and no second process on the card
-    t0 = time.perf_counter()
-    dist.init_process_group("gloo", init_method=f"file://{workdir / 'store1'}", rank=0,
-                            world_size=1, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT))
-    try:
-        mesh1 = make_device_mesh(1, device=RANK_DEVICE)
-        pair = pair_run(full, mesh1, pc=parity["amg"])
-        alone = {"full": pair["sharded"], "allreduce": allreduce_run(reduce_case[1], mesh1)}
-    finally:
-        dist.destroy_process_group()
-    alone_s = time.perf_counter() - t0
     line = []
     for name in ("full", "aos", "hardening"):
         ref = refs[name]
-        for rank, res in enumerate([*ranks, alone] if name == "full" else ranks):
+        for rank, res in enumerate(ranks):
             r = res[name]
-            who = "the 1-rank run" if rank == N_RANKS else f"rank {rank}"
             ru, rs = rel_l2(r["u"], ref["u"]), rel_l2(r["stress"], ref["stress"])
             newton = [k for k, _ in r["iters"]]
             if max(ru, rs) > SHARD_BAR[name] or newton != [k for k, _ in ref["iters"]]:
-                fail(f"phase 23 {name} {who}: rel u {ru:.2e}, stress {rs:.2e} (bar "
+                fail(f"phase 23 {name} rank {rank}: rel u {ru:.2e}, stress {rs:.2e} (bar "
                      f"{SHARD_BAR[name]:g}), iterations {r['iters']} vs {ref['iters']}")
             if name == "full" and r["iters"] != ref["iters"]:
-                fail(f"phase 23 full {who}: Newton/CG {r['iters']} vs phase 22's "
+                fail(f"phase 23 full rank {rank}: Newton/CG {r['iters']} vs phase 22's "
                      f"{ref['iters']}")
             if not r["u_bitequal"]:
                 fail(f"phase 23 {name}: the ranks' u differ")
@@ -3144,52 +3176,19 @@ def phase_sharded(tet: dict, parity: dict, workdir: Path) -> list:
             fail(f"phase 23 rank {rank} did not launch K4, K5 and K6: {k}")
         launches.append(k)
         per_rank.append(
-            f"rank {rank}: {r['ms_step']:.1f} ms/step, set-up {r['setup_s']:.1f} s and the AMG "
-            f"{r['pc_s']:.1f} s (peak "
+            f"rank {rank}: {r['ms_step']:.1f} ms/step (first steps of the process: CUDA's "
+            f"lazy set-up included), set-up {r['setup_s']:.1f} s (peak "
             f"{r['setup_mem_peak'] / 2**30:.2f} GiB), steps' peak {r['mem_peak'] / 2**30:.2f} "
             f"GiB, QP state {r['qp_numel']:,} of {r['whole_qp_numel']:,}, launches K4 {k['K4']} "
             f"K5 {k['K5']} K6 {k['K6']}, {r['all_reduces']} all-reduces; "
-            + kernel_check_errors(r, f"phase 23 rank {rank}")
-            + f"; aos {res['aos']['ms_step']:.1f} ms/step, hardening "
-            f"{res['hardening']['ms_step']:.1f} ms/step; all_reduce of {n_int:,} f64 on the "
-            f"card {res['allreduce']['ms']:.3f} ms")
-    a = alone["full"]
-    one = pair["one"]
-    ru = rel_l2(one["u"], refs["full"]["u"])
-    if one["iters"] != refs["full"]["iters"] or ru > SHARD_BAR["full"]:
-        fail(f"phase 23's 1-rank process, unsharded: Newton/CG {one['iters']}, rel u {ru:.2e} "
-             "against phase 22")
-    one = one["ms_step"]
-    ka = {"K4": a["launches"]["gather"], "K5": a["launches"]["scatter"],
-          "K6": a["launches"]["bsr_matvec"]}
-    if min(ka.values()) <= 0:
-        fail(f"phase 23's 1-rank run did not launch K4, K5 and K6: {ka}")
-    checks_1 = kernel_check_errors(a, "phase 23's 1-rank run")
-    # where the 2-rank step's time goes, from this call's measurements
-    steps = len(full["loads"])
-    n_red = ranks[0]["full"]["all_reduces"] / steps
-    red_1, red_2 = alone["allreduce"]["ms"], max(res["allreduce"]["ms"] for res in ranks)
-    ms_2 = max(res["full"]["ms_step"] for res in ranks)
+            + kernel_check_errors(r, f"phase 23 rank {rank}"))
     print(f"phase 23(a, b) {N_RANKS} gloo ranks on the one card: phase 22's packed problem "
-          f"({tet['mesh'].num_cells:,} tets, {N_QP_TET:,} padded QPs, f64, {steps} steps) "
-          f"sharded, Newton/CG {ranks[0]['full']['iters']} as phase 22's; the AoS problem of "
-          f"the reference's MPI test (10 steps) and the 7^3 hardening box against the card's "
-          f"one-process runs (with the dry run, {refs_s:.1f} s): " + "; ".join(line)
-          + "; ranks bit-equal; " + "; ".join(per_rank)
+          f"({tet['mesh'].num_cells:,} tets, {N_QP_TET:,} padded QPs, f64, "
+          f"{len(full['loads'])} steps) sharded, Newton/CG {ranks[0]['full']['iters']} as "
+          f"phase 22's; the AoS problem of the reference's MPI test (10 steps) and the 7^3 "
+          f"hardening box against the card's one-process runs (with the dry run, "
+          f"{refs_s:.1f} s): " + "; ".join(line) + "; ranks bit-equal; " + "; ".join(per_rank)
           + f"; ranks spawned and joined in {ranks_s:.1f} s")
-    print(f"phase 23(a) 1 rank in this process through the same wrappers: {a['ms_step']:.1f} "
-          f"ms/step, set-up {a['setup_s']:.1f} s (without the AMG), steps' peak {a['mem_peak'] / 2**30:.2f} GiB, Newton/CG "
-          f"{a['iters']}, launches K4 {ka['K4']} K5 {ka['K5']} K6 {ka['K6']}, "
-          f"{a['all_reduces']} all-reduces, all_reduce of {n_int:,} f64 {red_1:.3f} ms; "
-          f"{checks_1}; in the same process unsharded before it {one:.1f} ms/step (phase "
-          f"22's counts); both with the warm-up in {alone_s:.1f} s")
-    print(f"phase 23 split of the 2-rank step (ms/step): one process {one:.1f} (phase 22 in "
-          f"this call {parity['ms']:.1f}); 1 rank {a['ms_step']:.1f} (of which "
-          f"its {n_red:.0f} all-reduces a step {n_red * red_1:.1f}); 2 ranks {ms_2:.1f} "
-          f"(all-reduces {n_red * red_2:.1f}); the wrappers and the 1-rank all-reduces add "
-          f"{a['ms_step'] - one:.1f}, the second rank {ms_2 - a['ms_step']:.1f}, of which the "
-          f"2-rank all-reduces' extra {n_red * (red_2 - red_1):.1f} and the rest "
-          f"{ms_2 - a['ms_step'] - n_red * (red_2 - red_1):.1f}")
     return launches
 
 
@@ -3430,7 +3429,7 @@ def phase_bench_twins() -> None:
     two cards."""
     import os
 
-    hold_line("phase 25", "p2", p2_bench.measure([]), ("K3",))
+    hold_line("phase 25", "p2", p2_bench.measure([]), ("K3",), captured=False)
     saved = os.environ.get("AMG_STEPS")
     os.environ["AMG_STEPS"] = AMG_BENCH_STEPS
     try:
@@ -3464,6 +3463,274 @@ def phase_bench_twins() -> None:
     else:
         print(f"phase 25 bench_torch.py --sharded 2 --real: not run ("
               f"{torch.cuda.device_count()} card; it needs 2)")
+
+
+#: phase 26: steps of each path run eagerly and replayed, and steps a timed window
+COMPILED_STEPS = 8
+#: the order phase 26 takes the paths in, and the phase that leaves each
+COMPILED_PATHS = ("box", "box eager V-cycle", "Kuhn box", "windowed", "gather")
+
+
+def same_tree(a, b) -> bool:
+    """Every tensor of two PackedStates (or stats dicts) equal bit for bit."""
+    from fenics_constitutive_tpu_torch.solver.compiled import _map
+
+    flags = []
+    _map(lambda x, y: flags.append(x.shape == y.shape and torch.equal(x.cpu(), y.cpu())), a, b)
+    return all(flags)
+
+
+def path_on_its_own(label: str) -> dict:
+    """A path's problem built here, when phase 26 runs without the phases
+    that leave it: the same set-up and warm-up loads."""
+    from scripts.torch_bench.common import WARM_LOADS, warm_up
+
+    if label.startswith("box"):
+        fused = label == "box"
+        geos, models, state, mg, args = bench_setup(N_BENCH, torch.float32, CARD, fused=fused)
+        path = box_path({"geos": geos, "mg": mg, "models": models, "args": args,
+                         "warm": state})
+    elif label == "Kuhn box":
+        _, _, geos, models, state, mgs, args, _ = kuhn_box_setup(torch.float32)
+        mg = mgs[True]
+        path = {"make_step": lambda: bench_step(geos, mg, TET_BOX_FIXED, "plain"),
+                "models": models, "state": state, "args": args, "kernels": ("K3",)}
+    else:
+        tet = tet_setup()
+        geos, models = tet["geos"], tet["models"]
+        if label == "windowed":
+            path = {"make_step": lambda: unstructured_bench.step_of(geos, tet["pc"], 12),
+                    "models": models, "state": tet["state"], "kernels": ("K4", "K5", "K6"),
+                    "args": tet_args(geos[0], tet["bcs"], torch.float32, CARD)}
+        else:
+            from fenics_constitutive_tpu_torch.fem import FunctionSpace
+            from fenics_constitutive_tpu_torch.solver import PackedSimulation
+
+            V = FunctionSpace(tet["mesh"], 1, 3)
+            bcs = bench_bcs(V)
+            sim = PackedSimulation(models[0], V, bcs, 2, engine="gather", preconditioner="amg",
+                                   mg_options={"nu": 3}, device=CARD, dtype=torch.float32)
+            g, amg = sim._geos, sim._mg
+            path = {"make_step": lambda: tet_step(g, amg, TET_FIXED), "models": sim._models,
+                    "state": sim.state, "args": tet_box_args(V, bcs, torch.float32),
+                    "kernels": ("K6",)}
+    step = path["make_step"]()
+    path["state"] = warm_up(step, path["models"], path["state"], path["args"], WARM_LOADS)
+    return path
+
+
+def compiled_run(label: str, path: dict) -> dict:
+    """One path: K steps eager (inside disable_capture) and K steps replayed
+    from the same warm state under torch.cuda.set_sync_debug_mode("error"),
+    which must agree bit for bit in u, the stresses, the histories and the
+    stats, with equal launch counts; then ms/step both ways by the twins'
+    protocol (common.time_windows, windows of K steps)."""
+    from fenics_constitutive_tpu_torch.solver import disable_capture
+    from fenics_constitutive_tpu_torch.solver.compiled import _clone, _map
+    from scripts.torch_bench.common import launches, time_windows
+    from scripts.torch_bench.common import scales as window_scales
+
+    step, models, state0, args = path["make_step"](), path["models"], path["state"], path["args"]
+    if not step.captured:
+        fail(f"phase 26 {label}: the step was not captured ({step.host_syncs})")
+    bc_dofs, bc_vals, f_ext, dt = args
+    K = COMPILED_STEPS
+    loads = window_scales(0, K)
+
+    def run(st, loads=loads):
+        rows = []
+        for sc in loads:
+            st, stats = step(models, st, bc_dofs, bc_vals * sc, f_ext, dt)
+            rows.append(stats)
+        return st, rows
+
+    t0 = time.perf_counter()
+    step(models, state0, bc_dofs, bc_vals * loads[0], f_ext, dt)  # the capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    reset_all_counts()
+    with disable_capture():
+        eager, eager_rows = run(state0)
+    torch.cuda.synchronize()
+    eager_counts = launches()
+    reset_all_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph, graph_rows = run(state0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    graph_counts = launches()
+    if not same_tree(eager, graph):
+        fail(f"phase 26 {label}: {K} replayed steps differ from {K} eager steps")
+    if not all(same_tree(a, b) for a, b in zip(eager_rows, graph_rows)):
+        fail(f"phase 26 {label}: the replayed steps' stats differ from the eager steps'")
+    if eager_counts != graph_counts or any(eager_counts[k] <= 0 for k in path["kernels"]):
+        fail(f"phase 26 {label}: launches eager {eager_counts} vs replayed {graph_counts} "
+             f"(each of {path['kernels']} must launch)")
+    if not torch.isfinite(graph.u).all():
+        fail(f"phase 26 {label}: non-finite state")
+
+    def window(j):
+        return run(state0, window_scales(j, K))[0]
+
+    with disable_capture():
+        t_eager = time_windows(window, K, CARD)
+    t_graph = time_windows(window, K, CARD)
+    t_eager2 = None
+    with disable_capture():
+        t_eager2 = time_windows(window, K, CARD)
+    # what value semantics cost a call: the copy into the static buffers and
+    # the clone of the outputs, one state each way
+    buffers = _clone(state0)
+    copy_ms = cuda_ms(lambda: (_map(torch.Tensor.copy_, buffers, state0), _clone(state0)),
+                      iters=10)
+    return {"eager_ms": t_eager["value"], "graph_ms": t_graph["value"],
+            "eager_ms_again": t_eager2["value"], "spread": (t_eager["spread"], t_graph["spread"]),
+            "host_ms": (t_eager["host_ms"], t_graph["host_ms"]), "capture_s": capture_s,
+            "copy_ms": copy_ms, "counts": graph_counts, "replays": step.replays}
+
+
+def phase_compiled() -> dict:
+    """Phase 26: the compiled step (solver/compiled.py) on the four paths,
+    each at its twin's full size: the hex box (K1, K2 and the K3 V-cycle, and
+    K1, K2 with the eager V-cycle), the Kuhn box (K3, the plain Mises eval
+    that runs every local trip under capture), the windowed engine with the
+    windowed AMG (K4-K6) and the gather engine with the AMG (K6); then
+    PackedSimulation's solve and solve_schedule through the graph, bit-equal
+    to the same calls inside disable_capture(), and captured false where the
+    step reads back (converged Newton)."""
+    results = {}
+    for label in COMPILED_PATHS:
+        path = PATHS.get(label) or path_on_its_own(label)
+        r = compiled_run(label, path)
+        results[label] = r
+        c = r["counts"]
+        print(f"phase 26 {label}: {COMPILED_STEPS} replayed steps bit-equal to {COMPILED_STEPS} "
+              f"eager ones (u, stresses, histories, stats; no host sync in the replays), "
+              f"launches equal ({', '.join(f'{k} {c[k]}' for k in path['kernels'])}); "
+              f"ms/step eager {r['eager_ms']:.3f} / graph {r['graph_ms']:.3f} / eager "
+              f"{r['eager_ms_again']:.3f} (medians of windows of {COMPILED_STEPS} steps, "
+              f"spread {r['spread'][0]:.1%} / {r['spread'][1]:.1%}; host clock "
+              f"{r['host_ms'][0]:.3f} / {r['host_ms'][1]:.3f}); capture {r['capture_s']:.2f} s; "
+              f"copy in + clone out {r['copy_ms']:.4f} ms a call", flush=True)
+    results["simulation"] = compiled_simulation()
+    results["K1 device coefficients"] = k1_device_coefficients()
+    return results
+
+
+def k1_device_coefficients() -> str:
+    """K1 on a uniform tangent whose coefficients are 0-d device tensors (an
+    SLS law's inside a captured step, where they follow dt): under
+    no_host_sync() the wrapper launches once per coefficient and scales on
+    the card; held to the plain operator at 50^3, f32."""
+    from fenics_constitutive_tpu_torch.models import Constraint
+    from fenics_constitutive_tpu_torch.ops import IsotropicTangent, cuda_matvec
+    from fenics_constitutive_tpu_torch.ops.structured import build_structured_geometry
+    from fenics_constitutive_tpu_torch.solver.compiled import no_host_sync
+
+    V, _ = box(N_BENCH)
+    geo = build_structured_geometry(V, 2, Constraint.FULL, device=CARD, dtype=torch.float32)
+    mv = cuda_matvec.build_cuda_matvec(geo)
+
+    def dev(x):
+        return torch.tensor(x, dtype=torch.float32, device=CARD)
+
+    tg = IsotropicTangent(kappa=dev(0.7 * KAPPA), beta=dev(1.4 * MU), gamma=dev(0.0),
+                          n=torch.zeros((6, 1, 1), dtype=torch.float32, device=CARD))
+    v = torch.as_tensor(np.random.default_rng(26).normal(size=geo.ndofs), dtype=torch.float32,
+                        device=CARD)
+    before = cuda_matvec.launches
+    with no_host_sync():
+        y = mv(v, tg)
+    torch.cuda.synchronize()
+    n = cuda_matvec.launches - before
+    _, rel = normwise(y, cuda_matvec.matvec_plain(geo, v, tg))
+    if n != 3 or rel > TOL_F32_K1 or not torch.isfinite(y).all():
+        fail(f"phase 26: K1 with device coefficients: {n} launches, rel {rel:.3e} (tol "
+             f"{TOL_F32_K1:g})")
+    line = (f"K1 on a uniform tangent with device coefficients under no_host_sync: {n} "
+            f"launches, rel {rel:.1e} against plain (tol {TOL_F32_K1:g})")
+    print(f"phase 26 {line}", flush=True)
+    return line
+
+
+def compiled_simulation() -> str:
+    """PackedSimulation on the 50^3 box (f32, the K3 V-cycle, K1 and K2,
+    max_newton=1, fixed-9 CG): solve() twice and solve_schedule over 3 steps
+    replay the graph and agree bit for bit with the same calls inside
+    disable_capture(); the same simulation with converged Newton reports
+    captured false; a law that reads dt (SpringKelvinModel, f64, K1 on its
+    uniform tangent) replays a schedule of three dts within TOL_SLS_REPLAY of
+    the same schedule inside disable_capture(), and the schedule with its
+    first dt throughout lies more than 100x that away."""
+    from fenics_constitutive_tpu_torch.fem import combine_bcs
+    from fenics_constitutive_tpu_torch.models import Constraint, SpringKelvinModel, VonMises3D
+    from fenics_constitutive_tpu_torch.solver import PackedSimulation, disable_capture
+
+    V, bcs = box(N_BENCH)
+    opts = dict(preconditioner="vcycle", mg_options={"fused_smoothing": True},
+                eval_impl="kernel", max_newton=1, newton_rtol=0.5, newton_atol=0.0,
+                cg_fixed_iters=BOX_BENCH["fixed"], device=CARD, dtype=torch.float32)
+    sims = [PackedSimulation(VonMises3D(MAT), V, bcs, 2, **opts) for _ in range(2)]
+    if not sims[0].captured:
+        fail(f"phase 26: PackedSimulation with max_newton=1 and fixed CG is not captured "
+             f"({sims[0].host_syncs})")
+    bc_vals = combine_bcs(bcs)[1]
+    loads = np.stack([bc_vals * k for k in (0.5, 1.0, 1.5)])
+    outs = []
+    for i, sim in enumerate(sims):
+        ctx = disable_capture() if i else contextlib.nullcontext()
+        with ctx:
+            sched = sim.solve_schedule(loads)
+            bcs[1].value = 0.004 * 2.0
+            solves = [sim.solve() for _ in range(2)]
+        outs.append((sched, solves, sim.state, dict(sim.last_stats)))
+        bcs[1].value = 0.004
+    (s0, v0, st0, ls0), (s1, v1, st1, _) = outs
+    if not (same_tree(st0, st1) and v0 == v1
+            and all(np.array_equal(s0[k], s1[k]) for k in s0)):
+        fail("phase 26: PackedSimulation through the graph differs from the same calls "
+             "inside disable_capture()")
+    if ls0["captured"] is not True:
+        fail(f"phase 26: PackedSimulation.last_stats says captured {ls0['captured']}")
+    conv = PackedSimulation(VonMises3D(MAT), V, bcs, 2, preconditioner="vcycle",
+                            device=CARD, dtype=torch.float32)
+    if conv.captured or not conv.host_syncs:
+        fail("phase 26: a converged-Newton PackedSimulation reports captured")
+    # a law that reads dt (SpringKelvinModel), f64: the replayed schedule
+    # with its dt in a device buffer, and K1 taking the tangent's device
+    # coefficients by parts, against the same schedule inside
+    # disable_capture(), and the eager schedule with the first dt throughout
+    # (what a dt frozen at capture would give), which must lie far outside
+    sls = SpringKelvinModel({"E0": 42000.0, "E1": 10000.0, "tau": 2.0, "nu": 0.3},
+                            Constraint.FULL)
+    dts = np.array([0.5, 1.0, 0.25])
+    sls_opts = {**opts, "eval_impl": "plain", "dtype": torch.float64, "cg_fixed_iters": 20}
+    sls_sims = [PackedSimulation(sls, V, bcs, 2, **sls_opts) for _ in range(3)]
+    k1 = read_counts()["K1"]
+    sls_sims[0].solve_schedule(loads, dts=dts)
+    k1 = read_counts()["K1"] - k1
+    with disable_capture():
+        sls_sims[1].solve_schedule(loads, dts=dts)
+        sls_sims[2].solve_schedule(loads, dts=np.full(len(dts), dts[0]))
+    stresses = [torch.as_tensor(sim.stress) for sim in sls_sims]
+    _, rel_sls = normwise(stresses[0], stresses[1])
+    _, rel_frozen = normwise(stresses[2], stresses[1])
+    if (not sls_sims[0].captured or k1 <= 0 or rel_sls > TOL_SLS_REPLAY
+            or rel_frozen < 100 * TOL_SLS_REPLAY):
+        fail(f"phase 26: SpringKelvinModel replayed against eager: captured "
+             f"{sls_sims[0].captured}, K1 launches {k1}, rel stress {rel_sls:.3e} (tol "
+             f"{TOL_SLS_REPLAY:g}); with dt frozen {rel_frozen:.3e} (must exceed "
+             f"{100 * TOL_SLS_REPLAY:g})")
+    line = (f"PackedSimulation (50^3, f32, max_newton=1, fixed-9, K1-K3): solve_schedule over "
+            f"3 steps and solve() twice replayed, bit-equal to disable_capture(), last_stats "
+            f"captured {ls0['captured']}; converged Newton: captured {conv.captured} "
+            f"({conv.host_syncs[0]}); SpringKelvinModel (f64, dt 0.5/1/0.25, K1 {k1} launches "
+            f"replayed) against disable_capture(): rel stress {rel_sls:.1e} (tol "
+            f"{TOL_SLS_REPLAY:g}; with dt frozen at 0.5 {rel_frozen:.1e})")
+    print(f"phase 26 {line}", flush=True)
+    return line
 
 
 def timed(label: str, fn, *args):
@@ -3509,6 +3776,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         examples = timed("phase 24", phase_examples, Path(tmp))
     timed("phase 25", phase_bench_twins)
+    timed("phase 26", phase_compiled)
     print(f"profiler: {PROFILER_MISSES['profiles']} short profiles taken again, "
           f"{PROFILER_MISSES['fallbacks']} measures by the fallback (gated_ms, aten_device_ops)")
     counts = box_bench["counts"]
@@ -3571,6 +3839,16 @@ def short_name(key: str) -> str:
 
 
 def profile_steps(label: str, run, K: int) -> None:
+    """``profile_run`` of run(), which takes K load steps of a compiled step,
+    replayed from its CUDA graph and eagerly (inside disable_capture)."""
+    from fenics_constitutive_tpu_torch.solver import disable_capture
+
+    profile_run(f"{label}, replayed", run, K)
+    with disable_capture():
+        profile_run(f"{label}, eager", run, K)
+
+
+def profile_run(label: str, run, K: int) -> None:
     """torch.profiler over run(), which takes K load steps: device time per
     step against the same call's CUDA-event ms/step (unprofiled), device ops
     per step and the costliest kernels."""

@@ -33,6 +33,10 @@ class _From3DBase(IncrSmallStrainModel):
     def history_dim(self) -> dict[str, int]:
         return {**(self.model.history_dim or {}), _AUX: 6}
 
+    @property
+    def host_sync(self) -> str | None:
+        return self.model.host_sync
+
     def _grad_3d(self, grad_del_u: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 

@@ -28,6 +28,8 @@ __all__ = ["DruckerPrager3D", "DruckerPragerHyperbolic3D"]
 
 class _DruckerPragerBase(IncrSmallStrainModel):
     _param_names: tuple[str, ...]
+    host_sync = ("the general return map's local Newton takes its active points by "
+                 "nonzero() and reads their count back once a trip")
 
     def __init__(self, parameters):
         self.params = {

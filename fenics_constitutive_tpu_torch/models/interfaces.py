@@ -48,6 +48,11 @@ class IncrSmallStrainModel(abc.ABC):
     #: model's SoA twin), the tangent the CUDA operator of
     #: ``ops/cuda_matvec.py`` applies; the generic adapter's is dense
     factored_tangent: bool = False
+    #: why ``evaluate_packed`` reads values back to the host (a loop whose
+    #: trip count or shapes follow the data, a call into a host library), or
+    #: None: a step over a law with a reason is never captured in a CUDA
+    #: graph (``solver/compiled.py``)
+    host_sync: str | None = None
 
     @abc.abstractmethod
     def evaluate(

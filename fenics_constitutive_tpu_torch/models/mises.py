@@ -15,6 +15,7 @@ from .interfaces import History, IncrSmallStrainModel
 from .packed_models import (
     _mises_linear_evaluate_packed,
     _vonmises_evaluate_packed,
+    host_reads_allowed,
     newton_controls,
 )
 
@@ -94,10 +95,13 @@ class VonMises3D(IncrSmallStrainModel):
 
         one = torch.ones_like(sigtrn)
         gamma_prev, gamma, xr = one, torch.zeros_like(sigtrn), one
+        # inside a captured step every trip runs: a stopped lane keeps its
+        # values, bit-equal to the early exit
+        early_exit = host_reads_allowed()
         for _ in range(max_it + 1):
             act = (plastic & ~(xr.abs() <= tol_abs)
                    & ~((gamma - gamma_prev).abs() <= tol_rel * gamma.abs()))
-            if not bool(act.any()):
+            if early_exit and not bool(act.any()):
                 break
             g0 = torch.where(act, gamma, gamma_prev)
             xr_new = f(g0)

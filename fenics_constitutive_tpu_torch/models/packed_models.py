@@ -21,6 +21,7 @@ __all__ = [
     "_spring_kelvin_evaluate_packed",
     "_spring_maxwell_evaluate_packed",
     "_vonmises_evaluate_packed",
+    "host_reads_allowed",
     "newton_controls",
 ]
 
@@ -65,6 +66,12 @@ def newton_controls(model, dtype: torch.dtype) -> tuple[float, float, int]:
     return model.newton_tol, max(model.newton_rtol, 8.0 * eps), max_it
 
 
+def host_reads_allowed() -> bool:
+    from ..solver.compiled import host_reads_allowed as allowed
+
+    return allowed()
+
+
 def _vonmises_evaluate_packed(self, t, dt, eps, stress, history):
     """Radial return of ``VonMises3D`` (exponential hardening) on SoA fields.
 
@@ -76,6 +83,9 @@ def _vonmises_evaluate_packed(self, t, dt, eps, stress, history):
 
     The loop tests ``any(active)`` on the host once per trip; the fused
     kernel (ops/cuda_eval.py) runs the same rule per thread with no sync.
+    Inside a captured step (``solver.compiled.host_reads_allowed()`` false)
+    it runs every trip instead: a stopped lane keeps its value, so the result
+    is bit-equal to the early exit (JAX's ``lax.while_loop``).
     """
     del t, dt
     ka = self.params["p_ka"]
@@ -111,8 +121,9 @@ def _vonmises_evaluate_packed(self, t, dt, eps, stress, history):
     # act_{k+1} = act_k & not-converged: a lane that stops stays stopped
     g = torch.zeros_like(sigtrn)
     act = plastic & (1.0 > tol_abs)
+    early_exit = host_reads_allowed()
     for _ in range(max_it + 1):
-        if not bool(act.any()):
+        if early_exit and not bool(act.any()):
             break
         g0 = g
         xr, dfv = fdf(g0)

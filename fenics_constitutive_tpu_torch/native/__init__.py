@@ -205,6 +205,8 @@ class NativeModel(IncrSmallStrainModel):
     Newton diverges comes back NaN at that point only (the library poisons
     it)."""
 
+    host_sync = "the law runs in a host library: its inputs are copied to the host"
+
     #: parameter order per model (native/src/models.cpp)
     PARAM_ORDER = {
         "linear_elasticity3d": ("mu", "kappa"),
@@ -250,6 +252,8 @@ class UmatModel(IncrSmallStrainModel):
     """An Abaqus UMAT (a shared library exporting ``symbol``) driven through
     the harness, FULL constraint. History: ``{"statev": n_statev, "strain":
     6}``, the harness keeping the total Mandel strain."""
+
+    host_sync = "the UMAT runs on the host: its inputs are copied to the host"
 
     def __init__(self, so_path, props, n_statev: int = 1, symbol: str = "umat_"):
         self._so_path = str(so_path)

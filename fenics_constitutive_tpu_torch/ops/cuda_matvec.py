@@ -117,6 +117,12 @@ def brick(node_grid) -> tuple[int, int, int]:
     return min(4, n0), min(8, n1), -(-n2 // runs)
 
 
+def _host_reads_allowed() -> bool:
+    from ..solver.compiled import host_reads_allowed
+
+    return host_reads_allowed()
+
+
 def _is_scalar(x) -> bool:
     return not isinstance(x, torch.Tensor) or x.numel() == 1
 
@@ -137,8 +143,24 @@ def build_cuda_matvec(geo: StructuredGeometry, *, brick_nodes=None):
         tables = {**hex_tables(geo),
                   "brick": tuple(brick_nodes) if brick_nodes else brick(node_grid)}
 
-    def matvec(u_gm: torch.Tensor, tangent: IsotropicTangent) -> torch.Tensor:
+    def launch(u_gm, beta, gamma, nf, kappa: float, beta_u: float, gamma_u: float,
+               uniform: bool) -> torch.Tensor:
         global launches
+        check_cuda_args(geo, beta, gamma, nf)
+        r = torch.empty(3 * M, dtype=u_gm.dtype, device=u_gm.device)
+        with torch.cuda.device(u_gm.device):
+            stream = torch.cuda.current_stream(u_gm.device).cuda_stream
+            rc = _entry(u_gm.dtype)(
+                u_gm.data_ptr(), beta.data_ptr(), gamma.data_ptr(), nf.data_ptr(),
+                geo.mask.data_ptr(), tables["dn"].data_ptr(), tables["w"].data_ptr(),
+                r.data_ptr(), kappa, beta_u, gamma_u, tables["c"],
+                int(uniform), *node_grid, *tables["brick"], stream,
+            )
+        launch_check("matvec", rc)
+        launches += 1
+        return r
+
+    def matvec(u_gm: torch.Tensor, tangent: IsotropicTangent) -> torch.Tensor:
         if not u_gm.is_cuda:
             return matvec_plain(geo, u_gm, tangent)
         check_cuda_args(geo, u_gm)
@@ -150,29 +172,33 @@ def build_cuda_matvec(geo: StructuredGeometry, *, brick_nodes=None):
             _is_scalar(tangent.beta) and _is_scalar(tangent.gamma)
             and tangent.n.numel() == 6
         )
+        # the kernel takes kappa (and a uniform tangent's beta and gamma) by
+        # value. Inside a captured step a coefficient that is a device tensor
+        # (an SLS law's, which follows dt) must be read on the card at each
+        # replay: the operator is linear in the coefficients, so each such
+        # part is one launch at a unit coefficient, scaled on the card
+        by_parts = not _host_reads_allowed()
+        kappa = tangent.kappa
         if uniform:
-            beta_u, gamma_u = float(tangent.beta), float(tangent.gamma)
             nf = tangent.n.reshape(6).to(dev, dtype).contiguous()
-            beta = gamma = nf
-        else:
-            beta_u = gamma_u = 0.0
-            beta = torch.as_tensor(tangent.beta, dtype=dtype, device=dev)
-            beta = beta.expand(Q, M).contiguous()
-            gamma = torch.as_tensor(tangent.gamma, dtype=dtype, device=dev)
-            gamma = gamma.expand(Q, M).contiguous()
-            nf = tangent.n.expand(6, Q, M).contiguous()
-        check_cuda_args(geo, beta, gamma, nf)
-        r = torch.empty(3 * M, dtype=dtype, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = _entry(dtype)(
-                u_gm.data_ptr(), beta.data_ptr(), gamma.data_ptr(), nf.data_ptr(),
-                geo.mask.data_ptr(), tables["dn"].data_ptr(), tables["w"].data_ptr(),
-                r.data_ptr(), float(tangent.kappa), beta_u, gamma_u, tables["c"],
-                int(uniform), *node_grid, *tables["brick"], stream,
-            )
-        launch_check("matvec", rc)
-        launches += 1
-        return r
+            coeffs = (kappa, tangent.beta, tangent.gamma)
+            if not (by_parts and any(isinstance(c, torch.Tensor) for c in coeffs)):
+                return launch(u_gm, nf, nf, nf, *(float(c) for c in coeffs), True)
+            r = None
+            for unit in ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0)):
+                c = coeffs[unit.index(1.0)]
+                part = launch(u_gm, nf, nf, nf, *unit, True) * c
+                r = part if r is None else r + part
+            return r
+        beta = torch.as_tensor(tangent.beta, dtype=dtype, device=dev)
+        beta = beta.expand(Q, M).contiguous()
+        gamma = torch.as_tensor(tangent.gamma, dtype=dtype, device=dev)
+        gamma = gamma.expand(Q, M).contiguous()
+        nf = tangent.n.expand(6, Q, M).contiguous()
+        if not (by_parts and isinstance(kappa, torch.Tensor)):
+            return launch(u_gm, beta, gamma, nf, float(kappa), 0.0, 0.0, False)
+        n0 = torch.zeros(6, dtype=dtype, device=dev)
+        return (launch(u_gm, beta, gamma, nf, 0.0, 0.0, 0.0, False)
+                + launch(u_gm, n0, n0, n0, 1.0, 0.0, 0.0, True) * kappa)
 
     return matvec

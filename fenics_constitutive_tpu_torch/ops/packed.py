@@ -289,9 +289,15 @@ def packed_grad(u: torch.Tensor, geo: PackedGeometry) -> torch.Tensor:
     return out
 
 
-def packed_strain(grad: torch.Tensor, mandel_T: torch.Tensor) -> torch.Tensor:
+def packed_strain(grad: torch.Tensor, constraint) -> torch.Tensor:
     """Mandel strain [s, N] from grad [g, vs, N] (``ops.mandel.
-    strain_from_grad_u``'s convention, component axis leading)."""
+    strain_from_grad_u``'s convention, component axis leading).
+    ``constraint``: a ``Constraint``, or its Mandel map [s, g, g] as a
+    tensor of grad's dtype (what a geometry keeps as ``mandel_T``)."""
+    if isinstance(constraint, Constraint):
+        constraint = torch.as_tensor(mandel._mandel_matrix_map(constraint), dtype=grad.dtype,
+                                     device=grad.device)
+    mandel_T = constraint
     s, g = mandel_T.shape[0], mandel_T.shape[1]
     return _matmul(mandel_T.reshape(s, g * g), grad.reshape(g * g, -1))
 

@@ -128,6 +128,12 @@ class StructuredGeometry(nn.Module):
         self.offsets = tuple(offsets)
         self.dN_host = dN_host
         self.w_host = w_host
+        # the Jacobi diagonal's constants, uploaded once here: a step
+        # captured in a CUDA graph uploads nothing
+        opts = dict(dtype=KEPS_c.dtype, device=KEPS_c.device)
+        for name, host in (("diag_M_map", mandel._mandel_matrix_map(constraint)),
+                           ("diag_dN", dN_host), ("diag_w", w_host)):
+            self.register_buffer(name, torch.as_tensor(host, **opts), persistent=False)
 
     @property
     def N(self) -> int:
@@ -247,12 +253,7 @@ class StructuredGeometry(nn.Module):
         """The per-corner diagonal blocks [n*vs, M] before assembly. The
         small contractions are broadcast multiplies and sums, so none runs in
         TF32 on the card."""
-        dtype, device = self.dtype, self.device
-        M_map = torch.as_tensor(
-            mandel._mandel_matrix_map(self.constraint), dtype=dtype, device=device
-        )
-        dN = torch.as_tensor(self.dN_host, dtype=dtype, device=device)  # [n, g, Q]
-        w = torch.as_tensor(self.w_host, dtype=dtype, device=device)  # [Q]
+        M_map, dN, w = self.diag_M_map, self.diag_dN, self.diag_w  # [s, g, g], [n, g, Q], [Q]
         rows = []
         for a in range(self.n_nodes):
             # B_a[s, j, q] = sum_i M[s, i, j] dN[a, i, q]; [s, vs, Q, 1]
@@ -529,7 +530,7 @@ class StructuredTetGeometry(StructuredGeometry):
         with B the per-corner columns of KEPS_c (broadcast multiplies and
         sums)."""
         B = self.KEPS_c.reshape(self.sdim, self.qp_layout, self.n_nodes * self.vs)
-        w = torch.as_tensor(self.w_host, dtype=self.dtype, device=self.device)  # [K*Q]
+        w = self.diag_w  # [K*Q]
         qpm = self._qp_mask(self.dtype)
         rows = []
         for a in range(self.n_nodes):

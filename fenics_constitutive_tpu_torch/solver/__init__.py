@@ -4,6 +4,7 @@ windowed and gather engines, and the reference-parity problem
 layouts."""
 
 from .amg import AmgPreconditioner, WindowedAmgPreconditioner, build_amg
+from .compiled import CompiledStep, compile_step, disable_capture
 from .linear import cg_solve
 from .multigrid import MultigridPreconditioner, build_multigrid
 from .packed_step import (
@@ -20,6 +21,7 @@ from .step import StepState, make_load_step
 __all__ = [
     "WINDOWED_MIN_CELLS",
     "AmgPreconditioner",
+    "CompiledStep",
     "IncrSmallStrainProblem",
     "MultigridPreconditioner",
     "PackedSimulation",
@@ -31,6 +33,8 @@ __all__ = [
     "build_multigrid",
     "build_packed_problem",
     "cg_solve",
+    "compile_step",
+    "disable_capture",
     "make_load_step",
     "make_packed_step",
     "resolve_engine",

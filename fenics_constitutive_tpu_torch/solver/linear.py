@@ -17,6 +17,7 @@ def cg_solve(
     rtol: float = 1e-14,
     atol: float = 0.0,
     maxiter: int | None = None,
+    dot: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
     precond: Callable[[torch.Tensor], torch.Tensor] | None = None,
     flexible: bool = False,
     reduce_dtype: torch.dtype | None = None,
@@ -28,6 +29,8 @@ def cg_solve(
         matvec: SPD operator action.
         b: right-hand side.
         diag: diagonal of A for Jacobi preconditioning (None = identity).
+        dot: the inner product of every reduction (e.g. one that sums the
+            ranks' parts); None = ``torch.dot``, in ``reduce_dtype`` if set.
         precond: explicit M^-1 apply (e.g. a multigrid V-cycle); overrides diag.
         flexible: use the Polak-Ribiere beta ``z.(r - r_prev)/rz_prev``
             (flexible CG). It restores convergence where float32 round-off or
@@ -42,12 +45,11 @@ def cg_solve(
     Returns:
         (x, n_iterations) with n_iterations an int32 tensor.
     """
-    if reduce_dtype is not None:
+    if dot is None and reduce_dtype is not None:
         def dot(a, c):
             return torch.dot(a.to(reduce_dtype), c.to(reduce_dtype))
-    else:
-        def dot(a, c):
-            return torch.dot(a, c)
+    elif dot is None:
+        dot = torch.dot
     n = b.shape[0]
     maxiter = maxiter if maxiter is not None else 10 * n
     if precond is None:

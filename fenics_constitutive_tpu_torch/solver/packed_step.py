@@ -440,13 +440,20 @@ def make_packed_step(
             matvec, r_w, diag, rtol=cg_rtol, maxiter=cg_maxiter, **cg_opts
         )
 
-    def step(models, state: PackedState, bc_dofs, bc_vals, f_ext, dt):
-        bc_dofs = torch.as_tensor(bc_dofs, dtype=torch.int64, device=geo.device)
-        bc_w, free = boundary(bc_dofs)
+    def prepare(bc_dofs):
+        """The step's boundary from the Dirichlet dofs: (dofs in the
+        working layout, free mask). Built outside a captured step, once per
+        Dirichlet set (``solver/compiled.py``)."""
+        return boundary(torch.as_tensor(bc_dofs, dtype=torch.int64, device=geo.device))
+
+    def run(models, state: PackedState, bnd, bc_vals: torch.Tensor, f_ext, dt):
+        """The step on a prepared boundary and a ``bc_vals`` tensor of the
+        state's dtype and device: what a CUDA graph captures."""
+        bc_w, free = bnd
         u_prev_w = to_work(state.u)
         f_ext_w = to_work(f_ext)
         u = u_prev_w.clone()
-        u[bc_w] = torch.as_tensor(bc_vals, dtype=u.dtype, device=u.device)
+        u[bc_w] = bc_vals
 
         def fnorm(r):
             return torch.linalg.vector_norm(torch.where(free, r, r.new_zeros(())))
@@ -485,4 +492,19 @@ def make_packed_step(
         }
         return new_state, stats
 
+    def step(models, state: PackedState, bc_dofs, bc_vals, f_ext, dt):
+        vals = torch.as_tensor(bc_vals, dtype=state.u.dtype, device=state.u.device)
+        return run(models, state, prepare(bc_dofs), vals, f_ext, dt)
+
+    syncs = []
+    if max_newton > 1:
+        syncs.append(f"max_newton={max_newton} reads the residual norm back once a Newton "
+                     "iteration")
+    if cg_fixed_iters is None:
+        syncs.append("adaptive CG (cg_fixed_iters=None) reads r.r back once an iteration")
+    if any(getattr(g, "sharded", False) for g in geos):
+        syncs.append("a sharded geometry all-reduces through the host (gloo)")
+    step.prepare, step.run, step.device = prepare, run, geo.device
+    #: why the step cannot be captured in a CUDA graph (empty: it can)
+    step.host_syncs = tuple(syncs)
     return step

@@ -37,6 +37,7 @@ from ..ops.structured import build_structured_geometry, build_structured_tet_geo
 from ..ops.windowed import WindowedGeometry
 from ..utils.checkpoint import restore_like
 from .amg import build_amg
+from .compiled import compile_step
 from .multigrid import build_multigrid, build_p2_node_preconditioner, refined_p1_geometry
 from .packed_step import (
     PackedState,
@@ -257,7 +258,9 @@ class PackedSimulation:
         self._newton_rtol = newton_rtol
         self._newton_atol = newton_atol
         self._max_subdivisions = max_subdivisions
-        self._step = make_packed_step(
+        # the counterpart of the JAX package's jax.jit(step): on the card a
+        # step without host syncs is captured in a CUDA graph and replayed
+        self._step = compile_step(make_packed_step(
             geos,
             newton_rtol=newton_rtol,
             newton_atol=newton_atol,
@@ -270,7 +273,14 @@ class PackedSimulation:
             cg_reduce_dtype=cg_reduce_dtype,
             cg_fixed_iters=cg_fixed_iters,
             eval_impl=eval_impl,
-        )
+        ), models=models)
+        #: True when each step replays one captured CUDA graph; False when it
+        #: runs eagerly: off the card, or where the step reads values back to
+        #: the host (``host_syncs``: max_newton > 1, adaptive CG, a sharded
+        #: geometry, a law with a ``host_sync``)
+        self.captured = self._step.captured
+        #: why the step is not captured (empty when it is, or could be)
+        self.host_syncs = self._step.host_syncs
         self.last_stats: dict | None = None
 
     # -- stepping -------------------------------------------------------------------
@@ -296,6 +306,7 @@ class PackedSimulation:
             self._to_engine(f_ext), dt,
         )
         self.last_stats = {k: v.item() for k, v in stats.items()}
+        self.last_stats["captured"] = self.captured
         r_norm = self.last_stats["r_norm"]
         ok = bool(self._converged(r_norm, self.last_stats["r0_norm"]))
         ok = ok and bool(np.isfinite(r_norm)) and bool(torch.isfinite(new_state.u).all())
@@ -412,6 +423,7 @@ class PackedSimulation:
             out["r_norm"]
         )
         self.last_stats = {k: v[-1] for k, v in out.items()}
+        self.last_stats["captured"] = self.captured
         return out
 
     # -- checkpoints ----------------------------------------------------------------

@@ -74,11 +74,10 @@ def gather_problem(V, device, dtype):
 
 
 def step_of(geos, pc, fixed: int):
-    from fenics_constitutive_tpu_torch.solver import make_packed_step
-
-    return make_packed_step(geos, max_newton=1, newton_rtol=0.0, newton_atol=0.0,
-                            cg_rtol=1e-5, cg_maxiter=1000, preconditioner=pc,
-                            cg_fixed_iters=fixed)
+    """One Newton iteration, fixed-count PCG, compiled (a CUDA graph on the card)."""
+    return common.compiled_step(geos, max_newton=1, newton_rtol=0.0, newton_atol=0.0,
+                                cg_rtol=1e-5, cg_maxiter=1000, preconditioner=pc,
+                                cg_fixed_iters=fixed)
 
 
 def measure(argv=None) -> tuple[dict, dict]:
@@ -122,6 +121,7 @@ def measure(argv=None) -> tuple[dict, dict]:
                      f"{name}_cg_iters": fixed, f"{name}_r_norm": out["r_norm"],
                      f"{name}_r_norm_ref": out["r_norm_ref"],
                      f"{name}_converged": out["converged"],
+                     f"{name}_captured": out["captured"],
                      f"{name}_probes": out["probes"],
                      f"{name}_launches": out["launches"],
                      f"{name}_warm_windows": out["warm_windows"]})
@@ -130,6 +130,7 @@ def measure(argv=None) -> tuple[dict, dict]:
             common.debug_windows(out)
     line.update(value=line["amg_ms_per_step"],
                 converged=line["amg_converged"] and line["jacobi_converged"],
+                captured=line["amg_captured"] and line["jacobi_captured"],
                 setup_s=setup_s, peak_gib=common.peak_gib(device), clock=out["clock"],
                 dtype=str(dtype).removeprefix("torch."), device=common.device_info(device))
     return line, {"amg": amg, "final": final}

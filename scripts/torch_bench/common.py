@@ -337,14 +337,22 @@ def bench_setup(n: int, dtype, device, fused: bool = False, nu: int = 3, nu_coar
 
 
 def bench_step(geos, mg, fixed_iters, impl):
-    """bench.py's step: one Newton iteration, fixed-count CG with ``mg``."""
-    from fenics_constitutive_tpu_torch.solver import make_packed_step
-
-    return make_packed_step(
+    """bench.py's step: one Newton iteration, fixed-count CG with ``mg``,
+    compiled (``solver/compiled.py``: one CUDA graph a step on the card, as
+    bench.py's step is one jitted program; eager on the CPU)."""
+    return compiled_step(
         geos, max_newton=1, newton_rtol=0.0, newton_atol=0.0, cg_rtol=1e-5,
         cg_maxiter=400, preconditioner=mg, cg_fixed_iters=fixed_iters,
         matvec_impl=impl, eval_impl=impl,
     )
+
+
+def compiled_step(geos, **options):
+    """``make_packed_step(geos, **options)`` through ``compile_step``: captured
+    on the card where the step reads nothing back to the host."""
+    from fenics_constitutive_tpu_torch.solver import compile_step, make_packed_step
+
+    return compile_step(make_packed_step(geos, **options))
 
 
 def run_schedule(step, models, state, args, loads):
@@ -383,10 +391,12 @@ def bench_schedule(make_step, fixed: int, deep, models, state, args, K: int, dev
     ``scales(j, K, first)``, and the self-check: ``rerun`` of the whole run
     at each fixed count in ``deep`` (none, the deep one, or the deep and the
     2x-deep one). Returns the timing fields, ``r_norm``, ``r_norm_ref``,
-    ``r_norm_ref2``, ``converged``, ``probes`` (the last timed window's
-    residual per step), ``warmup_s``, ``warm`` (the state after the warm-up)
-    and ``final`` (the state after the last timed window)."""
+    ``r_norm_ref2``, ``converged``, ``captured`` (the timed step replays a
+    CUDA graph), ``probes`` (the last timed window's residual per step),
+    ``warmup_s``, ``warm`` (the state after the warm-up) and ``final`` (the
+    state after the last timed window)."""
     step = make_step(fixed)
+    captured = bool(getattr(step, "captured", False))
     t0 = time.perf_counter()
     warm = warm_up(step, models, state, args, warm_loads)
     sync(device)
@@ -399,7 +409,7 @@ def bench_schedule(make_step, fixed: int, deep, models, state, args, K: int, dev
     refs = [rerun(make_step(fk), models, state, args, last, warm_loads) for fk in deep]
     r_ref = refs[0] if refs else None
     r_ref2 = refs[1] if len(refs) > 1 else None
-    return {**timing_fields(timing), "r_norm": r_norm, "r_norm_ref": r_ref,
+    return {**timing_fields(timing), "captured": captured, "r_norm": r_norm, "r_norm_ref": r_ref,
             "r_norm_ref2": r_ref2, "converged": verdict(r_norm, r_ref, r_ref2),
             "probes": probes.tolist(), "warmup_s": warmup_s, "warm": warm, "final": final}
 

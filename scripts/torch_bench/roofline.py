@@ -244,14 +244,14 @@ def box_phases(n: int, device, dtype) -> dict:
     ok = finite(r_a, s_a, h_a["alpha"], y_b, z_c, x_d, st_e.u) and float(
         stats["r_norm"]) < float(stats["r0_norm"])
     return {"metric": "roofline_box", "n_qp": int(geo.N), "phases": phases, "converged": ok,
-            "launches": counts, "kernels": ("K1", "K2", "K3")}
+            "captured": step.captured, "launches": counts, "kernels": ("K1", "K2", "K3")}
 
 
 def windowed_phases(n: int, device, dtype) -> dict:
     from fenics_constitutive_tpu_torch.fem import FunctionSpace
     from fenics_constitutive_tpu_torch.models import VonMises3D
     from fenics_constitutive_tpu_torch.ops import IsotropicTangent
-    from fenics_constitutive_tpu_torch.solver import build_packed_problem, make_packed_step
+    from fenics_constitutive_tpu_torch.solver import build_packed_problem
 
     V = FunctionSpace(common.imported_mesh(n), 1, 3)
     bcs = common.bench_bcs(V)
@@ -261,8 +261,8 @@ def windowed_phases(n: int, device, dtype) -> dict:
     ex, N = geo.ex, geo.N
     itemsize = torch.empty((), dtype=dtype).element_size()
     fixed = int(os.environ.get("ROOF_FIXED", "40"))
-    step = make_packed_step(geos, max_newton=1, newton_rtol=0.0, newton_atol=0.0,
-                            cg_rtol=1e-5, cg_maxiter=400, cg_fixed_iters=fixed)
+    step = common.compiled_step(geos, max_newton=1, newton_rtol=0.0, newton_atol=0.0,
+                                cg_rtol=1e-5, cg_maxiter=400, cg_fixed_iters=fixed)
     args = common.step_args(bcs, geo.ndofs_int, dtype, device)
     warm = common.warm_up(step, models, state, args, (*common.WARM_LOADS, 2.0))
     common.sync(device)
@@ -307,7 +307,7 @@ def windowed_phases(n: int, device, dtype) -> dict:
               row(f"full step (fixed-{fixed} Jacobi CG)", ms["step"], cost_step, dtype)]
     ok = finite(*outs, st_e.u) and float(stats["r_norm"]) < float(stats["r0_norm"])
     return {"metric": "roofline_windowed", "n_qp": int(N), "phases": phases, "converged": ok,
-            "launches": counts, "kernels": ("K4", "K5")}
+            "captured": step.captured, "launches": counts, "kernels": ("K4", "K5")}
 
 
 def measure(argv=None) -> tuple[dict, tuple]:

@@ -100,11 +100,10 @@ def setup(n: int, device, dtype, pc_kind: str, nu: int, tile_rows: int) -> dict:
 
 
 def step_of(geos, pc, fixed: int):
-    from fenics_constitutive_tpu_torch.solver import make_packed_step
-
-    return make_packed_step(geos, max_newton=1, newton_rtol=0.0, newton_atol=0.0,
-                            cg_rtol=1e-5, cg_maxiter=500, preconditioner=pc,
-                            cg_fixed_iters=fixed)
+    """One Newton iteration, fixed-count PCG, compiled (a CUDA graph on the card)."""
+    return common.compiled_step(geos, max_newton=1, newton_rtol=0.0, newton_atol=0.0,
+                                cg_rtol=1e-5, cg_maxiter=500, preconditioner=pc,
+                                cg_fixed_iters=fixed)
 
 
 def run(s: dict, device, dtype, fixed: int = 12, verify: int = 36, K: int = 10) -> dict:

@@ -222,3 +222,24 @@ def test_interval_bar_matches_jax(law):
         close(st.u, sj.u, 1e-7, f"u step {k}")
         close(torch.as_tensor(st.stress), sj.stress, 1e-7, f"stress step {k}")
     assert np.abs(st.stress).max() > 1.0
+
+
+@pytest.mark.parametrize("constraint", ["FULL", "PLANE_STRAIN", "UNIAXIAL_STRAIN"])
+def test_packed_strain_takes_a_constraint(constraint):
+    """``packed_strain(grad, constraint)``, JAX's signature: the Mandel
+    strain of a random gradient field, and the same from the geometry's
+    tensor form of the map."""
+    from fenics_constitutive_tpu.models import Constraint as JConstraint
+    from fenics_constitutive_tpu.ops.packed import packed_strain as jax_strain
+    from fenics_constitutive_tpu_torch.models import Constraint
+    from fenics_constitutive_tpu_torch.ops import mandel
+    from fenics_constitutive_tpu_torch.ops.packed import packed_strain
+
+    c, cj = Constraint[constraint], JConstraint[constraint]
+    g = {"FULL": 3, "PLANE_STRAIN": 2, "UNIAXIAL_STRAIN": 1}[constraint]
+    grad = np.random.default_rng(5).normal(size=(g, g, 40))
+    want = np.asarray(jax_strain(jnp.asarray(grad), cj))
+    got = packed_strain(torch.tensor(grad), c)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-14, atol=1e-14)
+    T = torch.tensor(mandel._mandel_matrix_map(c))
+    assert torch.equal(packed_strain(torch.tensor(grad), T), got)

@@ -73,3 +73,23 @@ def test_cg_reduce_dtype_float32(system):
     assert xt.dtype == torch.float32
     xj = np.asarray(xj)
     np.testing.assert_allclose(xt.numpy(), xj, rtol=1e-4, atol=1e-4 * np.abs(xj).max())
+
+
+@pytest.mark.parametrize("case", ["adaptive", "fixed_iters"])
+def test_cg_custom_dot_matches_jax(system, case):
+    """``dot=`` (JAX's argument, the hook of a sharded solve): every
+    reduction through the caller's inner product, here the sum of two
+    halves' dots as two ranks would add theirs."""
+    A, b = system
+    opts = dict(CASES[case])
+    h = len(b) // 2
+    Aj, At = jnp.asarray(A), torch.tensor(A)
+    d = np.diag(A).copy()
+    xj, kj = jax_cg(lambda x: Aj @ x, jnp.asarray(b), jnp.asarray(d),
+                    dot=lambda a, c: jnp.vdot(a[:h], c[:h]) + jnp.vdot(a[h:], c[h:]), **opts)
+    xt, kt = cg_solve(lambda x: At @ x, torch.tensor(b), torch.tensor(d),
+                      dot=lambda a, c: torch.dot(a[:h], c[:h]) + torch.dot(a[h:], c[h:]),
+                      **opts)
+    assert int(kt) == int(kj)
+    xj = np.asarray(xj)
+    np.testing.assert_allclose(xt.numpy(), xj, rtol=1e-10, atol=1e-10 * np.abs(xj).max())
