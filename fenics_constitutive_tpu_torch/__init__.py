@@ -15,5 +15,35 @@ BSR SpMV).
 """
 
 from . import fem, models, ops, postprocessing, solver, utils
+from .models import (
+    Constraint,
+    IncrSmallStrainModel,
+    LinearElasticityModel,
+    MisesPlasticityLinearHardening3D,
+    PlaneStrainFrom3D,
+    SpringKelvinModel,
+    SpringMaxwellModel,
+    StressStrainConstraint,
+    UniaxialStrainFrom3D,
+    VonMises3D,
+)
 
-__all__ = ["fem", "models", "ops", "postprocessing", "solver", "utils"]
+# the JAX package's top-level names (its __init__ re-exports the model library)
+__all__ = [
+    "Constraint",
+    "IncrSmallStrainModel",
+    "LinearElasticityModel",
+    "MisesPlasticityLinearHardening3D",
+    "PlaneStrainFrom3D",
+    "SpringKelvinModel",
+    "SpringMaxwellModel",
+    "StressStrainConstraint",
+    "UniaxialStrainFrom3D",
+    "VonMises3D",
+    "fem",
+    "models",
+    "ops",
+    "postprocessing",
+    "solver",
+    "utils",
+]

@@ -34,7 +34,10 @@
 // values, against about 1300 multiply-adds per cell (x the halo's
 // recompute). Every field is read with neighbouring threads on neighbouring
 // addresses (M innermost). A uniform tangent (scalar beta and gamma, one n)
-// reads no tangent field.
+// reads no tangent field. kappa and a uniform tangent's beta and gamma come
+// from device memory (3 values of the working type): a coefficient that
+// follows dt (an SLS law's) is read at each replay of a captured step, with
+// the rounding of the eager step.
 #include "common.cuh"
 
 namespace {
@@ -97,8 +100,9 @@ __global__ void __launch_bounds__(kThreadsMv)
 matvec_kernel(const T* __restrict__ u, const T* __restrict__ beta,
               const T* __restrict__ gamma, const T* __restrict__ nfield,
               const T* __restrict__ mask, const T* __restrict__ dn, const T* __restrict__ w,
-              T* __restrict__ r, T kappa, T beta_u, T gamma_u, T c, int uniform, int n0,
+              T* __restrict__ r, const T* __restrict__ coef, T c, int uniform, int n0,
               int n1, int n2, int b0, int b1, int b2) {
+  const T kappa = coef[0], beta_u = coef[1], gamma_u = coef[2];
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* dq = reinterpret_cast<T*>(smem_raw);
   T* wq = dq + kTab;
@@ -159,9 +163,9 @@ size_t smem_bytes(int b0, int b1, int b2) {
 
 template <typename T>
 int launch(const void* u, const void* beta, const void* gamma, const void* nfield,
-           const void* mask, const void* dn, const void* w, void* r, double kappa,
-           double beta_u, double gamma_u, double c, int uniform, int n0, int n1, int n2, int b0,
-           int b1, int b2, void* stream) {
+           const void* mask, const void* dn, const void* w, void* r, const void* coef,
+           double c, int uniform, int n0, int n1, int n2, int b0, int b1, int b2,
+           void* stream) {
   // above 48 KB only as opted-in dynamic shared memory, once per device
   const size_t bytes = smem_bytes<T>(b0, b1, b2);
   static size_t opted[kMaxDevices] = {};
@@ -171,9 +175,8 @@ int launch(const void* u, const void* beta, const void* gamma, const void* nfiel
   matvec_kernel<T><<<grid, kThreadsMv, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(u), static_cast<const T*>(beta), static_cast<const T*>(gamma),
       static_cast<const T*>(nfield), static_cast<const T*>(mask), static_cast<const T*>(dn),
-      static_cast<const T*>(w), static_cast<T*>(r), static_cast<T>(kappa),
-      static_cast<T>(beta_u), static_cast<T>(gamma_u), static_cast<T>(c), uniform, n0, n1, n2,
-      b0, b1, b2);
+      static_cast<const T*>(w), static_cast<T*>(r), static_cast<const T*>(coef),
+      static_cast<T>(c), uniform, n0, n1, n2, b0, b1, b2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -182,25 +185,25 @@ int launch(const void* u, const void* beta, const void* gamma, const void* nfiel
 // Entry points: every pointer is a device pointer, ``stream`` a cudaStream_t.
 // u and r are grid-major [3, M] on the node grid n0 x n1 x n2 (M = n0 n1 n2,
 // z fastest). ``beta``/``gamma`` are [8, M] fields and ``nfield`` is
-// [6, 8, M] unless ``uniform`` is set: then ``beta_u``/``gamma_u`` are used
-// and ``nfield`` holds 6 values. ``dn`` is the gradient table [8 q][8 a][3 i]
-// of the cells, ``w`` the 8 quadrature weights, ``c`` the Mandel shear
+// [6, 8, M] unless ``uniform`` is set: then ``coef[1]``/``coef[2]`` are the
+// tangent's beta and gamma and ``nfield`` holds 6 values. ``coef`` holds 3
+// values of the working type on the device: kappa, beta, gamma. ``dn`` is
+// the gradient table [8 q][8 a][3 i] of the cells, ``w`` the 8 quadrature
+// weights, ``c`` the Mandel shear
 // factor 1/sqrt(2); b0 x b1 x b2 is the brick of nodes of one block. Returns
 // cudaGetLastError() after the launch.
 extern "C" int fct_matvec_f32(const void* u, const void* beta, const void* gamma,
                               const void* nfield, const void* mask, const void* dn,
-                              const void* w, void* r, double kappa, double beta_u,
-                              double gamma_u, double c, int uniform, int n0, int n1, int n2,
-                              int b0, int b1, int b2, void* stream) {
-  return launch<float>(u, beta, gamma, nfield, mask, dn, w, r, kappa, beta_u, gamma_u, c,
-                       uniform, n0, n1, n2, b0, b1, b2, stream);
+                              const void* w, void* r, const void* coef, double c, int uniform,
+                              int n0, int n1, int n2, int b0, int b1, int b2, void* stream) {
+  return launch<float>(u, beta, gamma, nfield, mask, dn, w, r, coef, c, uniform, n0, n1, n2,
+                       b0, b1, b2, stream);
 }
 
 extern "C" int fct_matvec_f64(const void* u, const void* beta, const void* gamma,
                               const void* nfield, const void* mask, const void* dn,
-                              const void* w, void* r, double kappa, double beta_u,
-                              double gamma_u, double c, int uniform, int n0, int n1, int n2,
-                              int b0, int b1, int b2, void* stream) {
-  return launch<double>(u, beta, gamma, nfield, mask, dn, w, r, kappa, beta_u, gamma_u, c,
-                        uniform, n0, n1, n2, b0, b1, b2, stream);
+                              const void* w, void* r, const void* coef, double c, int uniform,
+                              int n0, int n1, int n2, int b0, int b1, int b2, void* stream) {
+  return launch<double>(u, beta, gamma, nfield, mask, dn, w, r, coef, c, uniform, n0, n1, n2,
+                        b0, b1, b2, stream);
 }

@@ -19,7 +19,7 @@ def elastic_tangent(E, nu, constraint: Constraint, *, dtype, device=None) -> tor
     lam = E * nu / ((1.0 + nu) * (1.0 - 2.0 * nu))
 
     def const(a):
-        return torch.as_tensor(a, dtype=dtype, device=device)
+        return mandel.device_constant(a, dtype, device)
 
     if constraint in (Constraint.FULL, Constraint.PLANE_STRAIN):
         s = constraint.stress_strain_dim

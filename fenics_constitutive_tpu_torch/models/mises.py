@@ -15,7 +15,7 @@ from .interfaces import History, IncrSmallStrainModel
 from .packed_models import (
     _mises_linear_evaluate_packed,
     _vonmises_evaluate_packed,
-    host_reads_allowed,
+    device_while,
     newton_controls,
 )
 
@@ -58,7 +58,8 @@ class VonMises3D(IncrSmallStrainModel):
         reference's iteration scheme (gamma_prev <- gamma, residual and slope
         at gamma_prev, update). A point stays active while it is plastic and
         neither its residual nor its increment has met the tolerance; the
-        loop reads ``any(active)`` back once per trip. A point that diverges
+        loop is a ``device_while``: eagerly it reads ``any(active)`` back once
+        per trip, inside a captured step it runs on the card. A point that diverges
         stops at the trip cap with non-finite state (``diverged_mask``)."""
         del t, del_t
         ka = self.params["p_ka"]
@@ -93,22 +94,27 @@ class VonMises3D(IncrSmallStrainModel):
         tol, tol_rel, max_it = newton_controls(self, stress.dtype)
         tol_abs = torch.clamp(8.0 * eps_m * (y0 + sigtrn), min=tol)
 
-        one = torch.ones_like(sigtrn)
-        gamma_prev, gamma, xr = one, torch.zeros_like(sigtrn), one
-        # inside a captured step every trip runs: a stopped lane keeps its
-        # values, bit-equal to the early exit
-        early_exit = host_reads_allowed()
-        for _ in range(max_it + 1):
-            act = (plastic & ~(xr.abs() <= tol_abs)
-                   & ~((gamma - gamma_prev).abs() <= tol_rel * gamma.abs()))
-            if early_exit and not bool(act.any()):
-                break
+        def active(gamma_prev, gamma, xr):
+            return (plastic & ~(xr.abs() <= tol_abs)
+                    & ~((gamma - gamma_prev).abs() <= tol_rel * gamma.abs()))
+
+        # JAX's lax.while_loop: a device loop inside a captured step
+        def cond(carry):
+            return active(*carry[:3]).any() & (carry[3] <= max_it)
+
+        def body(carry):
+            gamma_prev, gamma, xr, it = carry
+            act = active(gamma_prev, gamma, xr)
             g0 = torch.where(act, gamma, gamma_prev)
             xr_new = f(g0)
             gamma_new = g0 - xr_new / df(g0)
-            gamma_prev = g0
-            gamma = torch.where(act, gamma_new, gamma)
-            xr = torch.where(act, xr_new, xr)
+            return (g0, torch.where(act, gamma_new, gamma), torch.where(act, xr_new, xr),
+                    it + 1)
+
+        one = torch.ones_like(sigtrn)
+        it0 = torch.zeros((), dtype=torch.int32, device=sigtrn.device)
+        _, gamma, _, _ = device_while(cond, body, (one, torch.zeros_like(sigtrn), one, it0),
+                                      reads=())
         gamma = torch.where(plastic, gamma, torch.zeros_like(gamma))
 
         xg = df(gamma)
@@ -140,7 +146,7 @@ class VonMises3D(IncrSmallStrainModel):
 
 
 def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+    return mandel.device_constant(a, like.dtype, like.device)
 
 
 def _i2(like: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,7 @@ __all__ = [
     "_spring_kelvin_evaluate_packed",
     "_spring_maxwell_evaluate_packed",
     "_vonmises_evaluate_packed",
-    "host_reads_allowed",
+    "device_while",
     "newton_controls",
 ]
 
@@ -66,10 +66,12 @@ def newton_controls(model, dtype: torch.dtype) -> tuple[float, float, int]:
     return model.newton_tol, max(model.newton_rtol, 8.0 * eps), max_it
 
 
-def host_reads_allowed() -> bool:
-    from ..solver.compiled import host_reads_allowed as allowed
+def device_while(cond, body, carry, *, reads=None):
+    """``solver.compiled.device_while`` (imported at the call: the solver
+    package imports the models)."""
+    from ..solver.compiled import device_while as loop
 
-    return allowed()
+    return loop(cond, body, carry, reads=reads)
 
 
 def _vonmises_evaluate_packed(self, t, dt, eps, stress, history):
@@ -81,11 +83,11 @@ def _vonmises_evaluate_packed(self, t, dt, eps, stress, history):
     in float32), and float32 caps the trips at 32 so that a few points
     oscillating at round-off cannot pin the batch at 100.
 
-    The loop tests ``any(active)`` on the host once per trip; the fused
-    kernel (ops/cuda_eval.py) runs the same rule per thread with no sync.
-    Inside a captured step (``solver.compiled.host_reads_allowed()`` false)
-    it runs every trip instead: a stopped lane keeps its value, so the result
-    is bit-equal to the early exit (JAX's ``lax.while_loop``).
+    The loop runs while any point is active and the cap is not reached, as
+    a ``device_while`` (JAX's ``lax.while_loop``): eagerly it reads
+    ``any(active)`` back once per trip, inside a captured step it is a CUDA
+    graph while node and stops at the same trip. The fused kernel
+    (ops/cuda_eval.py) runs the same rule per thread.
     """
     del t, dt
     ka = self.params["p_ka"]
@@ -119,16 +121,20 @@ def _vonmises_evaluate_packed(self, t, dt, eps, stress, history):
     tol_abs = torch.clamp(8.0 * eps_m * (y0 + sigtrn), min=tol)
 
     # act_{k+1} = act_k & not-converged: a lane that stops stays stopped
-    g = torch.zeros_like(sigtrn)
-    act = plastic & (1.0 > tol_abs)
-    early_exit = host_reads_allowed()
-    for _ in range(max_it + 1):
-        if early_exit and not bool(act.any()):
-            break
-        g0 = g
+    def cond(carry):
+        _, act, it = carry
+        return act.any() & (it <= max_it)
+
+    def body(carry):
+        g0, act, it = carry
         xr, dfv = fdf(g0)
-        g = torch.where(act, g0 - xr / dfv, g)
+        g = torch.where(act, g0 - xr / dfv, g0)
         act = act & (xr.abs() > tol_abs) & ((g - g0).abs() > tol_rel * g.abs())
+        return g, act, it + 1
+
+    it0 = torch.zeros((), dtype=torch.int32, device=sigtrn.device)
+    g, _, _ = device_while(cond, body, (torch.zeros_like(sigtrn), plastic & (1.0 > tol_abs),
+                                        it0), reads=())
     gamma = torch.where(plastic, g, torch.zeros_like(g))
 
     xg = fdf(gamma)[1]

@@ -75,7 +75,7 @@ class SpringKelvinModel(_SLSBase):
 
         eps = mandel.strain_from_grad_u(grad_del_u, c)
         strain_visco_n = history["strain_visco"]
-        I2 = torch.as_tensor(mandel.get_identity(c), dtype=stress.dtype, device=stress.device)
+        I2 = mandel.device_constant(mandel.get_identity(c), stress.dtype, stress.device)
         # trace over the geometric diagonal only
         tr_eps = eps[:, : c.geometric_dim].sum(dim=1, keepdim=True)
 

@@ -2,7 +2,19 @@
 structured-tet, lattice, windowed and gather engines, the windowed BSR level format
 and the CUDA kernels (compiled on first use, never at import)."""
 
-from .mandel import Constraint
+from . import mandel
+from .mandel import (
+    Constraint,
+    StressStrainConstraint,
+    get_elastic_tangent,
+    get_identity,
+    isotropic_elastic_tangent,
+    isotropic_elastic_tangent_inv,
+    lame_parameters,
+    mandel_to_matrix,
+    matrix_to_mandel,
+    strain_from_grad_u,
+)
 from .packed import DenseTangent, IsotropicTangent, PackedGeometry, build_packed_geometry
 from .structured import (
     LatticeGeometry,
@@ -44,4 +56,15 @@ __all__ = [
     "restrict_structured_geometry",
     "restrict_structured_tet_geometry",
     "reverse_cuthill_mckee",
+    # the JAX package's ops names: the Mandel algebra
+    "StressStrainConstraint",
+    "get_elastic_tangent",
+    "get_identity",
+    "isotropic_elastic_tangent",
+    "isotropic_elastic_tangent_inv",
+    "lame_parameters",
+    "mandel",
+    "mandel_to_matrix",
+    "matrix_to_mandel",
+    "strain_from_grad_u",
 ]

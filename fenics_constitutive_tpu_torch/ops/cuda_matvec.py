@@ -31,7 +31,7 @@ __all__ = [
 launches = 0
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P] * 8 + [ctypes.c_double] * 4 + [ctypes.c_int] * 7 + [_P]
+_ARGTYPES = [_P] * 9 + [ctypes.c_double] + [ctypes.c_int] * 7 + [_P]
 _SYMBOL = {torch.float32: "fct_matvec_f32", torch.float64: "fct_matvec_f64"}
 _entries: dict = {}
 
@@ -117,14 +117,12 @@ def brick(node_grid) -> tuple[int, int, int]:
     return min(4, n0), min(8, n1), -(-n2 // runs)
 
 
-def _host_reads_allowed() -> bool:
-    from ..solver.compiled import host_reads_allowed
-
-    return host_reads_allowed()
-
-
 def _is_scalar(x) -> bool:
     return not isinstance(x, torch.Tensor) or x.numel() == 1
+
+
+#: coefficient tensors of host numbers a matvec keeps (the oldest go first)
+_MAX_COEFS = 8
 
 
 def build_cuda_matvec(geo: StructuredGeometry, *, brick_nodes=None):
@@ -143,18 +141,43 @@ def build_cuda_matvec(geo: StructuredGeometry, *, brick_nodes=None):
         tables = {**hex_tables(geo),
                   "brick": tuple(brick_nodes) if brick_nodes else brick(node_grid)}
 
-    def launch(u_gm, beta, gamma, nf, kappa: float, beta_u: float, gamma_u: float,
-               uniform: bool) -> torch.Tensor:
+    #: (kappa, beta, gamma, dtype, device) of host numbers -> their device tensor
+    coef_cache: dict = {}
+
+    def coefficients(values, dtype, dev) -> torch.Tensor:
+        """kappa, beta and gamma as the kernel reads them: 3 values of the
+        working type on the device. A device tensor is converted on the card
+        (an SLS law's follows dt, so a replay reads each call's value); host
+        numbers are filled on the card inside a capture and kept between
+        eager calls."""
+        if any(isinstance(c, torch.Tensor) for c in values):
+            return torch.stack([c.reshape(()).to(dev, dtype) if isinstance(c, torch.Tensor)
+                                else torch.full((), float(c), dtype=dtype, device=dev)
+                                for c in values])
+        key = (*map(float, values), dtype, dev)
+        hit = coef_cache.get(key)
+        if hit is not None:
+            return hit
+        coef = torch.empty(3, dtype=dtype, device=dev)
+        for i, c in enumerate(key[:3]):
+            coef[i].fill_(c)
+        if not torch.cuda.is_current_stream_capturing():
+            if len(coef_cache) >= _MAX_COEFS:
+                coef_cache.pop(next(iter(coef_cache)))
+            coef_cache[key] = coef
+        return coef
+
+    def launch(u_gm, beta, gamma, nf, coef: torch.Tensor, uniform: bool) -> torch.Tensor:
         global launches
-        check_cuda_args(geo, beta, gamma, nf)
+        check_cuda_args(geo, beta, gamma, nf, coef)
         r = torch.empty(3 * M, dtype=u_gm.dtype, device=u_gm.device)
         with torch.cuda.device(u_gm.device):
             stream = torch.cuda.current_stream(u_gm.device).cuda_stream
             rc = _entry(u_gm.dtype)(
                 u_gm.data_ptr(), beta.data_ptr(), gamma.data_ptr(), nf.data_ptr(),
                 geo.mask.data_ptr(), tables["dn"].data_ptr(), tables["w"].data_ptr(),
-                r.data_ptr(), kappa, beta_u, gamma_u, tables["c"],
-                int(uniform), *node_grid, *tables["brick"], stream,
+                r.data_ptr(), coef.data_ptr(), tables["c"], int(uniform), *node_grid,
+                *tables["brick"], stream,
             )
         launch_check("matvec", rc)
         launches += 1
@@ -172,33 +195,16 @@ def build_cuda_matvec(geo: StructuredGeometry, *, brick_nodes=None):
             _is_scalar(tangent.beta) and _is_scalar(tangent.gamma)
             and tangent.n.numel() == 6
         )
-        # the kernel takes kappa (and a uniform tangent's beta and gamma) by
-        # value. Inside a captured step a coefficient that is a device tensor
-        # (an SLS law's, which follows dt) must be read on the card at each
-        # replay: the operator is linear in the coefficients, so each such
-        # part is one launch at a unit coefficient, scaled on the card
-        by_parts = not _host_reads_allowed()
-        kappa = tangent.kappa
         if uniform:
             nf = tangent.n.reshape(6).to(dev, dtype).contiguous()
-            coeffs = (kappa, tangent.beta, tangent.gamma)
-            if not (by_parts and any(isinstance(c, torch.Tensor) for c in coeffs)):
-                return launch(u_gm, nf, nf, nf, *(float(c) for c in coeffs), True)
-            r = None
-            for unit in ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0)):
-                c = coeffs[unit.index(1.0)]
-                part = launch(u_gm, nf, nf, nf, *unit, True) * c
-                r = part if r is None else r + part
-            return r
+            coef = coefficients((tangent.kappa, tangent.beta, tangent.gamma), dtype, dev)
+            return launch(u_gm, nf, nf, nf, coef, True)
         beta = torch.as_tensor(tangent.beta, dtype=dtype, device=dev)
         beta = beta.expand(Q, M).contiguous()
         gamma = torch.as_tensor(tangent.gamma, dtype=dtype, device=dev)
         gamma = gamma.expand(Q, M).contiguous()
         nf = tangent.n.expand(6, Q, M).contiguous()
-        if not (by_parts and isinstance(kappa, torch.Tensor)):
-            return launch(u_gm, beta, gamma, nf, float(kappa), 0.0, 0.0, False)
-        n0 = torch.zeros(6, dtype=dtype, device=dev)
-        return (launch(u_gm, beta, gamma, nf, 0.0, 0.0, 0.0, False)
-                + launch(u_gm, n0, n0, n0, 1.0, 0.0, 0.0, True) * kappa)
+        return launch(u_gm, beta, gamma, nf, coefficients((tangent.kappa, 0.0, 0.0), dtype, dev),
+                      False)
 
     return matvec

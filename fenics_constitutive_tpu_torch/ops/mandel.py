@@ -23,6 +23,7 @@ __all__ = [
     "SQRT2",
     "Constraint",
     "StressStrainConstraint",
+    "device_constant",
     "deviatoric",
     "get_elastic_tangent",
     "get_identity",
@@ -203,10 +204,29 @@ def strain_from_grad_u(grad_u: torch.Tensor, constraint: Constraint) -> torch.Te
     return torch.stack(comps, dim=-1)
 
 
+#: host constants on a CUDA device, by (bytes, shape, dtype, device)
+_DEVICE_CONSTANTS: dict = {}
+
+
+def device_constant(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """The host array ``a`` as a tensor of ``dtype`` on ``device`` (read
+    only). On a CUDA device it is uploaded once and kept: the eager warm-up
+    of a compiled step uploads it, and its capture then reads the kept
+    tensor, where a copy from pageable host memory cannot be captured."""
+    device = torch.device(device) if device is not None else torch.device("cpu")
+    if device.type != "cuda" or isinstance(a, torch.Tensor):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    a = np.asarray(a)
+    key = (a.tobytes(), a.shape, a.dtype.str, dtype, device)
+    hit = _DEVICE_CONSTANTS.get(key)
+    if hit is None:
+        hit = _DEVICE_CONSTANTS[key] = torch.as_tensor(a, dtype=dtype, device=device)
+    return hit
+
+
 def mandel_to_matrix(mandel: torch.Tensor, constraint: Constraint) -> torch.Tensor:
     """Mandel vector ``[..., s]`` -> symmetric tensor ``[..., g, g]``."""
-    T = torch.as_tensor(_mandel_matrix_map(constraint), dtype=mandel.dtype,
-                        device=mandel.device)
+    T = device_constant(_mandel_matrix_map(constraint), mandel.dtype, mandel.device)
     return (mandel[..., :, None, None] * T).sum(dim=-3)
 
 
@@ -247,8 +267,8 @@ def mises_norm(mandel: torch.Tensor) -> torch.Tensor:
 def isotropic_elastic_tangent(mu: float, kappa: float, sdim: int = 6, *, dtype=torch.float64,
                               device=None) -> torch.Tensor:
     """2 mu P_dev + 3 kappa P_vol in Mandel notation, ``[sdim, sdim]``."""
-    pdev = torch.as_tensor(projection_dev(sdim), dtype=dtype, device=device)
-    pvol = torch.as_tensor(projection_vol(sdim), dtype=dtype, device=device)
+    pdev = device_constant(projection_dev(sdim), dtype, device)
+    pvol = device_constant(projection_vol(sdim), dtype, device)
     return 2.0 * mu * pdev + 3.0 * kappa * pvol
 
 

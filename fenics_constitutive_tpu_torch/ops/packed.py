@@ -295,8 +295,8 @@ def packed_strain(grad: torch.Tensor, constraint) -> torch.Tensor:
     ``constraint``: a ``Constraint``, or its Mandel map [s, g, g] as a
     tensor of grad's dtype (what a geometry keeps as ``mandel_T``)."""
     if isinstance(constraint, Constraint):
-        constraint = torch.as_tensor(mandel._mandel_matrix_map(constraint), dtype=grad.dtype,
-                                     device=grad.device)
+        constraint = mandel.device_constant(mandel._mandel_matrix_map(constraint), grad.dtype,
+                                            grad.device)
     mandel_T = constraint
     s, g = mandel_T.shape[0], mandel_T.shape[1]
     return _matmul(mandel_T.reshape(s, g * g), grad.reshape(g * g, -1))

@@ -4,7 +4,7 @@ windowed and gather engines, and the reference-parity problem
 layouts."""
 
 from .amg import AmgPreconditioner, WindowedAmgPreconditioner, build_amg
-from .compiled import CompiledStep, compile_step, disable_capture
+from .compiled import CompiledStep, compile_step, device_while, disable_capture
 from .linear import cg_solve
 from .multigrid import MultigridPreconditioner, build_multigrid
 from .packed_step import (
@@ -34,6 +34,7 @@ __all__ = [
     "build_packed_problem",
     "cg_solve",
     "compile_step",
+    "device_while",
     "disable_capture",
     "make_load_step",
     "make_packed_step",

@@ -1,57 +1,84 @@
-"""The packed step compiled: one captured CUDA graph, replayed once a step.
+"""The packed step compiled: one CUDA graph, replayed once a step, loops included.
 
 The JAX package never runs its step op by op: ``PackedSimulation`` jits it
 (``fenics_constitutive_tpu/solver/simulation.py``, ``jax.jit(step)``), and
 ``solve_schedule`` compiles the whole load path as one ``jax.jit(lax.scan(
-...))``. The port's counterpart is ``compile_step(step)``: the step of
-``make_packed_step`` captured into a ``torch.cuda.CUDAGraph`` and replayed
-once per call, so that the host issues one launch a step where the eager
-step issues some hundreds.
+...))``, with every data-dependent loop of the step (converged Newton,
+adaptive CG, the Mises local Newton) inside the program as a
+``lax.while_loop``. The port's counterparts are ``compile_step(step)``, the
+step of ``make_packed_step`` captured into one CUDA graph and replayed once
+per call, and ``device_while(cond, body, carry)``, a loop whose trip count
+the device decides.
 
 Capture. A call copies its inputs into static device buffers (``state.u``,
 the stresses, the histories, ``t``, ``bc_vals``, ``f_ext`` and ``dt`` as a
 0-d tensor, so that a law that reads ``dt`` sees each call's value) and runs
 the step on them. The first call of a key runs the step once eagerly (the
 warm-up: it makes the kernels' one-time set-up calls, and its result is the
-call's result), then captures one call into a graph; every later call
-copies in and replays. A new capture is taken when a shape, a dtype, the
-Dirichlet dofs or a model object changes (JAX's retrace); the Dirichlet set
-is prepared outside the graph, once per capture (``step.prepare``).
+call's result), then captures one call; every later call copies in and
+replays. A new capture is taken when a shape, a dtype, the Dirichlet dofs
+or a model object changes (JAX's retrace); the Dirichlet set is prepared
+outside the graph, once per capture (``step.prepare``).
+
+Loops. ``device_while`` runs eagerly as ``while cond(carry): carry =
+body(carry)``, reading the 0-d bool predicate back once a trip: the only
+host read a step makes. Under capture it becomes a CUDA graph while node
+(``solver/graph_loop.py``, ``csrc/graph_loop.cu``): the step is captured in
+straight-line segments (before the loop, the loop's body, after it), each a
+``torch.cuda.CUDAGraph(keep_graph=True)`` in one shared memory pool, so
+torch's caching allocator keeps every address; the segments are composed
+into one parent graph of child-graph nodes and while nodes. The loop's
+carry lives in static buffers allocated before the node (clones of the
+initial carry, or, where the caller hands it over, its own tensors); a trip
+runs the body, copies its result into them, evaluates ``cond`` on them into the
+predicate buffer, and a one-thread kernel writes the predicate into the
+node's handle. Eager and replayed runs evaluate the same predicate
+expression on the device, so they take the same trips and agree bit for
+bit. Loops nest (CG inside a Newton trip, the local Newton inside an
+evaluation).
 
 Value semantics. A replay overwrites the graph's outputs, so each call
 returns a clone of them: a state the caller holds never changes. That is
 one device-to-device copy of the state a call (and one into the static
 buffers): about 56 MB each way for the 1M-QP box in float32.
 
-What can be captured: a step that reads nothing back to the host
-(``step.host_syncs`` is empty: ``max_newton == 1``, a fixed CG count, an
-unsharded geometry) over laws that declare no ``host_sync``. JAX compiles
-the other steps through ``lax.while_loop``; a plain CUDA graph cannot hold a
-loop whose trip count follows the data, so ``capture=True`` refuses them
-with ``ValueError`` and the default runs them eagerly. Inside the captured
-region the host may read nothing: ``no_host_sync()`` makes every read raise
-(and tells the code of the step, through ``host_reads_allowed()``, to take
-its sync-free form: the Mises local Newton runs every trip). A capture or a
-replay that fails raises; nothing falls back to the eager step or to the
-CPU. TF32 stays off in the graph as it does eagerly: the products of the
-step run through ``ops.structured._matmul``, which switches it off around
-each call, and a graph keeps the setting of its capture.
+What can be captured: every step of ``make_packed_step`` on one process
+(``step.host_syncs`` is empty) over laws that declare no ``host_sync``
+(Drucker-Prager's batched return map keeps its host loop). A sharded step
+all-reduces through the host (gloo), so ``capture=True`` refuses it with
+``ValueError`` and the default runs it eagerly. Inside the captured region
+the host may read nothing: ``no_host_sync()`` makes every read raise, apart
+from ``device_while``'s own predicate read in the eager warm-up. A capture,
+a composition or a replay that fails raises; nothing falls back to the
+eager step or to the CPU. TF32 stays off in the graph as it does eagerly:
+the products of the step run through ``ops.structured._matmul``, which
+switches it off around each call, and a graph keeps the setting of its
+capture.
 
 Launch counters. The kernels' wrappers count at call time, and a replay
-calls no wrapper: the counts a capture makes are recorded (and taken back,
-since a capture launches nothing) and added at every replay, so a counter
-reads the same after K replays as after K eager steps.
+calls no wrapper: the counts a capture makes are recorded per segment (and
+taken back, since a capture launches nothing). A replay adds the counts of
+the segments outside any loop; each loop keeps a device-side trip counter,
+and ``settle_counters()`` (which ``read_counters()`` calls) reads the
+counters back and adds each loop's counts per trip times its new trips. So
+a counter reads the same after K replays as after K eager steps, at the
+price of one host read when it is read, never one a replay.
 
 On the CPU the step runs eagerly (``capture=None``, the default). With
 ``capture=True`` it runs the static-buffer path without a graph (copy in,
 the step under ``no_host_sync()``, clone out), which the tests hold to the
-plain step; ``recorder`` lets a test stand in for the graph.
+plain step; ``recorder`` lets a test stand in for the graph
+(``GraphRecorder``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
+import time
+import warnings
+import weakref
 from collections import OrderedDict
 
 import numpy as np
@@ -60,12 +87,16 @@ import torch
 __all__ = [
     "LAUNCH_COUNTERS",
     "CompiledStep",
+    "CudaGraphRecorder",
+    "GraphRecorder",
     "HostSyncError",
     "compile_step",
+    "device_while",
     "disable_capture",
     "host_reads_allowed",
     "no_host_sync",
     "read_counters",
+    "settle_counters",
 ]
 
 _PKG = __name__.rsplit(".", 2)[0]
@@ -78,6 +109,7 @@ LAUNCH_COUNTERS: list = [
     (f"{_PKG}.ops.cuda_smoother", "launches"),
     (f"{_PKG}.ops.cuda_smoother", "entry_launches"),
     (f"{_PKG}.ops.cuda_window", "launches"),
+    (f"{_PKG}.solver.graph_loop", "launches"),
 ]
 
 #: captures a CompiledStep keeps (the least recently used goes first)
@@ -86,8 +118,16 @@ MAX_CAPTURES = 4
 #: the Tensor methods that read a value back to the host
 GUARDED = ("item", "__bool__", "__float__", "__int__", "cpu", "numpy", "tolist")
 
+#: the unguarded reads: device_while's predicate and settle_counters' trips
+_BOOL = torch.Tensor.__bool__
+_INT = torch.Tensor.__int__
+
 _disabled = 0
 _guarded = 0
+#: the recorder capturing (or, in a stand-in, replaying) the current call
+_recording = None
+#: every loop of a live recorder, for settle_counters
+_PENDING: weakref.WeakSet = weakref.WeakSet()
 
 
 class HostSyncError(RuntimeError):
@@ -109,8 +149,7 @@ def disable_capture():
 @contextlib.contextmanager
 def no_host_sync():
     """Make every host read of a tensor (``GUARDED``) raise ``HostSyncError``
-    inside the block, on any device, and tell the step's code to take its
-    sync-free form (``host_reads_allowed()`` is false)."""
+    inside the block, on any device (``host_reads_allowed()`` is false)."""
     global _guarded
     if _guarded:
         _guarded += 1
@@ -144,9 +183,32 @@ def no_host_sync():
 
 
 def host_reads_allowed() -> bool:
-    """False inside ``no_host_sync()``: code of the step takes its sync-free
-    form there."""
+    """False inside ``no_host_sync()``."""
     return _guarded == 0
+
+
+def device_while(cond, body, carry, *, reads=None):
+    """The counterpart of ``jax.lax.while_loop(cond, body, carry)``.
+
+    ``cond(carry)`` returns a 0-d bool tensor on the carry's device;
+    ``body(carry)`` a carry of the same structure (tensors, tuples, dicts,
+    dataclasses; other leaves must stay equal). Eagerly (on the CPU, inside
+    ``disable_capture()``): ``while cond(carry): carry = body(carry)``, one
+    read of the predicate a trip. Inside a capture: a CUDA graph while node
+    over static carry buffers (module docstring); the returned carry is
+    those buffers.
+
+    ``reads``: the tensors (a tree) that the body reads besides the carry.
+    Given them, the caller hands the initial carry over to the loop: under
+    capture a tensor of it that owns its whole storage, appears once in the
+    carry and shares no storage with ``reads`` becomes its static buffer
+    itself, where by default (None) every tensor is cloned into one."""
+    rec = _recording
+    if rec is not None:
+        return rec.loop(cond, body, carry, reads)
+    while _BOOL(cond(carry)):
+        carry = body(carry)
+    return carry
 
 
 # -- launch counters ------------------------------------------------------------------
@@ -156,14 +218,19 @@ def _owner(owner):
     return importlib.import_module(owner) if isinstance(owner, str) else owner
 
 
-def read_counters() -> list:
-    """[((owner, attribute), value)] of every counter in LAUNCH_COUNTERS (dict
-    values copied)."""
+def _raw_counters() -> list:
     out = []
     for owner, attr in LAUNCH_COUNTERS:
         value = getattr(_owner(owner), attr)
         out.append(((owner, attr), dict(value) if isinstance(value, dict) else value))
     return out
+
+
+def read_counters() -> list:
+    """[((owner, attribute), value)] of every counter in LAUNCH_COUNTERS (dict
+    values copied), the replayed loops' trips settled first."""
+    settle_counters()
+    return _raw_counters()
 
 
 def _set_counters(values: list) -> None:
@@ -183,6 +250,11 @@ def _diff(after: list, before: list) -> list:
     return out
 
 
+def _scaled(delta: list, k: int) -> list:
+    return [(key, {n: v * k for n, v in d.items()} if isinstance(d, dict) else d * k)
+            for key, d in delta]
+
+
 def _advance(delta: list) -> None:
     for (owner, attr), d in delta:
         obj = _owner(owner)
@@ -194,20 +266,39 @@ def _advance(delta: list) -> None:
             setattr(obj, attr, current + d)
 
 
+def _added(acc: list | None, delta: list) -> list:
+    if acc is None:
+        return delta
+    return [(key, {k: a.get(k, 0) + d.get(k, 0) for k in {*a, *d}} if isinstance(a, dict)
+             else a + d) for (key, a), (_, d) in zip(acc, delta)]
+
+
+def settle_counters() -> None:
+    """Add the launches of every replayed loop's trips not yet counted: one
+    host read of each loop's device trip counter. Does nothing inside
+    ``no_host_sync()`` or a capture, where no value may be read."""
+    if _guarded or _recording is not None:
+        return
+    for loop in list(_PENDING):
+        trips = _INT(loop.trips)
+        if trips != loop.resolved:
+            _advance(_scaled(loop.counts, trips - loop.resolved))
+            loop.resolved = trips
+
+
 # -- pytrees of the step --------------------------------------------------------------
 
 
 def _map(fn, *trees):
-    """fn over the tensors of one or several trees of the same structure (a
-    PackedState, tuples, dicts, None); other leaves are taken from the first."""
-    from .packed_step import PackedState
-
+    """fn over the tensors of one or several trees of the same structure
+    (dataclasses such as PackedState and the tangents, tuples, dicts, None);
+    other leaves are taken from the first."""
     first = trees[0]
     if isinstance(first, torch.Tensor):
         return fn(*trees)
-    if isinstance(first, PackedState):
-        return PackedState(*(_map(fn, *(getattr(t, f) for t in trees))
-                             for f in ("u", "stress", "histories", "t")))
+    if dataclasses.is_dataclass(first) and not isinstance(first, type):
+        return type(first)(**{f.name: _map(fn, *(getattr(t, f.name) for t in trees))
+                              for f in dataclasses.fields(first)})
     if isinstance(first, tuple):
         return tuple(_map(fn, *parts) for parts in zip(*trees))
     if isinstance(first, dict):
@@ -216,12 +307,47 @@ def _map(fn, *trees):
 
 
 def _signature(tree) -> str:
-    """The structure, shapes, dtypes and devices of a tree."""
+    """The structure, shapes, dtypes and devices of a tree (and its other leaves)."""
     return repr(_map(lambda t: (tuple(t.shape), t.dtype, t.device), tree))
 
 
 def _clone(tree):
     return _map(torch.clone, tree)
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def _static_carry(carry, reads):
+    """The static buffers of a loop's carry: clones, or with ``reads`` given
+    the carry's own tensors where that is safe (``device_while``)."""
+    if reads is None:
+        return _clone(carry)
+    taken: set = set()
+    _map(lambda t: taken.add(_storage(t)), reads)
+    counts: dict = {}
+
+    def count(t):
+        counts[_storage(t)] = counts.get(_storage(t), 0) + 1
+
+    _map(count, carry)
+
+    def pick(t):
+        whole = (t.is_contiguous() and t.storage_offset() == 0
+                 and t.untyped_storage().nbytes() == t.numel() * t.element_size())
+        key = _storage(t)
+        return t if whole and key not in taken and counts[key] == 1 else t.clone()
+
+    return _map(pick, carry)
+
+
+def _copy_into(static, new) -> None:
+    if _signature(new) != _signature(static):
+        msg = (f"device_while: the body changed the carry's structure: {_signature(static)} "
+               f"became {_signature(new)}")
+        raise ValueError(msg)
+    _map(torch.Tensor.copy_, static, new)
 
 
 def _law_syncs(models) -> tuple:
@@ -230,29 +356,184 @@ def _law_syncs(models) -> tuple:
                  if getattr(m, "host_sync", None))
 
 
-# -- the recorder ---------------------------------------------------------------------
+# -- the recorders --------------------------------------------------------------------
 
 
-class CudaGraphRecorder:
-    """Records ``fn()`` into a ``torch.cuda.CUDAGraph`` on ``device`` (whose
-    private memory pool holds the outputs) and replays it on the current
-    stream."""
+class _Loop:
+    """One while node: the static carry, the predicate buffer, the device
+    trip counter, the body's program and one trip's launch counts."""
+
+    def __init__(self, static, pred: torch.Tensor, trips: torch.Tensor):
+        self.static, self.pred, self.trips = static, pred, trips
+        self.body: list = []
+        self.counts: list | None = None
+        self.resolved = 0
+
+
+class GraphRecorder:
+    """Records ``fn()`` as a program of straight-line segments and the while
+    loops between them (``device_while``), and replays it.
+
+    ``capture`` runs ``fn`` once, cutting a segment at each loop's entry,
+    at the start and end of its body and at its exit; the launch counts of
+    each segment are kept with the loop whose body holds it (or with the
+    program, once a replay). A loop under capture clones its carry into
+    static buffers, evaluates ``cond`` into a predicate buffer, runs the
+    body once on the buffers, copies the result into them, evaluates
+    ``cond`` again and adds one to its trip counter. Subclasses capture the
+    segments (``begin_segment``, ``end_segment``), compose them
+    (``finish``) and launch the result (``launch``)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self.graph = torch.cuda.CUDAGraph()
+        self.program: list = []
+        self.loops: list = []
+        self.counts: list | None = None
+        #: host seconds of the capture and of the composition
+        self.seconds = {"capture": 0.0, "compose": 0.0}
 
+    # the hooks of a subclass
+    def begin_segment(self) -> None:
+        pass
+
+    def end_segment(self):
+        return None
+
+    def abort(self) -> None:
+        """End an open segment after a failure inside ``fn``."""
+
+    def finish(self) -> None:
+        pass
+
+    def launch(self) -> None:
+        raise NotImplementedError
+
+    # recording
     def capture(self, fn):
-        with torch.cuda.device(self.device), torch.cuda.graph(self.graph):
-            return fn()
+        global _recording
+        self._items, self._scopes = [self.program], [None]
+        self._mark = _raw_counters()
+        prev, _recording = _recording, self
+        t0 = time.perf_counter()
+        try:
+            self.begin_segment()
+            out = fn()
+            self._cut()
+        except BaseException:
+            self.abort()
+            raise
+        finally:
+            _recording = prev
+        for loop in self.loops:
+            loop.trips.zero_()
+            _PENDING.add(loop)
+        t1 = time.perf_counter()
+        self.finish()
+        self.seconds = {"capture": t1 - t0, "compose": time.perf_counter() - t1}
+        return out
+
+    def _cut(self) -> None:
+        seg = self.end_segment()
+        now = _raw_counters()
+        delta, self._mark = _diff(now, self._mark), now
+        scope = self._scopes[-1]
+        if scope is None:
+            self.counts = _added(self.counts, delta)
+        else:
+            scope.counts = _added(scope.counts, delta)
+        self._items[-1].append(("graph", seg))
+
+    def loop(self, cond, body, carry, reads=None):
+        from . import graph_loop
+
+        static = _static_carry(carry, reads)
+        pred = torch.empty((), dtype=torch.bool, device=self.device)
+        pred.copy_(cond(static))
+        graph_loop.launches += 1  # the set-conditional kernel before the node
+        self._cut()
+        loop = _Loop(static, pred, torch.zeros((), dtype=torch.int64, device=self.device))
+        self.loops.append(loop)
+        self._items[-1].append(("while", loop))
+        self._items.append(loop.body)
+        self._scopes.append(loop)
+        self.begin_segment()
+        _copy_into(static, body(static))
+        pred.copy_(cond(static))
+        loop.trips.add_(1)
+        graph_loop.launches += 1  # the set-conditional kernel ending the trip
+        self._cut()
+        self._items.pop()
+        self._scopes.pop()
+        self.begin_segment()
+        return static
 
     def replay(self) -> None:
-        self.graph.replay()
+        self.launch()
+        _advance(self.counts)
+
+
+class CudaGraphRecorder(GraphRecorder):
+    """Captures each segment as a ``torch.cuda.CUDAGraph(keep_graph=True)``
+    on a side stream, every one in one memory pool (so that a tensor one
+    segment writes stays where a later one reads it), and composes them into
+    one executable graph with a while node per loop
+    (``graph_loop.compose``), launched on the current stream."""
+
+    def __init__(self, device):
+        super().__init__(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(self.device)
+        #: the captured segments: they own the pool, so they live as long as the graph
+        self.graphs: list = []
+        self._open = None
+        self.graph = None
+
+    def capture(self, fn):
+        with torch.cuda.device(self.device):
+            current = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(current)
+            try:
+                with torch.cuda.stream(self.stream):
+                    return super().capture(fn)
+            finally:
+                current.wait_stream(self.stream)
+
+    def begin_segment(self) -> None:
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        g.capture_begin(pool=self.pool)
+        self._open = g
+
+    def end_segment(self):
+        g, self._open = self._open, None
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # an empty segment (a loop right after a loop)
+            g.capture_end()
+        self.graphs.append(g)
+        return g.raw_cuda_graph()
+
+    def abort(self) -> None:
+        if self._open is not None:
+            g, self._open = self._open, None
+            with contextlib.suppress(Exception):
+                g.capture_end()
+
+    def finish(self) -> None:
+        from . import graph_loop
+
+        def program(items):
+            return [item if item[0] == "graph" else ("while", item[1].pred,
+                                                     program(item[1].body))
+                    for item in items]
+
+        self.graph = graph_loop.compose(program(self.program), self.device)
+
+    def launch(self) -> None:
+        self.graph.launch(torch.cuda.current_stream(self.device).cuda_stream)
 
 
 class _Entry:
     """One capture: the static input buffers, the prepared boundary, the
-    recorder and its outputs, and the launch counts of one replay."""
+    recorder and its outputs."""
 
     def __init__(self, step, models, state, bc_dofs, bc_vals, f_ext):
         self.models = models  # held, so that the key's ids stay theirs
@@ -265,7 +546,6 @@ class _Entry:
         self.run = step.run
         self.recorder = None
         self.out = None
-        self.counts: list = []
 
     def copy_in(self, state, bc_vals, f_ext, dt) -> None:
         _map(lambda dst, src: dst.copy_(src), self.state, state)
@@ -325,7 +605,6 @@ class CompiledStep:
             out = self._record(entry)
         else:
             entry.recorder.replay()
-            _advance(entry.counts)
             self.replays += 1
             out = entry.out
         return _clone(out)
@@ -354,6 +633,7 @@ class CompiledStep:
             entry = _Entry(self.step, tuple(models), state, bc_dofs, bc_vals, f_ext)
             self._entries[key] = entry
             while len(self._entries) > MAX_CAPTURES:
+                settle_counters()  # the evicted graph's loops stop counting
                 self._entries.popitem(last=False)
         self._entries.move_to_end(key)
         return entry
@@ -363,7 +643,7 @@ class CompiledStep:
         then the capture (whose counts are taken back and kept for replays)."""
         with no_host_sync():
             out = entry.body()
-        before = read_counters()
+        before = _raw_counters()
         recorder = self._recorder(self.device)
         try:
             with no_host_sync():
@@ -373,8 +653,8 @@ class CompiledStep:
         except RuntimeError as err:
             msg = f"capturing the step in a CUDA graph failed: {err}"
             raise RuntimeError(msg) from err
-        entry.counts = _diff(read_counters(), before)
-        _set_counters(before)
+        finally:
+            _set_counters(before)
         entry.recorder = recorder
         self.captures += 1
         return out
@@ -390,6 +670,7 @@ def compile_step(step, *, capture: bool | None = None, models=(), recorder=None
     True captures or raises ``ValueError`` naming the host sync (on the CPU
     it runs the static-buffer path without a graph); False always runs
     eagerly. ``models``: the laws the step will take, where known, so that
-    one that syncs (``host_sync``) decides here. ``recorder``: a stand-in
-    for ``CudaGraphRecorder`` (the tests')."""
+    one that syncs (``host_sync``) decides here. ``recorder``: a
+    ``GraphRecorder`` class standing in for ``CudaGraphRecorder`` (the
+    tests')."""
     return CompiledStep(step, capture=capture, models=models, recorder=recorder)

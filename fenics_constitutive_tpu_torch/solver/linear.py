@@ -38,13 +38,17 @@ def cg_solve(
         reduce_dtype: accumulate the dot products in this dtype (e.g.
             ``torch.float64`` for a float32 solve).
         fixed_iters: run exactly this many iterations with no convergence
-            test. No value is read back to the host, so the loop never waits
-            for the device; the caller verifies the residual downstream.
-            Otherwise the loop tests ``r.r > tol`` on the host each iteration.
+            test, unrolled into the caller's program. Otherwise the loop
+            runs while ``dot(r, r) > tol2`` and ``k < maxiter`` as a
+            ``device_while`` (solver/compiled.py): eagerly it reads that
+            predicate back once an iteration; inside a captured step it is a
+            CUDA graph while node, and the host reads nothing.
 
     Returns:
-        (x, n_iterations) with n_iterations an int32 tensor.
+        (x, n_iterations) with n_iterations an int32 tensor on b's device.
     """
+    from .compiled import device_while
+
     if dot is None and reduce_dtype is not None:
         def dot(a, c):
             return torch.dot(a.to(reduce_dtype), c.to(reduce_dtype))
@@ -67,14 +71,8 @@ def cg_solve(
     def safe(d):
         return torch.where(d != 0.0, d, torch.ones_like(d))
 
-    x = torch.zeros_like(b)
-    r = b
-    z = precond(r)
-    p = z
-    rz = dot(r, z)
-
-    def body():
-        nonlocal x, r, z, p, rz
+    def body(carry):
+        x, r, p, rz, k = carry
         q = matvec(p)
         alpha = (rz / safe(dot(p, q))).to(wdtype)
         x = x + alpha * p
@@ -84,16 +82,22 @@ def cg_solve(
         num = dot(z, r_new - r) if flexible else rz_new
         beta = (num / safe(rz)).to(wdtype)
         p = z + beta * p
-        r, rz = r_new, rz_new
+        return x, r_new, p, rz_new, None if k is None else k + 1
 
+    z = precond(b)
+    carry = (torch.zeros_like(b), b, z, dot(b, z))
     if fixed_iters is not None:
         for _ in range(fixed_iters):
-            body()
-        return x, torch.tensor(fixed_iters, dtype=torch.int32)
+            carry = body((*carry, None))[:4]
+        return carry[0], torch.full((), fixed_iters, dtype=torch.int32, device=b.device)
+    carry = (*carry, torch.zeros((), dtype=torch.int32, device=b.device))
 
-    tol2 = max(rtol * rtol * float(dot(b, b)), atol * atol)
-    k = 0
-    while k < maxiter and float(dot(r, r)) > tol2:
-        body()
-        k += 1
-    return x, torch.tensor(k, dtype=torch.int32)
+    # JAX's tol2 = max(rtol^2 (b.b), atol^2), on the device in the dot's type
+    tol2 = torch.clamp((rtol * rtol) * dot(b, b), min=atol * atol)
+
+    def cond(carry):
+        _, r, _, _, k = carry
+        return (dot(r, r) > tol2) & (k < maxiter)
+
+    x, _, _, _, k = device_while(cond, body, carry, reads=(b,))
+    return x, k

@@ -18,12 +18,14 @@ step boundary; on the windowed engine ``state.u`` and ``f_ext`` already live
 in the internal layout (RCM-permuted, component-major, tile-padded), so the
 step pays no permutation at all; the gather engine works node-major.
 
-Host synchronisation: with ``max_newton=1`` and ``cg_fixed_iters`` set (the
-benchmark configuration) a step reads nothing back to the host, so the
-device runs ahead of Python for the whole step. The Newton test is then
-applied as a mask (a step whose first residual already meets the tolerance
-keeps its state). With ``max_newton > 1`` the loop reads the residual norm
-back once per iteration to decide whether to go on.
+Host synchronisation: the Newton loop (JAX's ``lax.while_loop`` over
+``(u, it, r, s, tg, h, cg_k)`` while ``||r|| > max(atol, rtol ||r0||)`` and
+``it < max_newton``), the adaptive CG and the Mises local Newton are
+``solver.compiled.device_while`` loops. Run eagerly each reads its
+predicate back once a trip; in a compiled step (``compile_step``) they are
+CUDA graph while nodes and the step reads nothing back. With
+``max_newton=1`` the Newton loop makes at most one trip (a step whose first
+residual already meets the tolerance keeps its state).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import numpy as np
 import torch
 
 from ..models.interfaces import IncrSmallStrainModel, flat_history_dim
-from ..ops.packed import DenseTangent, IsotropicTangent, build_packed_geometry
+from ..ops.packed import IsotropicTangent, build_packed_geometry
 from ..ops.structured import (
     build_lattice_geometry,
     build_structured_geometry,
@@ -49,6 +51,7 @@ from ..ops.windowed import (
     reverse_cuthill_mckee,
 )
 from . import linear
+from .compiled import device_while
 
 __all__ = [
     "WINDOWED_MIN_CELLS",
@@ -205,27 +208,6 @@ def build_packed_problem(
         t=torch.zeros((), dtype=dtype, device=device),
     )
     return geos, models, state
-
-
-def _select(cond: torch.Tensor, new, old):
-    """Elementwise choice between two step results of the same structure."""
-    if isinstance(new, torch.Tensor):
-        return torch.where(cond, new, old)
-    if isinstance(new, tuple):
-        return tuple(_select(cond, a, b) for a, b in zip(new, old))
-    if isinstance(new, dict):
-        return {k: _select(cond, new[k], old[k]) for k in new}
-    if isinstance(new, IsotropicTangent):
-        return IsotropicTangent(
-            *(_select(cond, getattr(new, f), getattr(old, f))
-              for f in ("kappa", "beta", "gamma", "n"))
-        )
-    if isinstance(new, DenseTangent):
-        return DenseTangent(torch.where(cond, new.C, old.C))
-    if new is None or isinstance(new, float):
-        return new
-    msg = f"cannot select between values of type {type(new).__name__}"
-    raise TypeError(msg)
 
 
 def _require_cuda(geo) -> None:
@@ -468,21 +450,25 @@ def make_packed_step(
         r, s, tg, h = evaluate(u)
         r0_norm = fnorm(r)
         thresh = torch.clamp(newton_rtol * r0_norm, min=newton_atol)
-        niter = torch.zeros((), dtype=torch.int32, device=geo.device)
-        cg_k = torch.zeros((), dtype=torch.int32)
-        synced = max_newton > 1
-        for _ in range(max_newton):
-            active = fnorm(r) > thresh
-            if synced and not bool(active):
-                break
+
+        # JAX's lax.while_loop over (u, it, r, s, tg, h, cg_k): a device
+        # loop under capture, one predicate read a Newton iteration eagerly
+        def cond(carry):
+            _, it, r, *_ = carry
+            return (fnorm(r) > thresh) & (it < max_newton)
+
+        def body(carry):
+            u, it, r, s, tg, h, _ = carry
             delta, cg_k = solve(tg, r, free)
             u_new = u - delta
-            new = (u_new, *evaluate(u_new))
-            if synced:
-                u, r, s, tg, h = new
-            else:
-                u, r, s, tg, h = _select(active, new, (u, r, s, tg, h))
-            niter = niter + active.to(torch.int32)
+            return (u_new, it + 1, *evaluate(u_new), cg_k)
+
+        zero = torch.zeros((), dtype=torch.int32, device=geo.device)
+        # the initial carry is handed over (its fresh tensors become the
+        # loop's static buffers); the body also reads the step's inputs
+        u, niter, r, s, _, h, cg_k = device_while(
+            cond, body, (u, zero, r, s, tg, h, zero.clone()),
+            reads=(state, u_prev_w, f_ext_w))
         new_state = PackedState(u=from_work(u), stress=s, histories=h, t=state.t + dt)
         stats = {
             "newton_iters": niter,
@@ -497,11 +483,6 @@ def make_packed_step(
         return run(models, state, prepare(bc_dofs), vals, f_ext, dt)
 
     syncs = []
-    if max_newton > 1:
-        syncs.append(f"max_newton={max_newton} reads the residual norm back once a Newton "
-                     "iteration")
-    if cg_fixed_iters is None:
-        syncs.append("adaptive CG (cg_fixed_iters=None) reads r.r back once an iteration")
     if any(getattr(g, "sharded", False) for g in geos):
         syncs.append("a sharded geometry all-reduces through the host (gloo)")
     step.prepare, step.run, step.device = prepare, run, geo.device

@@ -258,8 +258,8 @@ class PackedSimulation:
         self._newton_rtol = newton_rtol
         self._newton_atol = newton_atol
         self._max_subdivisions = max_subdivisions
-        # the counterpart of the JAX package's jax.jit(step): on the card a
-        # step without host syncs is captured in a CUDA graph and replayed
+        # the counterpart of the JAX package's jax.jit(step): on the card the
+        # step, its loops included, is captured in a CUDA graph and replayed
         self._step = compile_step(make_packed_step(
             geos,
             newton_rtol=newton_rtol,
@@ -274,10 +274,10 @@ class PackedSimulation:
             cg_fixed_iters=cg_fixed_iters,
             eval_impl=eval_impl,
         ), models=models)
-        #: True when each step replays one captured CUDA graph; False when it
-        #: runs eagerly: off the card, or where the step reads values back to
-        #: the host (``host_syncs``: max_newton > 1, adaptive CG, a sharded
-        #: geometry, a law with a ``host_sync``)
+        #: True when each step replays one captured CUDA graph (its Newton,
+        #: CG and local Newton loops as graph while nodes); False when it runs
+        #: eagerly: off the card, or where the step reads values back to the
+        #: host (``host_syncs``: a sharded geometry, a law with a ``host_sync``)
         self.captured = self._step.captured
         #: why the step is not captured (empty when it is, or could be)
         self.host_syncs = self._step.host_syncs
@@ -371,8 +371,8 @@ class PackedSimulation:
 
         Every step starts from the one before, converged or not (no
         substepping; use ``solve()`` for that). No value is read back until
-        the last step, so a configuration without host syncs
-        (``max_newton=1``, fixed CG) runs ahead of Python for the whole path.
+        the last step, so a captured step (``captured``) runs ahead of Python
+        for the whole path.
 
         Returns per-step numpy arrays ``newton_iters``, ``r_norm``,
         ``r0_norm``, ``cg_iters_last`` and ``converged`` (the residual

@@ -137,10 +137,19 @@ def print_line(line: dict) -> None:
 # -- the kernels' launch counters ---------------------------------------------------
 
 
+def settle() -> None:
+    """Count the launches of the replayed graphs' loop trips so far
+    (``solver.compiled.settle_counters``: one host read a loop)."""
+    from fenics_constitutive_tpu_torch.solver.compiled import settle_counters
+
+    settle_counters()
+
+
 def reset_counts() -> None:
     """Zero the K1-K3 counters (and K3's per entry)."""
     from fenics_constitutive_tpu_torch.ops import cuda_eval, cuda_matvec, cuda_smoother
 
+    settle()
     cuda_matvec.launches = cuda_eval.launches = cuda_smoother.launches = 0
     for key in cuda_smoother.entry_launches:
         cuda_smoother.entry_launches[key] = 0
@@ -150,6 +159,7 @@ def read_counts() -> dict:
     """K1-K3 launches since reset_counts(), and K3's per V-cycle entry."""
     from fenics_constitutive_tpu_torch.ops import cuda_eval, cuda_matvec, cuda_smoother
 
+    settle()
     return {"K1": cuda_matvec.launches, "K2": cuda_eval.launches, "K3": cuda_smoother.launches,
             **{f"K3_{kind}": cuda_smoother.entry_launches[kind] for kind in K3_ENTRIES}}
 
@@ -157,6 +167,7 @@ def read_counts() -> dict:
 def window_counts() -> dict:
     from fenics_constitutive_tpu_torch.ops import cuda_window
 
+    settle()
     return {"K4": cuda_window.launches["gather"], "K5": cuda_window.launches["scatter"],
             "K6": cuda_window.launches["bsr_matvec"]}
 

@@ -9,8 +9,9 @@ with bench.py's material, the x = 1 face pulled by 0.004. One Newton
 iteration from the zero state, CG to rtol 1e-5 (at most 250 iterations)
 preconditioned by the V-cycle on the refined P1 grid that shares the P2 dof
 lattice (65^3 nodes; build_multigrid's defaults) whose smoothing chains run
-as K3 on the card. The CG is adaptive, as in the JAX script: it reads its
-residual back to the host once an iteration.
+as K3 on the card. The CG is adaptive, as in the JAX script: on the card
+the step replays from one CUDA graph, its CG loop a graph while node that
+the device ends (``solver/compiled.py``).
 
 Timing: the protocol of ``common.py`` with one step a window, each from the
 zero state at the load 0.004 (1 + 1e-4 j): untimed first steps until two
@@ -55,10 +56,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def p2_step(V, bcs, q: int, device, dtype):
-    """(geometry, run(j) -> stats): one Newton iteration from the zero state
-    at the load 0.004 (1 + 1e-4 j), preconditioned by the refined-P1 V-cycle
-    with its K3 chains."""
+def p2_problem(V, bcs, q: int, device, dtype) -> dict:
+    """The twin's step (one Newton iteration, adaptive CG, the refined-P1
+    V-cycle with its K3 chains; compiled, so replayed from one CUDA graph on
+    the card, its CG a graph while node), its models, the zero state, the
+    step's arguments and the lattice geometry."""
     from fenics_constitutive_tpu_torch.models import Constraint, VonMises3D
     from fenics_constitutive_tpu_torch.ops import LatticeGeometry
     from fenics_constitutive_tpu_torch.solver import build_packed_problem
@@ -71,17 +73,25 @@ def p2_step(V, bcs, q: int, device, dtype):
     geo1, _ = refined_p1_geometry(V, Constraint.FULL, device=device, dtype=dtype)
     mg = build_multigrid(geo1, common.MU, common.KAPPA, torch.as_tensor(common.free_mask(V, bcs)),
                          device=device, dtype=dtype, fused_smoothing=True)
-    # adaptive CG reads its residual back: the compiled step stays eager
     step = common.compiled_step(geos, newton_rtol=0.0, newton_atol=0.0, max_newton=1,
                                 preconditioner=mg, **CG)
-    bc_dofs, bc_vals, f_ext, dt = common.step_args(bcs, V.ndofs, dtype, device)
+    return {"step": step, "models": models, "state": state0, "geo": geos[0],
+            "args": common.step_args(bcs, V.ndofs, dtype, device)}
+
+
+def p2_step(V, bcs, q: int, device, dtype):
+    """(geometry, run(j) -> stats): one Newton iteration of ``p2_problem``
+    from the zero state at the load 0.004 (1 + 1e-4 j)."""
+    p = p2_problem(V, bcs, q, device, dtype)
+    step, models, state0 = p["step"], p["models"], p["state"]
+    bc_dofs, bc_vals, f_ext, dt = p["args"]
 
     def run(j):
         return step(models, state0, bc_dofs, bc_vals * (1 + 1e-4 * j), f_ext, dt)[1]
 
     run.captured = step.captured
 
-    return geos[0], run
+    return p["geo"], run
 
 
 def measure(argv=None) -> dict:
@@ -114,7 +124,7 @@ def measure(argv=None) -> dict:
     ratio = r_norm / r_ref
     line = {"metric": METRIC, "value": timing["value"], "unit": "ms", "n_qp": int(geo.N),
             "ndofs": V.ndofs, "q_degree": q,
-            "cg": "adaptive: rtol 1e-5, at most 250 iterations, one host read-back each",
+            "cg": "adaptive: rtol 1e-5, at most 250 iterations",
             "captured": run.captured,
             "cg_iters": [int(s["cg_iters_last"]) for s in rows],
             "r_rel": [float(s["r_norm"]) / max(float(s["r0_norm"]), 1e-300) for s in rows],

@@ -5,13 +5,16 @@ and the gather engine with the AMG on that mesh.
 
 No CUDA graph exists on the CPU: the static-buffer path (copy in, the step
 under ``no_host_sync()``, clone out) runs eagerly, and ``HostRecorder``
-stands in for the graph where a test needs a replay (it reruns the captured
-call on the same static buffers into the same output tensors, as a replay
-does, and launches nothing the counters see). Every comparison with the
-plain step is bit for bit: the two run the same operations, the Mises local
-Newton without its early exit keeps each stopped lane's value. The schedule
-is held to JAX's ``lax.scan`` with the tolerances of the existing schedule
-parity tests (test_torch_simulation.py).
+stands in for the graph where a test needs a replay: it records the same
+program of segments and while nodes as the card's recorder, and a replay
+reruns the captured call on the same static buffers into the same output
+tensors, each ``device_while`` replayed from its static carry, predicate
+buffer and trip counter, launching nothing the counters see. Every
+comparison with the plain step is bit for bit: the two run the same
+operations and the same loop trips (counter loops of 0, 1 and 37 trips,
+flat and nested; converged Newton with adaptive CG on four engines; the
+Mises local Newton). The schedule is held to JAX's ``lax.scan`` with the
+tolerances of the existing schedule parity tests (test_torch_simulation.py).
 """
 
 from types import SimpleNamespace
@@ -45,6 +48,7 @@ from fenics_constitutive_tpu_torch.solver.compiled import (
     HostSyncError,
     _map,
     _set_counters,
+    device_while,
     host_reads_allowed,
     no_host_sync,
     read_counters,
@@ -58,25 +62,56 @@ LOADS = (0.5, 1.0, 1.5, 2.0)
 SLS = {"E0": 42000.0, "E1": 10000.0, "tau": 2.0, "nu": 0.3}
 
 
-class HostRecorder:
-    """Stands in for ``CudaGraphRecorder`` on the CPU: a replay reruns the
-    captured call on the same static buffers and writes the same output
-    tensors, and leaves the launch counters as a replay does (it calls no
-    wrapper)."""
-
-    def __init__(self, device):
-        self.device = device
+class HostRecorder(compiled.GraphRecorder):
+    """Stands in for ``CudaGraphRecorder`` on the CPU. Its capture records
+    the program as the card's does (segments cut at each loop, the loops'
+    static carries, predicate buffers, trip counters and per-segment launch
+    counts); a replay reruns the captured call with every ``device_while``
+    replayed as a while node replays: the carry copied into the recorded
+    static buffers, the recorded predicate buffer read before each trip, the
+    recorded body run on the buffers and copied back, the trip counter
+    advanced. It writes the same output tensors and leaves the launch
+    counters as a replay does (the recorded counts are added, the loops'
+    per trip when the counters are settled)."""
 
     def capture(self, fn):
         self.fn = fn
-        self.out = fn()
+        self.out = super().capture(fn)
         return self.out
 
-    def replay(self):
-        before = read_counters()
-        new = self.fn()
+    def launch(self):
+        before = compiled._raw_counters()
+        prev, compiled._recording = compiled._recording, _Replayer(self.program)
+        try:
+            new = self.fn()
+        finally:
+            compiled._recording = prev
         _set_counters(before)
         _map(lambda dst, src: dst.copy_(src), self.out, new)
+
+
+class _Replayer:
+    """``device_while`` during a stand-in replay: the i-th loop a program
+    reaches is its i-th recorded while node."""
+
+    def __init__(self, program):
+        self.cursors = [self.loops(program)]
+
+    @staticmethod
+    def loops(program):
+        return iter([item[1] for item in program if item[0] == "while"])
+
+    def loop(self, cond, body, carry, reads=None):
+        node = next(self.cursors[-1])
+        compiled._copy_into(node.static, carry)
+        node.pred.copy_(cond(node.static))
+        while compiled._BOOL(node.pred):
+            self.cursors.append(self.loops(node.body))
+            compiled._copy_into(node.static, body(node.static))
+            node.pred.copy_(cond(node.static))
+            node.trips.add_(1)
+            self.cursors.pop()
+        return node.static
 
 
 def raw(step):
@@ -104,8 +139,31 @@ def configs():
                    spmv="ell", device=CPU, dtype=F64)
     out["gather"] = (lambda: raw(amg_bench.step_of(g, am, 3)), m, st,
                      common.step_args(s["bcs"], V.ndofs, F64, CPU))
+    # the same problems at converged Newton and adaptive CG (device loops),
+    # each preconditioner apply counted by COUNTED (once a CG trip)
+    for name, gs, pc in (("box", geos, mg), ("kuhn", b["geos"], b["mg"]),
+                         ("windowed", s["geos"], s["pc"]), ("gather", g, am)):
+        def make(gs=gs, pc=pc):
+            return make_packed_step(gs, preconditioner=counted(pc), **CONVERGED)
+
+        out[f"{name} converged"] = (make, *out[name][1:])
     assert {k: v[0]().host_syncs for k, v in out.items()} == dict.fromkeys(out, ())
     return out
+
+
+#: converged Newton and adaptive CG, tight enough for several trips of each
+CONVERGED = dict(max_newton=25, newton_rtol=1e-9, newton_atol=1e-12, cg_rtol=1e-8,
+                 cg_maxiter=400)
+#: a launch counter that the tests' preconditioner applies advance
+COUNTED = SimpleNamespace(launches=0)
+
+
+def counted(pc):
+    def apply(r):
+        COUNTED.launches += 1
+        return pc(r)
+
+    return apply
 
 
 def trees_equal(a, b) -> bool:
@@ -144,19 +202,22 @@ def test_capturable_body_reads_nothing_back(configs, config):
 
 
 def test_capture_refuses_what_reads_back(configs):
-    geos = configs["box"][0]().host_syncs  # the box is capturable
-    assert geos == ()
-    g, models, state, _ = common.bench_setup(4, F64, CPU)[:4]
-    for opts, match in ((dict(max_newton=2, cg_fixed_iters=9), "max_newton=2"),
-                        (dict(max_newton=1), "adaptive CG")):
+    """Converged Newton and adaptive CG are device loops now: only a law with
+    a ``host_sync`` (and a sharded geometry, below) is refused."""
+    assert configs["box"][0]().host_syncs == ()
+    g, models, state = common.bench_setup(4, F64, CPU)[:3]
+    for opts in (dict(max_newton=2, cg_fixed_iters=9), dict(max_newton=1), {}):
         step = make_packed_step(g, **opts)
-        with pytest.raises(ValueError, match=match):
-            compile_step(step, capture=True)
-        assert not compile_step(step).captured
+        assert step.host_syncs == ()
+        assert compile_step(step, capture=True).static
+        assert not compile_step(step).captured  # no graph off the card
     step = make_packed_step(g, max_newton=1, cg_fixed_iters=9)
+    dp = DruckerPrager3D({"mu": 1.0, "kappa": 1.0, "a": 0.1, "b": 0.1, "b_flow": 0.1})
     with pytest.raises(ValueError, match="DruckerPrager3D"):
-        compile_step(step, capture=True, models=(DruckerPrager3D(
-            {"mu": 1.0, "kappa": 1.0, "a": 0.1, "b": 0.1, "b_flow": 0.1}),))
+        compile_step(step, capture=True, models=(dp,))
+    comp = compile_step(step, recorder=HostRecorder)
+    with pytest.raises(ValueError, match="DruckerPrager3D"):
+        comp((dp,), state, *common.step_args(common.box(4)[1], g[0].ndofs, F64, CPU))
 
 
 def test_capture_refuses_a_sharded_geometry(tmp_path):
@@ -254,16 +315,23 @@ def test_schedule_matches_jax_scan_with_a_law_that_reads_dt(box, monkeypatch):
 # -- (e) the Mises local Newton -------------------------------------------------------
 
 
-@pytest.mark.parametrize("form", ["packed", "aos"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_mises_without_early_exit_is_bit_equal(form, dtype):
-    law = VonMises3D(common.MAT)
-    rng = np.random.default_rng(4)
-    n = 512
+def mises_inputs(dtype, n=512, seed=4):
+    rng = np.random.default_rng(seed)
     eps = torch.as_tensor(rng.normal(size=(6, n)) * 4e-3, dtype=dtype)
     stress = torch.as_tensor(rng.normal(size=(6, n)) * 300.0, dtype=dtype)
     hist = {"eps_n": torch.zeros((6, n), dtype=dtype),
             "alpha": torch.as_tensor(rng.uniform(0, 2e-3, size=(1, n)), dtype=dtype)}
+    return eps, stress, hist
+
+
+@pytest.mark.parametrize("form", ["packed", "aos"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mises_without_early_exit_is_bit_equal(form, dtype):
+    """The Mises local Newton as a while node (the stand-in's capture and
+    replays) against the eager loop, bit for bit: the same trips over the
+    static buffers."""
+    law = VonMises3D(common.MAT)
+    eps, stress, hist = mises_inputs(dtype)
     if form == "packed":
         def run():
             return law.evaluate_packed(0.0, 1.0, eps, stress, hist)
@@ -276,14 +344,16 @@ def test_mises_without_early_exit_is_bit_equal(form, dtype):
         def run():
             return law.evaluate(0.0, 1.0, grad, stress.T.contiguous(), aos)
     early = run()
+    rec = HostRecorder(CPU)
     with no_host_sync():
-        full = run()
-    flags = []
-    _map(lambda a, b: flags.append(torch.equal(a, b)),
-         (early[0], early[2]), (full[0], full[2]))
-    tg = (early[1].beta, early[1].gamma, early[1].n) if form == "packed" else (early[1],)
-    tf = (full[1].beta, full[1].gamma, full[1].n) if form == "packed" else (full[1],)
-    assert all(flags) and all(torch.equal(a, b) for a, b in zip(tg, tf))
+        rec.capture(run)
+    assert len(rec.loops) == 1
+    for _ in range(2):
+        rec.replay()
+        assert trees_equal(early, rec.out)
+    compiled.settle_counters()
+    trips = int(rec.loops[0].trips)
+    assert 2 < trips <= 2 * (law.newton_max_iter + 1)
     alpha = early[2]["alpha"]
     assert float((alpha > hist["alpha"].reshape(alpha.shape)).double().mean()) > 0.2
 
@@ -325,14 +395,21 @@ def test_a_failed_attempt_leaves_the_committed_state(box, mat, monkeypatch):
 
 
 def test_simulation_runs_eagerly_off_the_card_and_where_it_reads_back(box, mat):
+    """Off the card every PackedSimulation runs eagerly; on it, the defaults
+    (converged Newton, adaptive CG) are capturable (no host sync), and a
+    Drucker-Prager law names its host loop."""
     V, bcs = box(3)["torch"]
     fixed = PackedSimulation(VonMises3D(mat), V, bcs, 2, max_newton=1, cg_fixed_iters=5,
                              device="cpu", dtype=F64)
     conv = PackedSimulation(VonMises3D(mat), V, bcs, 2, device="cpu", dtype=F64)
+    dp = PackedSimulation(DruckerPrager3D({"mu": 1.0, "kappa": 1.0, "a": 0.1, "b": 0.1,
+                                           "b_flow": 0.1}), V, bcs, 2, device="cpu", dtype=F64)
     assert not fixed.captured and fixed.host_syncs == ()
-    assert not conv.captured and "max_newton=25" in conv.host_syncs[0]
+    assert not conv.captured and conv.host_syncs == ()
+    assert not dp.captured and "DruckerPrager3D" in dp.host_syncs[0]
     fixed.solve()
-    assert fixed.last_stats["captured"] is False
+    conv.solve()
+    assert fixed.last_stats["captured"] is False and conv.last_stats["captured"] is False
 
 
 # -- (g) launch bookkeeping ----------------------------------------------------------
@@ -359,3 +436,98 @@ def test_captured_counts_are_added_at_each_replay(configs, monkeypatch):
     # the warm-up counted once, the capture taken back, each replay added
     assert (comp.captures, comp.replays) == (1, 3)
     assert stub.launches == 3 * len(LOADS) and stub.per_entry == {"a": len(LOADS)}
+
+
+# -- (h) the loops the device decides (device_while) -------------------------------
+
+
+@pytest.mark.parametrize("trips", [0, 1, 37])
+@pytest.mark.parametrize("nested", [False, True], ids=["flat", "nested"])
+def test_counter_loop_replays_n_trips(trips, nested, monkeypatch):
+    """A counter loop recorded once with its trip count in a tensor replays
+    exactly N trips (a nested loop of 3 trips in each), from the static
+    buffers, with the launch counts of each segment times its trips."""
+    stub = SimpleNamespace(launches=0)
+    monkeypatch.setattr(compiled, "LAUNCH_COUNTERS", [*compiled.LAUNCH_COUNTERS,
+                                                      (stub, "launches")])
+    i64 = torch.int64
+    n = torch.zeros((), dtype=i64)
+
+    def body(carry):
+        i, acc = carry
+        stub.launches += 1
+        if nested:
+            def inner(c):
+                stub.launches += 10
+                return c[0] + 1, c[1] + 1.0
+
+            acc = device_while(lambda c: c[0] < 3, inner, (torch.zeros_like(i), acc))[1]
+        else:
+            acc = acc + 1.0
+        return i + 1, acc
+
+    def fn():
+        return device_while(lambda c: c[0] < n, body, (torch.zeros((), dtype=i64),
+                                                        torch.zeros((), dtype=F64)))
+
+    rec = HostRecorder(CPU)
+    rec.capture(fn)
+    assert len(rec.loops) == (2 if nested else 1)
+    for _ in range(2):  # the trips accumulate; each replay adds its own
+        stub.launches = 0
+        n.fill_(trips)
+        rec.replay()
+        read_counters()
+        per_trip = 31 if nested else 1
+        assert (int(rec.out[0]), float(rec.out[1])) == (trips, trips * (3.0 if nested else 1.0))
+        assert stub.launches == per_trip * trips
+    n.fill_(trips)
+    eager = fn()  # the same loop eagerly
+    assert (int(eager[0]), float(eager[1])) == (int(rec.out[0]), float(rec.out[1]))
+
+
+def test_device_while_refuses_a_changed_carry_and_a_host_read():
+    def grow(c):
+        return (torch.cat([c[0], c[0]]),)
+
+    with pytest.raises(ValueError, match="structure"):
+        HostRecorder(CPU).capture(lambda: device_while(lambda c: c[0].sum() < 8, grow,
+                                                       (torch.ones(2),)))
+
+    def reads(c):
+        float(c[0])
+        return (c[0] + 1,)
+
+    with no_host_sync(), pytest.raises(HostSyncError):
+        HostRecorder(CPU).capture(lambda: device_while(lambda c: c[0] < 3, reads,
+                                                       (torch.zeros(()),)))
+
+
+@pytest.mark.parametrize("config", ["box", "kuhn", "windowed", "gather"])
+def test_converged_steps_replay_bit_equal(configs, config, monkeypatch):
+    """Converged Newton with adaptive CG (and the Mises local Newton) through
+    the stand-in's capture and replays, against the plain step: bit-equal
+    states and stats over four loads, and the preconditioner's count (one a
+    CG trip, in a loop nested in a Newton trip) equal to eager's."""
+    monkeypatch.setattr(compiled, "LAUNCH_COUNTERS", [*compiled.LAUNCH_COUNTERS,
+                                                      (COUNTED, "launches")])
+    make, models, state, (bc_dofs, bc_vals, f_ext, dt) = configs[f"{config} converged"]
+    plain = make()
+    comp = compile_step(make(), recorder=HostRecorder)
+    sp = sc = state
+    newton = []
+    for k in LOADS:
+        read_counters()
+        COUNTED.launches = 0
+        sp, stp = plain(models, sp, bc_dofs, bc_vals * k, f_ext, dt)
+        want = COUNTED.launches
+        COUNTED.launches = 0
+        sc, stc = comp(models, sc, bc_dofs, bc_vals * k, f_ext, dt)
+        read_counters()
+        assert trees_equal(sp, sc) and trees_equal(stp, stc)
+        assert COUNTED.launches == want
+        newton.append((int(stc["newton_iters"]), int(stc["cg_iters_last"])))
+    assert (comp.captures, comp.replays) == (1, len(LOADS) - 1)
+    assert max(n for n, _ in newton) >= 2 and max(k for _, k in newton) > 1
+    rec = next(iter(comp._entries.values())).recorder
+    assert len(rec.loops) >= 4  # Newton, CG in it, the local Newton before and in it

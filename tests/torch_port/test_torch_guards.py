@@ -124,7 +124,8 @@ def test_bench_twins_write_no_file(path):
 def test_kernel_sources_present():
     csrc = PKG / "csrc"
     names = {p.name for p in csrc.glob("*.cu")}
-    assert names == {"matvec.cu", "eval.cu", "window.cu", "smoother.cu"}
+    # K1-K6, and the while nodes' set-conditional kernel (no TPU kernel's)
+    assert names == {"matvec.cu", "eval.cu", "window.cu", "smoother.cu", "graph_loop.cu"}
     for p in csrc.glob("*.cu"):
         assert "Replaces" in p.read_text()[:2000], p.name
 
@@ -282,3 +283,22 @@ def test_fused_and_multi_law_builds_never_call_nvcc(box, mat, monkeypatch, case)
         assert sim.solve()[1]
     assert cuda_smoother.launches == 0
     assert not _cuda_build.build_log
+
+
+@pytest.mark.parametrize("module", ["", ".ops"], ids=["top", "ops"])
+def test_package_re_exports_match_jax(module):
+    """Every name the JAX package's top level and ``ops`` export (their
+    ``__all__``) is exported by the port's, and resolves there."""
+    jax_mod = importlib.import_module(f"fenics_constitutive_tpu{module}")
+    port = importlib.import_module(f"fenics_constitutive_tpu_torch{module}")
+    assert set(jax_mod.__all__) <= set(port.__all__)
+    for name in jax_mod.__all__:
+        assert getattr(port, name) is not None, name
+    if module:
+        from fenics_constitutive_tpu_torch.ops import get_identity, mandel
+
+        assert get_identity is mandel.get_identity
+    else:
+        from fenics_constitutive_tpu_torch import VonMises3D, models
+
+        assert VonMises3D is models.VonMises3D
