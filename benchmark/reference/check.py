@@ -1,0 +1,106 @@
+"""The comparison that decides ``correct``: the program's answers against the
+plain reference, recomputed from the benchmark's own inputs.
+
+The reference follows the load path from the zero state: for each step it
+takes the displacement the program returned (the answer being judged),
+forms the strain increment from the step before, runs its own return map
+from its own state, and assembles its own internal force. It never reads a
+stress or history value of the program except to judge it. Numbers:
+
+- ``bc_gap``: the largest gap between a Dirichlet dof of a returned
+  displacement and its prescribed value, over that value (the program sets
+  them exactly).
+- ``newton_residual``: the largest ratio over the steps of the free dofs'
+  residual norm at the returned displacement to that at the step's start
+  (the step before's displacement with the new Dirichlet values), both
+  worked out by the reference: the measure Newton's relative tolerance
+  bounds.
+- ``state_gap``: at the last step judged, the largest gap over all points
+  and components between the program's stress and the reference's, over the
+  reference's largest stress component, and the same for each history field
+  over the larger of its largest value and the law's strain scale.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import numpy as np
+import torch
+
+from .fem import Geometry
+
+
+def _close(x: np.ndarray, v: float) -> np.ndarray:
+    return np.isclose(x, v)
+
+
+def stretch_x(nodes: np.ndarray):
+    """The unit cube pulled along x: x = 0 fixed in x, x = 1 moved by the
+    load in x, y = 0 fixed in y, z = 0 fixed in z. Returns (dofs, weights):
+    a dof's prescribed value is its weight times the load."""
+    groups = [(_close(nodes[:, 0], 0.0), 0, 0.0), (_close(nodes[:, 0], 1.0), 0, 1.0),
+              (_close(nodes[:, 1], 0.0), 1, 0.0), (_close(nodes[:, 2], 0.0), 2, 0.0)]
+    dofs = np.concatenate([3 * np.nonzero(m)[0] + c for m, c, _ in groups])
+    weights = np.concatenate([np.full(int(m.sum()), w) for m, _, w in groups])
+    # a dof in two groups keeps the later one's value (as the BCs combine)
+    _, last = np.unique(dofs[::-1], return_index=True)
+    keep = np.sort(len(dofs) - 1 - last)
+    return dofs[keep], weights[keep]
+
+
+BOUNDARIES = {"stretch_x": stretch_x}
+
+
+def law_module(name: str):
+    return importlib.import_module(f"{__package__}.{name.lower()}")
+
+
+def judge(mesh: dict, law: dict, boundary: str, steps: list, last: dict, device) -> dict:
+    """The numbers compared. ``mesh``: nodes, cells, cell_type; ``law``: name
+    and params; ``steps``: [(load, u)] from the zero state, u node-major
+    [3 n_nodes]; ``last``: the program's ``stress`` [C, Q, 6] and history
+    fields [C, Q, h] after the last of them."""
+    ref = law_module(law["name"])
+    params = law["params"]
+    geo = Geometry(mesh["nodes"], mesh["cells"], mesh["cell_type"], device)
+    C, Q = geo.cells.shape[0], geo.Q
+    dofs_np, weights_np = BOUNDARIES[boundary](mesh["nodes"])
+    dofs = torch.as_tensor(dofs_np, device=device)
+    weights = torch.as_tensor(weights_np, dtype=torch.float64, device=device)
+    free = torch.ones(3 * geo.n_nodes, dtype=torch.bool, device=device)
+    free[dofs] = False
+    state = ref.zero_state(C * Q, device)
+    eps_prev = torch.zeros((C * Q, 6), dtype=torch.float64, device=device)
+    u_prev = torch.zeros(3 * geo.n_nodes, dtype=torch.float64, device=device)
+
+    def residual(u):
+        """(free residual norm, the state) at u from the step before's state."""
+        eps = geo.strain(u).reshape(C * Q, 6)
+        new = ref.update(params, eps - eps_prev, state)
+        f = geo.internal_force(new["stress"].reshape(C, Q, 6))
+        return float(torch.linalg.vector_norm(f[free])), new, eps
+
+    bc_gap = newton = 0.0
+    for load, u in steps:
+        u = torch.as_tensor(u, dtype=torch.float64, device=device)
+        target = load * weights
+        bc_gap = max(bc_gap, float((u[dofs] - target).abs().max()) / abs(load))
+        u0 = u_prev.clone()
+        u0[dofs] = target
+        r0 = residual(u0)[0]
+        r, state, eps_prev = residual(u)
+        newton = max(newton, r / r0)
+        u_prev = u
+
+    def gap(prog, mine, floor):
+        prog = torch.as_tensor(prog, dtype=torch.float64, device=device)
+        mine = mine.reshape(C, Q, -1)
+        scale = max(float(mine.abs().max()), floor)
+        diff = float((prog - mine).abs().max())
+        return diff / scale if scale > 0 else (0.0 if diff == 0 else float("inf"))
+
+    scale = ref.strain_scale(params)
+    state_gap = max([gap(last["stress"], state["stress"], 0.0)]
+                    + [gap(last[name], state[name], scale) for name in ref.HISTORY])
+    return {"bc_gap": bc_gap, "newton_residual": newton, "state_gap": state_gap}

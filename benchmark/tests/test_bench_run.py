@@ -1,0 +1,107 @@
+"""Runs of every cell on the CPU at a 4^3 mesh (the kernels' plain
+versions): the reference agrees with the port, the control and every fault
+the cells can have come out not correct, and the command's last line has
+the contract's keys."""
+
+import dataclasses
+import json
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from benchmark import harness
+from benchmark.tests.test_bench_files import CELLS
+
+N = 4
+SECONDS = 0.5
+CONFIGS = sorted({c.rsplit(".", 1)[0] + ".plastic" for c in CELLS})
+
+
+def cpu_run(cell, seed=2**31 + 7, **kw):
+    return harness.run(cell, seed, SECONDS, False, device="cpu", n=N, **kw)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_reference_agrees_with_the_port(cell):
+    line = cpu_run(cell)
+    assert line["correct"], line["compared"]
+    assert line["failed"] == 0 and line["attempted"] >= 8
+
+
+@pytest.mark.parametrize("cell", CONFIGS)
+def test_the_control_fails(cell):
+    line = cpu_run(cell, control=True)
+    assert not line["correct"], line["compared"]
+
+
+def unchanged_state(prog):
+    """The step returns the state it was given (with its real stats)."""
+    step = prog.sim._step
+
+    def stale(models, state, *args):
+        return state, step(models, state, *args)[1]
+
+    prog.sim._step = stale
+
+
+def half_left_out(prog):
+    """Half the points keep their old stress and history: the eval skips them."""
+    law = prog.sim._models[0]
+    evaluate = law.evaluate_packed
+
+    def half(t, dt, eps, stress, history):
+        s, tg, h = evaluate(t, dt, eps, stress, history)
+        s = s.clone()
+        s[..., ::2] = stress[..., ::2]
+        h = {k: v.clone() for k, v in h.items()}
+        for k in h:
+            h[k][..., ::2] = history[k][..., ::2]
+        return s, tg, h
+
+    law.evaluate_packed = half
+
+
+def stress_altered(prog):
+    """One stress component of one point is moved by 1e-6 of the largest."""
+    step = prog.sim._step
+
+    def altered(models, state, *args):
+        new, stats = step(models, state, *args)
+        s = new.stress[0].clone()
+        flat = s.reshape(-1)
+        flat[7] += 1e-6 * float(s.abs().max())
+        return dataclasses.replace(new, stress=(s,)), stats
+
+    prog.sim._step = altered
+
+
+@pytest.mark.parametrize("cell", CONFIGS)
+@pytest.mark.parametrize("fault", [unchanged_state, half_left_out, stress_altered],
+                         ids=lambda f: f.__name__)
+def test_a_broken_step_is_not_correct(cell, fault):
+    line = cpu_run(cell, fault=fault)
+    assert not line["correct"], line["compared"]
+
+
+def test_the_last_line():
+    cmd = [sys.executable, str(harness.HERE / "run.py"), "--workload", CELLS[0], "--seed",
+           str(2**31 + 99), "--seconds", str(SECONDS), "--trace", "0", "--device", "cpu",
+           "--cells-per-edge", str(N)]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=harness.ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    assert list(line) == ["correct", "attempted", "failed", "metrics", "device", "compared"]
+    assert line["correct"] is True
+    assert set(line["metrics"]) == {"step_ms", "step_ms_p95", "peak_gib", "setup_s"}
+    assert out.stderr.strip().splitlines()[-1].startswith("compared ")
+
+
+def test_no_card_no_result():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    cmd = [sys.executable, str(harness.HERE / "run.py"), "--workload", CELLS[0], "--seed", "1",
+           "--seconds", "1", "--trace", "0"]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=harness.ROOT)
+    assert out.returncode != 0 and not out.stdout.strip()
