@@ -343,8 +343,8 @@ JSON line.
 instead profiles 3 steps each of the bench workload with the unfused and
 the fused V-cycle, the general-tet bench, phase 16's Kuhn box (fused and
 eager), phase 17's gather engine and phase 27's paths (a)-(c), each
-replayed from its CUDA graph and eagerly (torch.profiler: device time per step, busy share, device ops per
-step, the costliest kernels), and prints no JSON.
+replayed from its CUDA graph and eagerly (torch.profiler: device ops per step,
+the costliest kernels), and prints no JSON.
 
     python3 chip_smoke.py --newton-forms
 
@@ -513,11 +513,14 @@ def host_us(fn, iters: int = 500) -> float:
 
 def device_events(prof) -> list:
     """The device-side rows of a profile (kernels, copies): the aten rows
-    that launched them carry the same device time again."""
+    that launched them carry the same device time again, and so do the
+    device rows of the port's profiler scopes (user annotations), which span
+    the kernels launched inside them."""
     from torch.autograd import DeviceType
 
     return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
 
 
 #: profiles that torch.profiler delivered empty or short, and the measures
@@ -1551,10 +1554,8 @@ def phase_multilaw(tet: dict) -> dict:
     evs = profiled(next_step, 1)
     dev = "not measured (three empty profiles)"
     if evs is not None:
-        dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
         top = sorted(evs, key=lambda e: -e.self_device_time_total)[:4]
-        dev = (f"{dev_ms:.1f} ms on the card in {sum(e.count for e in evs)} device ops (busy "
-               f"{dev_ms / step4_ms:.1%} of the step alone); top: " + "; ".join(
+        dev = (f"{sum(e.count for e in evs)} device ops; top: " + "; ".join(
                    f"{short_name(e.key)} x{e.count} {e.self_device_time_total / 1e3:.1f} ms"
                    for e in top))
     if not conv4:
@@ -3834,7 +3835,7 @@ def loop_self_test() -> str:
             i, acc = carry
             if nested:
                 acc = device_while(lambda c: c[0] < 3, lambda c: (c[0] + 1, c[1] + 1.0),
-                                   (torch.zeros_like(i), acc))[1]
+                                   (torch.zeros_like(i), acc), name="inner")[1]
             else:
                 acc = acc + 1.0
             return i + 1, acc
@@ -3842,7 +3843,7 @@ def loop_self_test() -> str:
         def fn(body=body):
             zero = torch.zeros((), dtype=i64, device=CARD)
             return device_while(lambda c: c[0] < n, body,
-                                (zero, torch.zeros((), dtype=f64, device=CARD)))
+                                (zero, torch.zeros((), dtype=f64, device=CARD)), name="outer")
 
         rec = CudaGraphRecorder(CARD)
         out = rec.capture(fn)
@@ -4133,9 +4134,9 @@ def profile_steps(label: str, run, K: int) -> None:
 
 
 def profile_run(label: str, run, K: int) -> None:
-    """torch.profiler over run(), which takes K load steps: device time per
-    step against the same call's CUDA-event ms/step (unprofiled), device ops
-    per step and the costliest kernels."""
+    """torch.profiler over run(), which takes K load steps: the same call's
+    CUDA-event ms/step (unprofiled), device ops per step and the costliest
+    kernels."""
     run()  # warm
     torch.cuda.synchronize()
     ev0 = torch.cuda.Event(enable_timing=True)
@@ -4148,11 +4149,10 @@ def profile_run(label: str, run, K: int) -> None:
     evs = profiled(run, 1)
     if evs is None:
         fail(f"profile {label}: torch.profiler delivered no device event in three profiles")
-    dev_ms = sum(e.self_device_time_total for e in evs) / 1e3 / K
     launches = sum(e.count for e in evs) / K
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"profile {label}: {ms_step:.3f} ms/step (CUDA events), device time {dev_ms:.3f} "
-          f"ms/step (busy {dev_ms / ms_step:.1%}), {launches:.0f} device ops/step; top: "
+    print(f"profile {label}: {ms_step:.3f} ms/step (CUDA events), "
+          f"{launches:.0f} device ops/step; top: "
           + "; ".join(f"{short_name(e.key)} x{e.count // K} "
                       f"{e.self_device_time_total / 1e3 / K:.3f} ms" for e in top))
 

@@ -114,7 +114,7 @@ class VonMises3D(IncrSmallStrainModel):
         one = torch.ones_like(sigtrn)
         it0 = torch.zeros((), dtype=torch.int32, device=sigtrn.device)
         _, gamma, _, _ = device_while(cond, body, (one, torch.zeros_like(sigtrn), one, it0),
-                                      reads=())
+                                      reads=(), name="law.trip")
         gamma = torch.where(plastic, gamma, torch.zeros_like(gamma))
 
         xg = df(gamma)

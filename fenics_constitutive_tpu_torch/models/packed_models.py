@@ -66,12 +66,12 @@ def newton_controls(model, dtype: torch.dtype) -> tuple[float, float, int]:
     return model.newton_tol, max(model.newton_rtol, 8.0 * eps), max_it
 
 
-def device_while(cond, body, carry, *, reads=None):
+def device_while(cond, body, carry, *, name, reads=None):
     """``solver.compiled.device_while`` (imported at the call: the solver
     package imports the models)."""
     from ..solver.compiled import device_while as loop
 
-    return loop(cond, body, carry, reads=reads)
+    return loop(cond, body, carry, reads=reads, name=name)
 
 
 def _vonmises_evaluate_packed(self, t, dt, eps, stress, history):
@@ -134,7 +134,7 @@ def _vonmises_evaluate_packed(self, t, dt, eps, stress, history):
 
     it0 = torch.zeros((), dtype=torch.int32, device=sigtrn.device)
     g, _, _ = device_while(cond, body, (torch.zeros_like(sigtrn), plastic & (1.0 > tol_abs),
-                                        it0), reads=())
+                                        it0), reads=(), name="law.trip")
     gamma = torch.where(plastic, g, torch.zeros_like(g))
 
     xg = fdf(gamma)[1]

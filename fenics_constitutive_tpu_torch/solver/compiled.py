@@ -64,6 +64,13 @@ counters back and adds each loop's counts per trip times its new trips. So
 a counter reads the same after K replays as after K eager steps, at the
 price of one host read when it is read, never one a replay.
 
+Scopes. A call names its host parts with ``utils.timers.timing``:
+``step.key`` (the capture's key), ``step.copy_in``, ``step.capture`` (the
+first call of a key: warm-up and capture) or ``step.replay``, and
+``step.clone_out``. Inside the step the scopes are ``utils.timers.scope``
+(``device_while(..., name=...)`` names each trip): a capture runs their
+Python once, so they show per trip only in a profiled eager run.
+
 On the CPU the step runs eagerly (``capture=None``, the default). With
 ``capture=True`` it runs the static-buffer path without a graph (copy in,
 the step under ``no_host_sync()``, clone out), which the tests hold to the
@@ -83,6 +90,8 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+
+from ..utils.timers import scope, timing
 
 __all__ = [
     "LAUNCH_COUNTERS",
@@ -187,7 +196,7 @@ def host_reads_allowed() -> bool:
     return _guarded == 0
 
 
-def device_while(cond, body, carry, *, reads=None):
+def device_while(cond, body, carry, *, name, reads=None):
     """The counterpart of ``jax.lax.while_loop(cond, body, carry)``.
 
     ``cond(carry)`` returns a 0-d bool tensor on the carry's device;
@@ -202,12 +211,17 @@ def device_while(cond, body, carry, *, reads=None):
     Given them, the caller hands the initial carry over to the loop: under
     capture a tensor of it that owns its whole storage, appears once in the
     carry and shares no storage with ``reads`` becomes its static buffer
-    itself, where by default (None) every tensor is cloned into one."""
+    itself, where by default (None) every tensor is cloned into one.
+
+    ``name``: eagerly, each trip's body runs in ``utils.timers.scope(name)``
+    (a profiler scope per trip while a profiler runs). A capture records no
+    scope for the trips: a replay runs no Python per trip."""
     rec = _recording
     if rec is not None:
         return rec.loop(cond, body, carry, reads)
     while _BOOL(cond(carry)):
-        carry = body(carry)
+        with scope(name):
+            carry = body(carry)
     return carry
 
 
@@ -596,18 +610,22 @@ class CompiledStep:
     def __call__(self, models, state, bc_dofs, bc_vals, f_ext, dt):
         if not self.static or _disabled:
             return self.step(models, state, bc_dofs, bc_vals, f_ext, dt)
-        entry = self._entry(models, state, bc_dofs, bc_vals, f_ext)
-        entry.copy_in(state, bc_vals, f_ext, dt)
+        with timing("step.key"):
+            entry = self._entry(models, state, bc_dofs, bc_vals, f_ext)
+        with timing("step.copy_in"):
+            entry.copy_in(state, bc_vals, f_ext, dt)
         if self._recorder is None:
             with no_host_sync():
                 out = entry.body()
         elif entry.recorder is None:
             out = self._record(entry)
         else:
-            entry.recorder.replay()
+            with timing("step.replay"):
+                entry.recorder.replay()
             self.replays += 1
             out = entry.out
-        return _clone(out)
+        with timing("step.clone_out"):
+            return _clone(out)
 
     def _bc_key(self, bc_dofs) -> bytes:
         """The Dirichlet dofs as host bytes. A device tensor is read once per
@@ -641,20 +659,21 @@ class CompiledStep:
     def _record(self, entry: _Entry):
         """The warm-up call (its launches counted, its result the call's),
         then the capture (whose counts are taken back and kept for replays)."""
-        with no_host_sync():
-            out = entry.body()
-        before = _raw_counters()
-        recorder = self._recorder(self.device)
-        try:
+        with timing("step.capture"):
             with no_host_sync():
-                entry.out = recorder.capture(entry.body)
-        except HostSyncError:
-            raise
-        except RuntimeError as err:
-            msg = f"capturing the step in a CUDA graph failed: {err}"
-            raise RuntimeError(msg) from err
-        finally:
-            _set_counters(before)
+                out = entry.body()
+            before = _raw_counters()
+            recorder = self._recorder(self.device)
+            try:
+                with no_host_sync():
+                    entry.out = recorder.capture(entry.body)
+            except HostSyncError:
+                raise
+            except RuntimeError as err:
+                msg = f"capturing the step in a CUDA graph failed: {err}"
+                raise RuntimeError(msg) from err
+            finally:
+                _set_counters(before)
         entry.recorder = recorder
         self.captures += 1
         return out

@@ -6,6 +6,8 @@ from typing import Callable
 
 import torch
 
+from ..utils.timers import scope
+
 __all__ = ["cg_solve"]
 
 
@@ -44,60 +46,69 @@ def cg_solve(
             predicate back once an iteration; inside a captured step it is a
             CUDA graph while node, and the host reads nothing.
 
+    Profiler scopes (``utils.timers.scope``): the whole call is ``cg.solve``,
+    each iteration ``cg.iter``, each ``matvec`` call ``cg.operator`` and each
+    ``precond`` call ``cg.precond`` (the one before the loop too).
+
     Returns:
         (x, n_iterations) with n_iterations an int32 tensor on b's device.
     """
     from .compiled import device_while
 
-    if dot is None and reduce_dtype is not None:
-        def dot(a, c):
-            return torch.dot(a.to(reduce_dtype), c.to(reduce_dtype))
-    elif dot is None:
-        dot = torch.dot
-    n = b.shape[0]
-    maxiter = maxiter if maxiter is not None else 10 * n
-    if precond is None:
-        if diag is None:
-            def precond(r):
-                return r
-        else:
-            inv_diag = torch.where(diag != 0.0, 1.0 / diag, torch.ones_like(diag))
+    with scope("cg.solve"):
+        if dot is None and reduce_dtype is not None:
+            def dot(a, c):
+                return torch.dot(a.to(reduce_dtype), c.to(reduce_dtype))
+        elif dot is None:
+            dot = torch.dot
+        n = b.shape[0]
+        maxiter = maxiter if maxiter is not None else 10 * n
+        if precond is None:
+            if diag is None:
+                def precond(r):
+                    return r
+            else:
+                inv_diag = torch.where(diag != 0.0, 1.0 / diag, torch.ones_like(diag))
 
-            def precond(r):
-                return r * inv_diag
+                def precond(r):
+                    return r * inv_diag
 
-    wdtype = b.dtype
+        wdtype = b.dtype
 
-    def safe(d):
-        return torch.where(d != 0.0, d, torch.ones_like(d))
+        def safe(d):
+            return torch.where(d != 0.0, d, torch.ones_like(d))
 
-    def body(carry):
-        x, r, p, rz, k = carry
-        q = matvec(p)
-        alpha = (rz / safe(dot(p, q))).to(wdtype)
-        x = x + alpha * p
-        r_new = r - alpha * q
-        z = precond(r_new)
-        rz_new = dot(r_new, z)
-        num = dot(z, r_new - r) if flexible else rz_new
-        beta = (num / safe(rz)).to(wdtype)
-        p = z + beta * p
-        return x, r_new, p, rz_new, None if k is None else k + 1
+        def body(carry):
+            x, r, p, rz, k = carry
+            with scope("cg.operator"):
+                q = matvec(p)
+            alpha = (rz / safe(dot(p, q))).to(wdtype)
+            x = x + alpha * p
+            r_new = r - alpha * q
+            with scope("cg.precond"):
+                z = precond(r_new)
+            rz_new = dot(r_new, z)
+            num = dot(z, r_new - r) if flexible else rz_new
+            beta = (num / safe(rz)).to(wdtype)
+            p = z + beta * p
+            return x, r_new, p, rz_new, None if k is None else k + 1
 
-    z = precond(b)
-    carry = (torch.zeros_like(b), b, z, dot(b, z))
-    if fixed_iters is not None:
-        for _ in range(fixed_iters):
-            carry = body((*carry, None))[:4]
-        return carry[0], torch.full((), fixed_iters, dtype=torch.int32, device=b.device)
-    carry = (*carry, torch.zeros((), dtype=torch.int32, device=b.device))
+        with scope("cg.precond"):
+            z = precond(b)
+        carry = (torch.zeros_like(b), b, z, dot(b, z))
+        if fixed_iters is not None:
+            for _ in range(fixed_iters):
+                with scope("cg.iter"):
+                    carry = body((*carry, None))[:4]
+            return carry[0], torch.full((), fixed_iters, dtype=torch.int32, device=b.device)
+        carry = (*carry, torch.zeros((), dtype=torch.int32, device=b.device))
 
-    # JAX's tol2 = max(rtol^2 (b.b), atol^2), on the device in the dot's type
-    tol2 = torch.clamp((rtol * rtol) * dot(b, b), min=atol * atol)
+        # JAX's tol2 = max(rtol^2 (b.b), atol^2), on the device in the dot's type
+        tol2 = torch.clamp((rtol * rtol) * dot(b, b), min=atol * atol)
 
-    def cond(carry):
-        _, r, _, _, k = carry
-        return (dot(r, r) > tol2) & (k < maxiter)
+        def cond(carry):
+            _, r, _, _, k = carry
+            return (dot(r, r) > tol2) & (k < maxiter)
 
-    x, _, _, _, k = device_while(cond, body, carry, reads=(b,))
-    return x, k
+        x, _, _, _, k = device_while(cond, body, carry, reads=(b,), name="cg.iter")
+        return x, k

@@ -50,6 +50,7 @@ from ..ops.windowed import (
     build_windowed_geometry,
     reverse_cuthill_mckee,
 )
+from ..utils.timers import scope
 from . import linear
 from .compiled import device_while
 
@@ -372,20 +373,25 @@ def make_packed_step(
         return r, s_new, tg, h_new
 
     def eval_assemble(models, u_w, u_prev_w, stresses, hists, t, f_ext_w, dt):
-        """Per-law strain -> evaluate -> residual, summed with -f_ext."""
-        du = u_w - u_prev_w
-        r, ss, tgs, hh = None, [], [], []
-        for model, (strain, residual, _, _), sig0, h0 in zip(models, ops, stresses, hists):
-            if eval_impl == "kernel":
-                rl, s_new, tg, h_new = eval_kernel(model, du, sig0, h0)
-            else:
-                s_new, tg, h_new = model.evaluate_packed(t, dt, strain(du), sig0, h0)
-                rl = residual(s_new)
-            r = rl if r is None else r + rl
-            ss.append(s_new)
-            tgs.append(tg)
-            hh.append(h_new)
-        return r - f_ext_w, tuple(ss), tuple(tgs), tuple(hh)
+        """Per-law strain -> evaluate -> residual, summed with -f_ext (the
+        scope ``newton.assemble``; each law's update is ``law.eval``)."""
+        with scope("newton.assemble"):
+            du = u_w - u_prev_w
+            r, ss, tgs, hh = None, [], [], []
+            for model, (strain, residual, _, _), sig0, h0 in zip(models, ops, stresses, hists):
+                if eval_impl == "kernel":
+                    with scope("law.eval"):
+                        rl, s_new, tg, h_new = eval_kernel(model, du, sig0, h0)
+                else:
+                    eps = strain(du)
+                    with scope("law.eval"):
+                        s_new, tg, h_new = model.evaluate_packed(t, dt, eps, sig0, h0)
+                    rl = residual(s_new)
+                r = rl if r is None else r + rl
+                ss.append(s_new)
+                tgs.append(tg)
+                hh.append(h_new)
+            return r - f_ext_w, tuple(ss), tuple(tgs), tuple(hh)
 
     def solve(tgs, r_w, free):
         zero = r_w.new_zeros(())
@@ -468,7 +474,7 @@ def make_packed_step(
         # loop's static buffers); the body also reads the step's inputs
         u, niter, r, s, _, h, cg_k = device_while(
             cond, body, (u, zero, r, s, tg, h, zero.clone()),
-            reads=(state, u_prev_w, f_ext_w))
+            reads=(state, u_prev_w, f_ext_w), name="newton.iter")
         new_state = PackedState(u=from_work(u), stress=s, histories=h, t=state.t + dt)
         stats = {
             "newton_iters": niter,

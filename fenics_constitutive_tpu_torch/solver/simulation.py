@@ -36,6 +36,7 @@ from ..ops.cuda_matvec import build_cuda_matvec, hot_path_geometry
 from ..ops.structured import build_structured_geometry, build_structured_tet_geometry
 from ..ops.windowed import WindowedGeometry
 from ..utils.checkpoint import restore_like
+from ..utils.timers import timed, timing
 from .amg import build_amg
 from .compiled import compile_step
 from .multigrid import build_multigrid, build_p2_node_preconditioner, refined_p1_geometry
@@ -297,23 +298,27 @@ class PackedSimulation:
     def _converged(self, r_norm, r0_norm):
         return r_norm <= np.maximum(self._newton_atol, self._newton_rtol * r0_norm)
 
+    def _inputs(self, bc_vals, f_ext) -> tuple[torch.Tensor, torch.Tensor]:
+        """The step's BC values (a tensor of the state's dtype and device)
+        and its external load (in the engine's layout)."""
+        vals = torch.as_tensor(bc_vals, dtype=self.state.u.dtype, device=self.device)
+        return vals, self._to_engine(f_ext)
+
     def _attempt(self, bc_dofs, bc_vals, f_ext, dt) -> tuple[int, bool]:
-        """One step from the committed state; commits it if it converged to a
-        finite state. Returns (niter, ok)."""
-        new_state, stats = self._step(
-            self._models, self.state, bc_dofs,
-            torch.as_tensor(bc_vals, dtype=self.state.u.dtype, device=self.device),
-            self._to_engine(f_ext), dt,
-        )
-        self.last_stats = {k: v.item() for k, v in stats.items()}
-        self.last_stats["captured"] = self.captured
-        r_norm = self.last_stats["r_norm"]
-        ok = bool(self._converged(r_norm, self.last_stats["r0_norm"]))
-        ok = ok and bool(np.isfinite(r_norm)) and bool(torch.isfinite(new_state.u).all())
-        if ok:
-            self.state = new_state
+        """One step from the committed state on ``_inputs``; commits it if it
+        converged to a finite state. Returns (niter, ok)."""
+        new_state, stats = self._step(self._models, self.state, bc_dofs, bc_vals, f_ext, dt)
+        with timing("solve.read_back"):
+            self.last_stats = {k: v.item() for k, v in stats.items()}
+            self.last_stats["captured"] = self.captured
+            r_norm = self.last_stats["r_norm"]
+            ok = bool(self._converged(r_norm, self.last_stats["r0_norm"]))
+            ok = ok and bool(np.isfinite(r_norm)) and bool(torch.isfinite(new_state.u).all())
+            if ok:
+                self.state = new_state
         return int(self.last_stats["newton_iters"]), ok
 
+    @timed("solve")
     def solve(self) -> tuple[int, bool]:
         """One load/time step: solve and commit. Returns (niter, converged).
 
@@ -323,11 +328,17 @@ class PackedSimulation:
         2^k substeps whose BC values and external load ramp linearly from
         the committed state's and whose dt is ``del_t / n``; niter is then
         the sum over the substeps.
+
+        Profiler scopes (``utils.timers.timing``): the call is ``solve``;
+        the Dirichlet set and the uploads ``solve.inputs``; the read-backs,
+        the finiteness check and the commit ``solve.read_back``.
         """
-        bc_dofs_np, bc_vals = combine_bcs(self.bcs)
-        bc_dofs = torch.as_tensor(bc_dofs_np, dtype=torch.int64, device=self.device)
-        f_ext = self._load(self.f_ext)
-        niter, ok = self._attempt(bc_dofs, bc_vals, f_ext, self.del_t)
+        with timing("solve.inputs"):
+            bc_dofs_np, bc_vals = combine_bcs(self.bcs)
+            bc_dofs = torch.as_tensor(bc_dofs_np, dtype=torch.int64, device=self.device)
+            f_ext = self._load(self.f_ext)
+            inputs = self._inputs(bc_vals, f_ext)
+        niter, ok = self._attempt(bc_dofs, *inputs, self.del_t)
         if ok or self._max_subdivisions == 0:
             if ok:
                 self._f_ext_committed = f_ext
@@ -344,10 +355,10 @@ class PackedSimulation:
             total = 0
             for k in range(1, n_sub + 1):
                 frac = k / n_sub
-                niter, ok = self._attempt(
-                    bc_dofs, start_vals + frac * (bc_vals - start_vals),
-                    f_start + frac * (f_ext - f_start), self.del_t / n_sub,
-                )
+                with timing("solve.inputs"):
+                    inputs = self._inputs(start_vals + frac * (bc_vals - start_vals),
+                                          f_start + frac * (f_ext - f_start))
+                niter, ok = self._attempt(bc_dofs, *inputs, self.del_t / n_sub)
                 total += niter
                 if not ok:
                     break
@@ -357,6 +368,7 @@ class PackedSimulation:
         self.state = state0
         return niter, False
 
+    @timed("solve")
     def solve_schedule(self, bc_values, dts=None, f_ext_scales=None) -> dict:
         """Run a whole load path and commit its final state.
 
@@ -377,6 +389,9 @@ class PackedSimulation:
         Returns per-step numpy arrays ``newton_iters``, ``r_norm``,
         ``r0_norm``, ``cg_iters_last`` and ``converged`` (the residual
         tolerance of ``solve()``, and a finite residual).
+
+        Profiler scopes as in ``solve()``: ``solve`` for the call,
+        ``solve.read_back`` for the read-backs and the commit.
         """
         if callable(bc_values):
             if dts is None:
@@ -416,14 +431,16 @@ class PackedSimulation:
                 self._models, st, bc_dofs, vals[i], self._to_engine(loads[i]), dts[i]
             )
             rows.append(stats)
-        self.state = st
-        self._f_ext_committed = loads[-1]
-        out = {k: torch.stack([r[k].reshape(()).cpu() for r in rows]).numpy() for k in rows[0]}
-        out["converged"] = self._converged(out["r_norm"], out["r0_norm"]) & np.isfinite(
-            out["r_norm"]
-        )
-        self.last_stats = {k: v[-1] for k, v in out.items()}
-        self.last_stats["captured"] = self.captured
+        with timing("solve.read_back"):
+            self.state = st
+            self._f_ext_committed = loads[-1]
+            out = {k: torch.stack([r[k].reshape(()).cpu() for r in rows]).numpy()
+                   for k in rows[0]}
+            out["converged"] = self._converged(out["r_norm"], out["r0_norm"]) & np.isfinite(
+                out["r_norm"]
+            )
+            self.last_stats = {k: v[-1] for k, v in out.items()}
+            self.last_stats["captured"] = self.captured
         return out
 
     # -- checkpoints ----------------------------------------------------------------

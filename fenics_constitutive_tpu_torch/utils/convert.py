@@ -16,10 +16,13 @@ module imports nothing of the JAX package).
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
 import torch
 
-from ..solver.packed_step import PackedState
+if TYPE_CHECKING:
+    from ..solver.packed_step import PackedState
 
 __all__ = ["model_from_jax", "params_from_numpy", "state_from_numpy"]
 
@@ -30,6 +33,7 @@ def state_from_numpy(u, stress, histories, t, *, device, dtype: torch.dtype) -> 
     ``stress`` and ``histories`` are per-law sequences (arrays, and dicts of
     arrays or None), as in the JAX state; every leaf is copied.
     """
+    from ..solver.packed_step import PackedState  # the solver imports utils.timers
 
     def leaf(x):
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)

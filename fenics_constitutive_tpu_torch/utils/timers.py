@@ -1,11 +1,19 @@
-"""Named timers with profiler scopes.
+"""Named profiler scopes, and timers with a registry.
 
-``timing("name")`` records wall-clock seconds in a global registry and opens
-a ``torch.profiler.record_function`` scope, so the span shows in
-``torch.profiler`` traces. Wall time around CUDA work measures the launches,
-not the device time, unless the device is synchronised: ``timed(name,
-block=True)`` synchronises the device of the result's tensors before the
-clock stops.
+``scope("name")`` opens a ``torch.profiler.record_function`` scope while a
+profiler runs and does nothing otherwise: without a profiler it costs one
+check of the profiler's state. The port names its layers with it inside the
+step (``newton.iter``, ``cg.solve``, ``law.eval``, ...): code that a CUDA
+graph captures runs its Python once per capture, not once per replay, so a
+count or a clock kept on the host there would be wrong under replay. Such
+spans are read from a profiled eager run (``disable_capture()``), where every
+trip runs its Python.
+
+``timing("name")`` is the same scope around host code, and also adds the
+call's wall-clock seconds to a global registry (``get_timings()``). Wall time
+around CUDA work measures the launches, not the device time, unless the
+device is synchronised: ``timed(name, block=True)`` synchronises the device
+of the result's tensors before the clock stops.
 """
 
 from __future__ import annotations
@@ -17,15 +25,26 @@ import time
 
 import torch
 
-__all__ = ["get_timings", "reset_timings", "timed", "timing"]
+__all__ = ["get_timings", "reset_timings", "scope", "timed", "timing"]
 
 _REGISTRY: dict[str, list] = collections.defaultdict(lambda: [0, 0.0])
+_NULL = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def scope(name: str):
+    """A ``record_function`` scope named ``name`` while a profiler is active;
+    otherwise a context that does nothing. Keeps no count and no clock."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NULL
 
 
 @contextlib.contextmanager
 def timing(name: str):
-    """Context manager: a profiler scope and a wall-clock registry entry."""
-    with torch.profiler.record_function(name):
+    """Context manager: a profiler scope (``scope``) and a wall-clock
+    registry entry."""
+    with scope(name):
         t0 = time.perf_counter()
         try:
             yield

@@ -461,14 +461,16 @@ def test_counter_loop_replays_n_trips(trips, nested, monkeypatch):
                 stub.launches += 10
                 return c[0] + 1, c[1] + 1.0
 
-            acc = device_while(lambda c: c[0] < 3, inner, (torch.zeros_like(i), acc))[1]
+            acc = device_while(lambda c: c[0] < 3, inner, (torch.zeros_like(i), acc),
+                               name="inner")[1]
         else:
             acc = acc + 1.0
         return i + 1, acc
 
     def fn():
         return device_while(lambda c: c[0] < n, body, (torch.zeros((), dtype=i64),
-                                                        torch.zeros((), dtype=F64)))
+                                                        torch.zeros((), dtype=F64)),
+                            name="outer")
 
     rec = HostRecorder(CPU)
     rec.capture(fn)
@@ -492,7 +494,7 @@ def test_device_while_refuses_a_changed_carry_and_a_host_read():
 
     with pytest.raises(ValueError, match="structure"):
         HostRecorder(CPU).capture(lambda: device_while(lambda c: c[0].sum() < 8, grow,
-                                                       (torch.ones(2),)))
+                                                       (torch.ones(2),), name="grow"))
 
     def reads(c):
         float(c[0])
@@ -500,7 +502,7 @@ def test_device_while_refuses_a_changed_carry_and_a_host_read():
 
     with no_host_sync(), pytest.raises(HostSyncError):
         HostRecorder(CPU).capture(lambda: device_while(lambda c: c[0] < 3, reads,
-                                                       (torch.zeros(()),)))
+                                                       (torch.zeros(()),), name="reads"))
 
 
 @pytest.mark.parametrize("config", ["box", "kuhn", "windowed", "gather"])

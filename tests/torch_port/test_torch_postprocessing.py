@@ -34,6 +34,7 @@ from fenics_constitutive_tpu_torch.utils import (
     load_state_dict,
     reset_timings,
     save_checkpoint,
+    scope,
     state_dict,
     timed,
     timing,
@@ -148,7 +149,14 @@ def test_sensor_distorted_quad():
         DisplacementSensor(V, [[1.5, 0.5]])
 
 
-def test_timers():
+def test_timers(monkeypatch):
+    """The registry counts and clocks ``timing``/``timed``; without a
+    profiler neither they nor ``scope`` enter ``record_function``."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function entered without a profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
     reset_timings()
 
     @timed("unit-test-scope")
@@ -164,11 +172,32 @@ def test_timers():
     g(torch.ones(3))
     with timing("manual"):
         time.sleep(0.01)
+    with scope("no-registry"):
+        pass
     t = get_timings()
     assert t["unit-test-scope"][0] == 3 and t["blocking-scope"][0] == 1
     assert t["manual"][1] >= 0.01
+    assert "no-registry" not in t
     reset_timings()
     assert get_timings() == {}
+
+
+def test_scopes_under_a_profiler():
+    """Under torch.profiler ``scope`` and ``timing`` open named scopes,
+    nested as written; ``scope`` adds nothing to the registry."""
+    from torch.profiler import ProfilerActivity, profile
+
+    reset_timings()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with timing("outer"):
+            for _ in range(2):
+                with scope("inner"):
+                    torch.ones(4).sum()
+    events = [e for e in prof.events() if e.name in ("outer", "inner")]
+    assert sorted(e.name for e in events) == ["inner", "inner", "outer"]
+    assert all(e.cpu_parent.name == "outer" for e in events if e.name == "inner")
+    assert set(get_timings()) == {"outer"}
+    reset_timings()
 
 
 @pytest.mark.parametrize("engine", ["packed", "aos"])
