@@ -52,6 +52,20 @@ padded quadrature points):
      across two launches; each call's time (CUDA events, back to back), its
      kernel's time on the card (torch.profiler) and the library call's, and
      the host's part of one K4 call beside the indexing call's.
+  7b. K7 (the affine tet operator's cell part: gather, strain, factored
+     tangent, divergence) then K5 against the plain middle then the plain
+     scatter on the same plan, float64 (within 1e-14) and float32 (1e-6),
+     normwise, for a plastic, an elastic and a uniform tangent and the
+     plastic one in other dtypes and layouts (which K7 converts; the plain
+     ops take its entries in the working dtype, as K7 reads them); two
+     launches bit-equal, WindowedGeometry.matvec launching K7 once; K7's
+     time on the card beside the plain middle's, K5's and its bound, and
+     K5's own time right after K7, after the plain middle and after an L2
+     flush. Then one converged plastic step of PackedSimulation (f64
+     defaults) eager with K7, eager with the plain operator and replayed:
+     the replay bit-equal to eager K7 with one K7 launch per operator
+     apply, the plain operator taking the same Newton trips and applies
+     within one a trip, u and stress within 1e-10 of the K7 step's.
   8. K6 (BSR SpMV on the plan's row layout) against its plain version on
      every A, P and R level of the mesh's AMG hierarchy (the one
      scripts/torch_bench/unstructured.py builds: 512 tile rows): float32 with
@@ -189,6 +203,7 @@ Degree 2, and the 2D boxes (every P2 mesh the JAX package accepts):
      float32; K4 and K5 against their twins on the P2 plan, K6 on every AMG
      operator; phase 9's protocol (fixed-3 PCG held to fixed-9 and fixed-18
      within 1.02x) with ms/step and the set-up split; 2 converged steps.
+     The P2 cells keep the plain operator middle: K7 never launches.
 
 The reference-parity path (IncrSmallStrainProblem, make_load_step, the AoS
 assembly, norms, sensors, checkpoints and the native-model bridge):
@@ -441,6 +456,16 @@ TOL_F32_K2 = 1e-4
 # (atomics on the card): a node sums at most ~24 rows, so the difference is a
 # few ulps of the largest partial sum.
 TOL_K5 = {torch.float64: 1e-13, torch.float32: 1e-6}
+# K7 then K5 against the plain operator's middle then the plain scatter: a
+# cell's 4 x 3 gradient terms, 6 tangent terms and Q weighted points summed
+# in another order (and with FMA), then K5's node sums in the plan's order.
+TOL_K7 = {torch.float64: 1e-14, torch.float32: 1e-6}
+# One converged f64 plastic step (phase 7b) with K7 against the same step
+# with the plain operator: the two operators differ by rounding (TOL_K7) and
+# take the same Newton trips and CG counts, so the displacement and stress
+# they return differ by rounding carried through CG, far below the step's
+# own Newton tolerance (rtol 1e-8).
+TOL_K7_STEP = 1e-10
 # K6 sums k slots of br x bc products per row (R_0: 101 x 3) with FMA in
 # another order than the plain version; both round x to bf16 alike when
 # select_passes = 1, so the tolerance is that of the float sum either way.
@@ -588,6 +613,24 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, floor_ms: float = 0.0) -> fl
         PROFILER_MISSES["fallbacks"] += 1
         return gated_ms(fn, iters)
     return ms
+
+
+def ms_after(prep, fn, iters: int = 20) -> float:
+    """Median device time in ms of fn(prep()) alone, right after prep() on
+    the card: CUDA events around fn only, every launch queued behind a sleep
+    kernel so that the card runs them back to back."""
+    fn(prep())
+    torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    torch.cuda._sleep(int(2e9 * 0.1))  # ~0.1 s at ~2 GHz, longer than the queueing
+    for e0, e1 in marks:
+        x = prep()
+        e0.record()
+        fn(x)
+        e1.record()
+    torch.cuda.synchronize()
+    return float(np.median([e0.elapsed_time(e1) for e0, e1 in marks]))
 
 
 # -- phases ----------------------------------------------------------------------
@@ -1130,6 +1173,195 @@ def phase_k4_k5(results: dict, tet: dict) -> None:
     print("phase 7 K4/K5 vs plain on the 35^3 tet plan: " + "; ".join(line))
 
 
+def k7_cost(geo, itemsize: int, fields: bool = True) -> tuple[float, float]:
+    """(bytes, flops) of one K7 call on ``geo``: u [3, M_pad] and the plan's
+    loc read once, dN [4, 3, C_pad] and w [N], with a field tangent beta,
+    gamma [N] and n [6, N], read once, the rows [B, 3, Rn] written once; per
+    slot the gradient and divergence (2 x 36 multiply-adds), the strains and
+    T^T (9 operations), ~30 operations a QP for the tangent and weight."""
+    ex = geo.ex
+    slots, N = ex.C_pad, geo.N
+    values = 3 * ex.M_pad + 12 * slots + N + (8 * N if fields else 0) + 12 * slots
+    nbytes = values * itemsize + ex.loc.numel() * ex.loc.element_size()
+    return nbytes, slots * (144.0 + 9.0 + 30.0 * geo.n_qp)
+
+
+def k7_tangents(geo, seed: int) -> dict:
+    """The tangent forms the tet cells hand K7: a plastic Mises tangent (half
+    the points plastic, n a unit deviator there), the elastic one (gamma and
+    n zero fields), and a uniform tangent (a host beta, a 0-d device gamma,
+    n of 6 values: zero strides); and the plastic one in other layouts, which
+    K7 converts (kappa a 0-d device tensor, beta of the other float dtype,
+    gamma a 0-d value expanded to [N], n a non-contiguous [6, N])."""
+    from fenics_constitutive_tpu_torch.ops import IsotropicTangent
+
+    rng = np.random.default_rng(seed)
+    N = geo.N
+
+    def dev(x):
+        return torch.as_tensor(x, dtype=geo.dtype, device=geo.device)
+
+    plastic = rng.random(N) < 0.5
+    n = rng.normal(size=(6, N))
+    n[:3] -= n[:3].mean(axis=0)
+    n *= plastic / np.linalg.norm(n, axis=0)
+    n_u = rng.normal(size=(6, 1))
+    n_u[:3] -= n_u[:3].mean()
+    beta = dev(2 * MU * (1 - 0.3 * plastic * rng.random(N)))
+    other = torch.float32 if geo.dtype == torch.float64 else torch.float64
+    return {
+        "plastic": IsotropicTangent(KAPPA, beta, dev(-2 * MU * plastic * rng.random(N)), dev(n)),
+        "elastic": IsotropicTangent(KAPPA, dev(np.full(N, 2 * MU)), dev(np.zeros(N)),
+                                    dev(np.zeros((6, N)))),
+        "uniform": IsotropicTangent(KAPPA, 1.8 * MU, dev(-0.7 * MU),
+                                    dev(n_u / np.linalg.norm(n_u))),
+        "views": IsotropicTangent(dev(KAPPA), beta.to(other), dev(-0.5 * MU).expand(N),
+                                  dev(n.T.copy()).T),
+    }
+
+
+def k7_as_read(tg, dtype):
+    """The tangent as K7 reads it: each tensor entry in the working dtype.
+    The plain ops on a float32 field beside float64 strains would keep some
+    of its terms in float32 (kappa - beta / 3 with a 0-d kappa stays in the
+    field's dtype), which K7 does not."""
+    from fenics_constitutive_tpu_torch.ops import IsotropicTangent
+
+    return IsotropicTangent(*(x.to(dtype) if isinstance(x, torch.Tensor) else x
+                              for x in (tg.kappa, tg.beta, tg.gamma, tg.n)))
+
+
+def k7_simulation_step(V, bcs) -> str:
+    """One converged plastic step of PackedSimulation (f64 at its defaults,
+    the windowed engine with its AMG) from the same state three ways: eager
+    with K7, eager with the plain operator, and replayed from the CUDA graph
+    with K7. The replay equals the eager K7 step bit for bit, with as many K7
+    launches as that step made operator applies; the plain operator takes
+    the same Newton trips, and applies within one per trip of K7's."""
+    from fenics_constitutive_tpu_torch.models import VonMises3D
+    from fenics_constitutive_tpu_torch.ops import cuda_window
+    from fenics_constitutive_tpu_torch.solver import PackedSimulation
+    from fenics_constitutive_tpu_torch.solver.compiled import disable_capture
+
+    sim = PackedSimulation(VonMises3D(MAT), V, bcs, 2, dtype=torch.float64, device=CARD,
+                           engine="windowed")
+    for k in (1, 2):  # past yield; the first solve captures the step
+        bcs[1].value = 0.004 * k
+        sim.solve()
+    start = sim.state_dict()
+    bcs[1].value = 0.012
+    geo = sim._geos[0]
+
+    def run(label, eager=True, plain=False):
+        sim.load_state_dict(start)
+        settle()
+        before = cuda_window.launches["cell_apply"]
+        applies = []
+        if plain:
+            ref = geo.cell_apply_ref
+            geo.cell_apply_ref = lambda u2, tg: applies.append(1) or ref(u2, tg)
+            pick, cuda_window.cell_apply_form = cuda_window.cell_apply_form, lambda *a: False
+        try:
+            with disable_capture() if eager else contextlib.nullcontext():
+                niter, converged = sim.solve()
+        finally:
+            if plain:
+                del geo.cell_apply_ref
+                cuda_window.cell_apply_form = pick
+        settle()
+        if not converged:
+            fail(f"phase 7b: the {label} step did not converge: {sim.last_stats}")
+        return {"niter": niter, "cg_last": int(sim.last_stats["cg_iters_last"]),
+                "applies": len(applies) if plain else cuda_window.launches["cell_apply"] - before,
+                "u": sim.state.u.clone(), "stress": sim.state.stress[0].clone()}
+
+    eager, plain, replay = run("eager K7"), run("plain", plain=True), run("replayed", eager=False)
+    same = torch.equal(replay["u"], eager["u"]) and torch.equal(replay["stress"], eager["stress"])
+    if not same or [replay[k] for k in ("niter", "cg_last", "applies")] != [
+            eager[k] for k in ("niter", "cg_last", "applies")]:
+        fail(f"phase 7b: the replayed K7 step differs from the eager one: "
+             f"{ {k: v for k, v in replay.items() if k not in ('u', 'stress')} } against "
+             f"{ {k: v for k, v in eager.items() if k not in ('u', 'stress')} }")
+    if plain["niter"] != eager["niter"] or abs(plain["applies"] - eager["applies"]) > eager["niter"]:
+        fail(f"phase 7b: K7 took {eager['niter']} Newton trips and {eager['applies']} applies, "
+             f"the plain operator {plain['niter']} and {plain['applies']}")
+    u_rel = normwise(eager["u"], plain["u"])[1]
+    s_rel = normwise(eager["stress"], plain["stress"])[1]
+    if not max(u_rel, s_rel) <= TOL_K7_STEP:
+        fail(f"phase 7b: the K7 step left the plain operator's: u rel {u_rel:.3e}, stress rel "
+             f"{s_rel:.3e} > {TOL_K7_STEP:g}")
+    return (f"one plastic step (f64 defaults): Newton {eager['niter']} / {plain['niter']} "
+            f"(K7 / plain), CG last {eager['cg_last']} / {plain['cg_last']}, applies "
+            f"{eager['applies']} / {plain['applies']}; the replay bit-equal to eager K7 with "
+            f"{replay['applies']} K7 launches; u rel {u_rel:.2e}, stress rel {s_rel:.2e} "
+            f"(tol {TOL_K7_STEP:g})")
+
+
+def phase_k7(results: dict, tet: dict) -> None:
+    """K7 (the tet operator's cell part) then K5 against the plain middle then
+    scatter_plain on the 35^3 plan, f64 and f32, for each tangent form; two
+    launches bit-equal; WindowedGeometry.matvec takes K7 once a call; the
+    kernel's time beside the plain middle and its bound; then one converged
+    simulation step (k7_simulation_step)."""
+    from fenics_constitutive_tpu_torch.ops import cuda_window
+
+    geo32 = tet["geos"][0]
+    geo64 = copy.deepcopy(geo32).to(torch.float64)
+    line = []
+    for geo in (geo64, geo32):
+        dtype, ex = geo.dtype, geo.ex
+        rng = np.random.default_rng(9)
+        u2 = torch.as_tensor(rng.normal(size=(3, ex.M_pad)), dtype=dtype, device=CARD)
+        errs = []
+        for form, tg in k7_tangents(geo, 11).items():
+            if not cuda_window.cell_apply_form(geo, tg):
+                fail(f"phase 7b: the {form} tangent ({dtype}) does not take K7")
+            f1 = cuda_window.windowed_cell_apply(geo, u2, tg)
+            f2 = cuda_window.windowed_cell_apply(geo, u2, tg)
+            f_p = cuda_window.cell_apply_plain(geo, u2, k7_as_read(tg, dtype))
+            y_k = cuda_window.windowed_scatter(ex, f1)
+            y_p = cuda_window.scatter_plain(ex, f_p)
+            before = cuda_window.launches["cell_apply"]
+            y_m = geo.matvec(u2.reshape(-1), tg)
+            torch.cuda.synchronize()
+            if cuda_window.launches["cell_apply"] - before != 1:
+                fail(f"phase 7b: WindowedGeometry.matvec did not launch K7 once ({form})")
+            if not torch.equal(f1, f2) or not torch.equal(y_m, y_k.reshape(-1)):
+                fail(f"phase 7b: K7 {dtype} {form} differs between two launches or from matvec")
+            err, rel = normwise(y_k, y_p)
+            errs.append(f"{form} rel {rel:.2e} (rows {normwise(f1, f_p)[1]:.2e})")
+            if not np.isfinite(rel) or rel > TOL_K7[dtype]:
+                fail(f"phase 7b: K7 {dtype} {form} disagrees with its plain version: rel "
+                     f"{rel:.3e} > {TOL_K7[dtype]:g}")
+        tg = k7_tangents(geo, 12)["plastic"]
+        nbytes, flops = k7_cost(geo, u2.element_size())
+        bound, by = bound_ms(nbytes, flops, dtype)
+        dev = device_ms(lambda: cuda_window.windowed_cell_apply(geo, u2, tg))
+        plain_dev = device_ms(lambda: cuda_window.cell_apply_plain(geo, u2, tg))
+        k5 = device_ms(lambda: cuda_window.windowed_scatter(ex, f1))
+        # K5 reads the rows just written: by K7 on the operator's path now, by
+        # the plain middle's last copy before; both may leave them in L2
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=CARD)
+        k5_after = {label: ms_after(prep, lambda f: cuda_window.windowed_scatter(ex, f))
+                    for label, prep in (
+                        ("K7", lambda: cuda_window.windowed_cell_apply(geo, u2, tg)),
+                        ("the plain middle", lambda: cuda_window.cell_apply_plain(geo, u2, tg)),
+                        ("an L2 flush", lambda: (flush.zero_(), f1)[1]),
+                        ("itself", lambda: f1))}
+        del flush
+        key = f"K7_{str(dtype)[6:]}"
+        results[key] = {"device_ms": dev, "plain_device_ms": plain_dev, "bound_ms": bound,
+                        "bound_by": by, "bytes": nbytes, "K5_device_ms": k5,
+                        "K5_device_ms_after": k5_after}
+        after = ", ".join(f"after {k} {v:.4f}" for k, v in k5_after.items())
+        line.append(f"{str(dtype)[6:]}: two launches bit-equal; K7+K5 vs plain " + ", ".join(errs)
+                    + f" (tol {TOL_K7[dtype]:g}); K7 on the card {dev:.4f} ms (plain middle "
+                    f"{plain_dev:.4f}, K5 {k5:.4f} repeated on its rows; by events {after}), bound "
+                    f"{bound:.4f} ({by}, {nbytes / 1e6:.1f} MB): {100 * bound / dev:.1f}%")
+    print("phase 7b K7 vs plain on the 35^3 tet plan: " + "; ".join(line), flush=True)
+    print("phase 7b " + k7_simulation_step(tet["V"], bench_bcs(tet["V"])), flush=True)
+
+
 LANES = (1, 2, 4, 8, 16, 32)
 
 
@@ -1354,9 +1586,9 @@ def phase_tet_simulation(tet: dict) -> None:
     print(f"phase 10 PackedSimulation on the imported 35^3 mesh f32 ({sim.engine} + "
           f"{sim.preconditioner}, build {build_s:.1f} s): " + "; ".join(report)
           + f"; kernel launches K4 +{rise['gather']} K5 +{rise['scatter']} "
-          f"K6 +{rise['bsr_matvec']}")
+          f"K6 +{rise['bsr_matvec']} K7 +{rise['cell_apply']}")
     if min(rise.values()) <= 0:
-        fail("PackedSimulation on the imported mesh did not launch K4, K5 and K6")
+        fail("PackedSimulation on the imported mesh did not launch K4, K5, K6 and K7")
 
 
 # -- several laws on the imported mesh, and the whole model library -----------------
@@ -2802,8 +3034,8 @@ def phase_p2_imported(results: dict, workdir: Path) -> dict:
     if not (r_settled <= R_NORM_ENVELOPE * refs[0] and refs[0] <= R_NORM_ENVELOPE * refs[1]):
         fail(f"phase 21 settled r_norm {r_settled:.4f} is outside the {R_NORM_ENVELOPE} "
              f"envelopes of the deep re-runs {refs}")
-    if min(counts.values()) <= 0:
-        fail(f"phase 21 launches {counts}: expected K4, K5 and K6")
+    if min(counts["gather"], counts["scatter"], counts["bsr_matvec"]) <= 0 or counts["cell_apply"]:
+        fail(f"phase 21 launches {counts}: expected K4, K5 and K6, and never K7 on P2 cells")
 
     report = []
     for k in (1, 2):
@@ -4036,6 +4268,7 @@ def main() -> None:
     timed("phase 6", phase_simulation)
     tet = timed("tet setup", tet_setup)
     timed("phase 7", phase_k4_k5, results, tet)
+    timed("phase 7b", phase_k7, results, tet)
     timed("phase 8", phase_k6, results, tet)
     tet_counts = timed("phase 9", phase_tet_bench, tet)
     timed("phase 10", phase_tet_simulation, tet)
@@ -4110,6 +4343,9 @@ def main() -> None:
         runs = {label: line.get("amg_launches", line.get("launches"))[key]
                 for label, line in BENCH_LINES.items()}
         k["launches_bench_run"] = {label: n for label, n in runs.items() if n}
+    kernels.append({"name": "windowed_cell_apply", "route": "cuda", "source": src + "window.cu",
+                    "replaces": "the plain middle of WindowedGeometry.matvec (no TPU kernel)",
+                    "f64": results["K7_float64"], "f32": results["K7_float32"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -4,6 +4,7 @@
 //   K4 windowed_gather      -> gather_kernel
 //   K5 windowed_scatter     -> scatter_kernel
 //   K6 windowed_bsr_matvec  -> bsr_rows_kernel
+// and adds K7 cell_apply_kernel, the affine P1 tet operator's cell part.
 //
 // Layouts (row-major, the flat minor axis last):
 //   node rows u       [K, M_pad]         u[k*M_pad + m]
@@ -16,6 +17,8 @@
 //   BSR col           [nnzb] int32       column node of each block
 //   BSR blk           [nnzb, br*bc]      block entries, (jr, jc) row-major
 //   x / y             [bc, NC_pad] / [br, NR_pad]
+//   dN                [4, 3, C_pad]      affine P1 gradients, C_pad = B*C_B slots
+//   QP fields w, beta, gamma [N], n [6, N]   q-major, w[q*C_pad + s]
 //
 // What bounds them on the H100: bytes (K4, K5, and K6 on the fine-level
 // operators A0, P0, R0), and for K6 below the fine level the latency of a
@@ -36,6 +39,32 @@
 // partial sums meet in a fixed shuffle tree. No atomics, no padded slots, a
 // fixed order (two launches agree bit for bit), and every real row gets up
 // to 32 threads; the rows of a warp read one contiguous stretch of blocks.
+//
+// K7 cell_apply_kernel has no TPU counterpart: it is the middle of the CG
+// operator on affine P1 tets (WindowedGeometry.matvec), which the JAX
+// package runs as XLA-fused array ops between K4 and K5 and the port ran as
+// some 20 PyTorch ops, each reading and writing [.., C_pad] or [.., N]
+// fields. Its input is the node rows u [3, M_pad], its output K5's input f
+// [B, 3, Rn]; in between nothing leaves the registers. One thread per cell
+// slot s = b*C_B + r (a 128-thread block lies in one window block, as C_B is
+// a multiple of 128), consecutive threads on consecutive r, so every
+// per-slot read (loc, dN [4, 3, C_pad], the QP fields at q*C_pad + s) and
+// every store of f is coalesced. The thread
+//   1. gathers its 4 nodes' 3 components, u[j, b*T + loc[b, a*C_B + r]]
+//      (K4's work folded in; a pad slot, loc -1, reads 0), mostly from L2;
+//   2. forms grad[i][j] = sum_a dN[a][i] u[a][j] (a ascending) and the 6
+//      Mandel strains of the FULL map (its shear factor c read from the
+//      geometry's own map, mandel_T[3][0][1]);
+//   3. for each QP q ascending, applies the factored tangent, sigma = beta e
+//      + gamma (n.e) n + (kappa - beta/3) tr(e) on the diagonal slots, and
+//      sums w_q sigma_q (the map T^T and the sum over q commute, so T^T is
+//      applied once to the sum);
+//   4. stores f[a][j] = sum_i dN[a][i] S[i][j], S = T^T sum_q w_q sigma_q.
+// Every sum runs in a fixed order and no atomic is used, so two launches
+// agree bit for bit. A uniform beta, gamma or n is read with a zero stride.
+// The sum over the cells of each node stays with K5, whose node-major lists
+// fix its order: summing there rather than with atomics in K7 keeps the
+// operator repeatable, and K5's per-node reads are a small part of the bytes.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -153,6 +182,112 @@ bsr_rows_kernel(const T* __restrict__ x, const int* __restrict__ row_ptr,
   }
 }
 
+// K7: f[b, j, a*C_B + r] = sum_i dN[a, i, s] S[i, j] for the cell slot
+// s = b*C_B + r (design at the head of this file). kappa is coef[0], the
+// shear factor c of the FULL Mandel map [6][3][3] is mandel[3][0][1]; beta,
+// gamma and n[k] of QP p = q*C_pad + s are beta[p*beta_stride],
+// gamma[p*gamma_stride] and nf[k*n_comp_stride + p*n_qp_stride], a stride 0
+// for a uniform value. At least half occupancy: at most 64 registers.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 8)
+cell_apply_kernel(const T* __restrict__ u, const int* __restrict__ loc,
+                  const T* __restrict__ dN, const T* __restrict__ w,
+                  const T* __restrict__ beta, const T* __restrict__ gamma,
+                  const T* __restrict__ nf, const T* __restrict__ coef,
+                  const T* __restrict__ mandel, T* __restrict__ f, int C_B, int tile,
+                  int M_pad, int C_pad, int n_qp, int beta_stride,
+                  int gamma_stride, int n_comp_stride, int n_qp_stride) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= C_pad) return;
+  const int b = s / C_B;
+  const int r = s - b * C_B;
+  const int Rn = 4 * C_B;
+  const int* lrow = loc + b * Rn + r;
+  const T* ub = u + b * tile;
+
+  T H[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) H[i][j] = T(0);
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int l = __ldg(lrow + a * C_B);
+    T ua[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) ua[j] = take(ub + j * M_pad, l);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const T d = __ldg(dN + (a * 3 + i) * C_pad + s);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) H[i][j] += d * ua[j];
+    }
+  }
+  const T c = __ldg(mandel + 28);
+  const T e[6] = {H[0][0], H[1][1], H[2][2], c * (H[0][1] + H[1][0]),
+                  c * (H[0][2] + H[2][0]), c * (H[1][2] + H[2][1])};
+  const T tr = e[0] + e[1] + e[2];
+  const T kappa = __ldg(coef);
+
+  T sg[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) sg[k] = T(0);
+  for (int q = 0; q < n_qp; ++q) {
+    const int p = q * C_pad + s;
+    const T bq = __ldg(beta + p * beta_stride);
+    const T gq = __ldg(gamma + p * gamma_stride);
+    const T wq = __ldg(w + p);
+    const T* np = nf + p * n_qp_stride;
+    T nde = T(0);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) nde += __ldg(np + k * n_comp_stride) * e[k];
+    const T gn = gq * nde;
+    const T corr = (kappa - bq / T(3)) * tr;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      T sig = bq * e[k] + gn * __ldg(np + k * n_comp_stride);
+      if (k < 3) sig += corr;
+      sg[k] += wq * sig;
+    }
+  }
+  // S = T^T sg (symmetric), then the divergence into the 4 nodes
+  const T S[3][3] = {{sg[0], c * sg[3], c * sg[4]},
+                     {c * sg[3], sg[1], c * sg[5]},
+                     {c * sg[4], c * sg[5], sg[2]}};
+  T* fb = f + b * 3 * Rn + r;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    T d[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) d[i] = __ldg(dN + (a * 3 + i) * C_pad + s);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      T acc = T(0);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) acc += d[i] * S[i][j];
+      fb[j * Rn + a * C_B] = acc;
+    }
+  }
+}
+
+template <typename T>
+int launch_cell_apply(const void* u, const void* loc, const void* dN, const void* w,
+                      const void* beta, const void* gamma, const void* nf, const void* coef,
+                      const void* mandel, void* f, int C_B, int B, int tile, int M_pad, int n_qp,
+                      int beta_stride, int gamma_stride, int n_comp_stride, int n_qp_stride,
+                      void* stream) {
+  const int C_pad = B * C_B;
+  cell_apply_kernel<T><<<cdiv(C_pad, kThreads), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(u), static_cast<const int*>(loc), static_cast<const T*>(dN),
+      static_cast<const T*>(w), static_cast<const T*>(beta), static_cast<const T*>(gamma),
+      static_cast<const T*>(nf), static_cast<const T*>(coef), static_cast<const T*>(mandel),
+      static_cast<T*>(f), C_B, tile, M_pad, C_pad, n_qp, beta_stride, gamma_stride,
+      n_comp_stride, n_qp_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_gather(const void* u, const void* loc, void* out, int K, int B, int Rn,
                   int tile, int M_pad, void* stream) {
@@ -228,6 +363,29 @@ extern "C" int fct_window_scatter_f64(const void* f, const void* node_ptr,
                                       const void* node_rows, void* out, int K, int Rn,
                                       int M_pad, void* stream) {
   return launch_scatter<double>(f, node_ptr, node_rows, out, K, Rn, M_pad, stream);
+}
+
+// K7 on C_pad = B*C_B cell slots; mandel is the FULL Mandel map [6, 3, 3].
+extern "C" int fct_window_cell_apply_f32(const void* u, const void* loc, const void* dN,
+                                         const void* w, const void* beta, const void* gamma,
+                                         const void* nf, const void* coef, const void* mandel,
+                                         void* f, int C_B, int B, int tile, int M_pad, int n_qp,
+                                         int beta_stride, int gamma_stride, int n_comp_stride,
+                                         int n_qp_stride, void* stream) {
+  return launch_cell_apply<float>(u, loc, dN, w, beta, gamma, nf, coef, mandel, f, C_B, B, tile,
+                                  M_pad, n_qp, beta_stride, gamma_stride, n_comp_stride,
+                                  n_qp_stride, stream);
+}
+
+extern "C" int fct_window_cell_apply_f64(const void* u, const void* loc, const void* dN,
+                                         const void* w, const void* beta, const void* gamma,
+                                         const void* nf, const void* coef, const void* mandel,
+                                         void* f, int C_B, int B, int tile, int M_pad, int n_qp,
+                                         int beta_stride, int gamma_stride, int n_comp_stride,
+                                         int n_qp_stride, void* stream) {
+  return launch_cell_apply<double>(u, loc, dN, w, beta, gamma, nf, coef, mandel, f, C_B, B,
+                                   tile, M_pad, n_qp, beta_stride, gamma_stride, n_comp_stride,
+                                   n_qp_stride, stream);
 }
 
 // (br, bc) must be one of (3, 3), (3, 6), (6, 3), (6, 6) and lanes =

@@ -24,7 +24,8 @@ from .packed import IsotropicTangent
 from .structured import StructuredGeometry, StructuredTetGeometry
 
 __all__ = [
-    "build_cuda_matvec", "hex_corner_layout", "hex_tables", "launches", "matvec_plain",
+    "build_cuda_matvec", "coefficients", "hex_corner_layout", "hex_tables", "launches",
+    "matvec_plain",
 ]
 
 #: number of kernel launches made by the wrappers of this module
@@ -121,8 +122,33 @@ def _is_scalar(x) -> bool:
     return not isinstance(x, torch.Tensor) or x.numel() == 1
 
 
-#: coefficient tensors of host numbers a matvec keeps (the oldest go first)
+#: coefficient tensors of host numbers a cache keeps (the oldest go first)
 _MAX_COEFS = 8
+
+
+def coefficients(values, dtype, dev, cache: dict) -> torch.Tensor:
+    """kappa, beta and gamma as the kernels (K1, K7) read them: 3 values of
+    the working type on the device. A device tensor is converted on the card
+    (an SLS law's follows dt, so a replay reads each call's value); host
+    numbers are filled on the card inside a capture and kept in ``cache``
+    between eager calls, so a step captured after its eager warm-up reads
+    the kept tensor and makes no fill."""
+    if any(isinstance(c, torch.Tensor) for c in values):
+        return torch.stack([c.reshape(()).to(dev, dtype) if isinstance(c, torch.Tensor)
+                            else torch.full((), float(c), dtype=dtype, device=dev)
+                            for c in values])
+    key = (*map(float, values), dtype, dev)
+    hit = cache.get(key)
+    if hit is not None:
+        return hit
+    coef = torch.empty(3, dtype=dtype, device=dev)
+    for i, c in enumerate(key[:3]):
+        coef[i].fill_(c)
+    if not torch.cuda.is_current_stream_capturing():
+        if len(cache) >= _MAX_COEFS:
+            cache.pop(next(iter(cache)))
+        cache[key] = coef
+    return coef
 
 
 def build_cuda_matvec(geo: StructuredGeometry, *, brick_nodes=None):
@@ -143,29 +169,6 @@ def build_cuda_matvec(geo: StructuredGeometry, *, brick_nodes=None):
 
     #: (kappa, beta, gamma, dtype, device) of host numbers -> their device tensor
     coef_cache: dict = {}
-
-    def coefficients(values, dtype, dev) -> torch.Tensor:
-        """kappa, beta and gamma as the kernel reads them: 3 values of the
-        working type on the device. A device tensor is converted on the card
-        (an SLS law's follows dt, so a replay reads each call's value); host
-        numbers are filled on the card inside a capture and kept between
-        eager calls."""
-        if any(isinstance(c, torch.Tensor) for c in values):
-            return torch.stack([c.reshape(()).to(dev, dtype) if isinstance(c, torch.Tensor)
-                                else torch.full((), float(c), dtype=dtype, device=dev)
-                                for c in values])
-        key = (*map(float, values), dtype, dev)
-        hit = coef_cache.get(key)
-        if hit is not None:
-            return hit
-        coef = torch.empty(3, dtype=dtype, device=dev)
-        for i, c in enumerate(key[:3]):
-            coef[i].fill_(c)
-        if not torch.cuda.is_current_stream_capturing():
-            if len(coef_cache) >= _MAX_COEFS:
-                coef_cache.pop(next(iter(coef_cache)))
-            coef_cache[key] = coef
-        return coef
 
     def launch(u_gm, beta, gamma, nf, coef: torch.Tensor, uniform: bool) -> torch.Tensor:
         global launches
@@ -197,14 +200,15 @@ def build_cuda_matvec(geo: StructuredGeometry, *, brick_nodes=None):
         )
         if uniform:
             nf = tangent.n.reshape(6).to(dev, dtype).contiguous()
-            coef = coefficients((tangent.kappa, tangent.beta, tangent.gamma), dtype, dev)
+            coef = coefficients((tangent.kappa, tangent.beta, tangent.gamma), dtype, dev,
+                                coef_cache)
             return launch(u_gm, nf, nf, nf, coef, True)
         beta = torch.as_tensor(tangent.beta, dtype=dtype, device=dev)
         beta = beta.expand(Q, M).contiguous()
         gamma = torch.as_tensor(tangent.gamma, dtype=dtype, device=dev)
         gamma = gamma.expand(Q, M).contiguous()
         nf = tangent.n.expand(6, Q, M).contiguous()
-        return launch(u_gm, beta, gamma, nf, coefficients((tangent.kappa, 0.0, 0.0), dtype, dev),
-                      False)
+        coef = coefficients((tangent.kappa, 0.0, 0.0), dtype, dev, coef_cache)
+        return launch(u_gm, beta, gamma, nf, coef, False)
 
     return matvec

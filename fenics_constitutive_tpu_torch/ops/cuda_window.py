@@ -1,13 +1,17 @@
-"""Windowed gather, scatter and BSR SpMV: hand-written CUDA kernels (K4, K5,
-K6 of ``csrc/window.cu``) and their plain PyTorch twins.
+"""Windowed gather, scatter, BSR SpMV and the tet operator's cell part:
+hand-written CUDA kernels (K4, K5, K6, K7 of ``csrc/window.cu``) and their
+plain PyTorch twins.
 
-``windowed_gather(ex, u2)``, ``windowed_scatter(ex, f)`` and
-``windowed_bsr_matvec(w, x)`` launch the kernels on CUDA tensors and raise
-on anything else: an unsupported input never falls back to the plain
-version. ``WindowedExchange.gather``/``scatter`` and ``WindowedBsr.matvec``
-call them for CUDA tensors and the plain versions (``gather_plain``,
-``scatter_plain``, ``bsr_matvec_plain``) for CPU tensors. Nothing is
-compiled until the first launch.
+``windowed_gather(ex, u2)``, ``windowed_scatter(ex, f)``,
+``windowed_bsr_matvec(w, x)`` and ``windowed_cell_apply(geo, u2, tangent)``
+launch the kernels on CUDA tensors and raise on anything else: an
+unsupported input never falls back to the plain version.
+``WindowedExchange.gather``/``scatter`` and ``WindowedBsr.matvec`` call them
+for CUDA tensors and the plain versions (``gather_plain``,
+``scatter_plain``, ``bsr_matvec_plain``) for CPU tensors;
+``WindowedGeometry.matvec`` calls K7 for CUDA tensors where
+``cell_apply_form`` holds (an IsotropicTangent on affine P1 tets) and
+``cell_apply_plain`` everywhere else. Nothing is compiled until the first launch.
 
 The launch path is lean, since K6 runs 96 times in a general-tet load step:
 a plan's own invariants (index types, contiguity, alignment, 32-bit sizes,
@@ -24,20 +28,26 @@ import ctypes
 import torch
 
 from ._cuda_build import entry_point, launch_check
+from .cuda_matvec import coefficients
+from .mandel import Constraint
+from .packed import IsotropicTangent
 
 __all__ = [
     "bsr_matvec_plain",
     "bsr_rows_plain",
+    "cell_apply_form",
+    "cell_apply_plain",
     "gather_plain",
     "launches",
     "scatter_plain",
     "windowed_bsr_matvec",
+    "windowed_cell_apply",
     "windowed_gather",
     "windowed_scatter",
 ]
 
 #: kernel launches made by the wrappers of this module, per kernel
-launches = {"gather": 0, "scatter": 0, "bsr_matvec": 0}
+launches = {"gather": 0, "scatter": 0, "bsr_matvec": 0, "cell_apply": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +55,7 @@ _ARGTYPES = {
     "gather": [_P] * 3 + [_I] * 5 + [_P],
     "scatter": [_P] * 4 + [_I] * 3 + [_P],
     "bsr": [_P] * 5 + [_I] * 6 + [_P],
+    "cell_apply": [_P] * 10 + [_I] * 9 + [_P],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _BSR_SHAPES = ((3, 3), (3, 6), (6, 3), (6, 6))
@@ -74,9 +85,9 @@ def _launch(fn, index: int, *args) -> None:
     launch_check("window", rc)
 
 
-def _check_call(name: str, t: torch.Tensor, plan: torch.Tensor, shape) -> int:
-    """Raise unless the kernel can take ``t`` beside a plan whose buffers lie
-    like ``plan``; return the device index."""
+def _check_device(name: str, t: torch.Tensor, plan: torch.Tensor) -> int:
+    """Raise unless ``t`` is a CUDA tensor on the device of the plan's
+    buffer ``plan``; return the device index."""
     if not t.is_cuda:
         msg = f"{name}: the CUDA kernel takes CUDA tensors, got one on {t.device}"
         raise ValueError(msg)
@@ -84,6 +95,11 @@ def _check_call(name: str, t: torch.Tensor, plan: torch.Tensor, shape) -> int:
     if index != plan.get_device():
         msg = f"{name}: tensor on {t.device}, plan on {plan.device}"
         raise ValueError(msg)
+    return index
+
+
+def _check_layout(name: str, t: torch.Tensor, shape) -> None:
+    """Raise unless ``t`` has a kernel's dtype, ``shape`` and is contiguous."""
     if t.dtype not in _SUFFIX:
         msg = f"{name}: the CUDA kernel takes float32 or float64, got {t.dtype}"
         raise TypeError(msg)
@@ -93,6 +109,13 @@ def _check_call(name: str, t: torch.Tensor, plan: torch.Tensor, shape) -> int:
     if not t.is_contiguous():
         msg = f"{name}: the CUDA kernel takes contiguous tensors"
         raise ValueError(msg)
+
+
+def _check_call(name: str, t: torch.Tensor, plan: torch.Tensor, shape) -> int:
+    """Raise unless the kernel can take ``t`` beside a plan whose buffers lie
+    like ``plan``; return the device index."""
+    index = _check_device(name, t, plan)
+    _check_layout(name, t, shape)
     return index
 
 
@@ -140,6 +163,24 @@ def _bsr_invariants(w) -> None:
              "the plan overflows the kernel's 32-bit indices")
 
 
+def _cell_invariants(geo) -> None:
+    """Raise unless K7 can take the geometry. K7 reads the shear factor c of
+    its Mandel map (FULL: e3 = c (H01 + H10), e4 = c (H02 + H20), e5 = c (H12
+    + H21)) from ``mandel_T`` itself."""
+    name = "windowed_cell_apply"
+    ex = geo.ex
+    _require(name, geo.compact and (geo.n_nodes, geo.vs) == (4, 3),
+             "K7 takes affine P1 tets: one gradient per cell, 4 nodes, 3 components")
+    _require(name, geo.constraint == Constraint.FULL and tuple(geo.mandel_T.shape) == (6, 3, 3),
+             "K7 takes the FULL constraint's [6, 3, 3] Mandel map")
+    _require(name, geo.dN.shape == (4, 3, ex.C_pad) and geo.w.shape == (geo.N,)
+             and all(t.is_contiguous() and t.dtype == geo.dN.dtype
+                     for t in (geo.dN, geo.w, geo.mandel_T)),
+             "dN [4, 3, C_pad], w [N] and mandel_T must be contiguous, of one dtype")
+    _require(name, ex.C_pad % 128 == 0 and 6 * geo.N < _I32,
+             "the plan overflows the kernel's 32-bit indices")
+
+
 # -- plain versions (the CPU path, and the reference the kernels are held to) --
 
 
@@ -151,6 +192,12 @@ def gather_plain(ex, u2: torch.Tensor) -> torch.Tensor:
 def scatter_plain(ex, f: torch.Tensor) -> torch.Tensor:
     """Plain version of K5: ``WindowedExchange.scatter_ref``."""
     return ex.scatter_ref(f)
+
+
+def cell_apply_plain(geo, u2: torch.Tensor, tangent) -> torch.Tensor:
+    """Plain version of K7: ``WindowedGeometry.cell_apply_ref`` (the gather,
+    strain, tangent and divergence of every cell, as K5's input rows)."""
+    return geo.cell_apply_ref(u2, tangent)
 
 
 def bsr_matvec_plain(w, x: torch.Tensor) -> torch.Tensor:
@@ -246,3 +293,89 @@ def windowed_bsr_matvec(w, x: torch.Tensor, *, lanes: int | None = None) -> torc
             w.NC_pad, lanes.bit_length() - 1, round_bf16)
     launches["bsr_matvec"] += 1
     return y
+
+
+def cell_apply_form(geo, tangent) -> bool:
+    """True when ``WindowedGeometry.matvec`` runs its cells' part as K7 on
+    CUDA tensors: an IsotropicTangent on affine P1 tets of 3 components
+    under the FULL constraint, in float32 or float64. The geometry and the
+    tangent's type alone decide, before any capture; ``windowed_cell_apply``
+    takes each of the tangent's entries in any dtype and layout of a valid
+    size, or raises. A DenseTangent, non-affine cells, 2D constraints and
+    every CPU tensor run ``cell_apply_plain``."""
+    return (isinstance(tangent, IsotropicTangent) and geo.dtype in _SUFFIX and geo.compact
+            and (geo.n_nodes, geo.vs) == (4, 3) and geo.constraint == Constraint.FULL)
+
+
+def _tangent_entry(name: str, key: str, x: torch.Tensor, k: int, N: int, dtype, dev):
+    """A tangent entry of ``k`` components as K7 reads it: (values, QP
+    stride). A field of the QPs comes as [k, N] q-major with QP stride 1; a
+    uniform entry (k values, or a view that repeats k values along the QPs)
+    as k values with QP stride 0. Each is converted to ``dtype`` (a uniform
+    one also to ``dev``, as ``coefficients`` moves kappa) and made
+    contiguous once, where it is not already."""
+    if x.numel() == k * N:
+        x = x.reshape(k, N)
+        if x.stride(1) != 0:
+            if x.device != dev:
+                msg = f"{name}: the tangent's {key} is on {x.device}, the node rows on {dev}"
+                raise ValueError(msg)
+            return x.to(dtype).contiguous(), 1
+        x = x[:, :1]
+    elif x.numel() != k:
+        msg = (f"{name}: the tangent's {key} must hold {k} or {k} x N = {k * N} values "
+               f"(N = {N}), got {x.numel()}")
+        raise ValueError(msg)
+    return x.reshape(k).to(dev, dtype).contiguous(), 0
+
+
+def windowed_cell_apply(geo, u2: torch.Tensor, tangent) -> torch.Tensor:
+    """K7: u2 [3, M_pad] node rows -> f [B, 3, Rn] cell-local rows, each
+    cell's forces A_e u_e under the factored tangent (K5's input; pad rows 0).
+
+    Fuses what ``cell_apply_plain`` runs as some 20 ops: the gather (K4's
+    work), strain, tangent, weights and divergence. Equals it up to the order
+    of the sums; two launches agree bit for bit. kappa, and a beta or gamma
+    given as a host number, are read from a 3-value device tensor
+    (``coefficients``, kept per geometry); a tensor entry is read where it
+    lies once it has the working dtype and a contiguous layout.
+    """
+    name = "windowed_cell_apply"
+    ex = geo.ex
+    _check_plan_once(geo, geo.dN.data_ptr(), _cell_invariants, geo)
+    _check_layout(name, u2, (3, ex.M_pad))
+    if u2.dtype != geo.dtype:
+        msg = f"{name}: node rows of {u2.dtype}, geometry of {geo.dtype}"
+        raise TypeError(msg)
+    if not isinstance(tangent, IsotropicTangent):
+        msg = f"{name}: K7 applies an IsotropicTangent, got {type(tangent).__name__}"
+        raise TypeError(msg)
+    dtype, dev, N = u2.dtype, u2.device, geo.N
+    kappa = tangent.kappa
+    if isinstance(kappa, torch.Tensor) and kappa.numel() != 1:
+        msg = f"{name}: kappa must be one value, got {kappa.numel()}"
+        raise ValueError(msg)
+    if not isinstance(tangent.n, torch.Tensor):
+        msg = f"{name}: the tangent's n must be a tensor"
+        raise TypeError(msg)
+    entries = {key: _tangent_entry(name, key, x, k, N, dtype, dev)
+               for key, x, k in (("beta", tangent.beta, 1), ("gamma", tangent.gamma, 1),
+                                 ("n", tangent.n, 6)) if isinstance(x, torch.Tensor)}
+    index = _check_device(name, u2, ex.loc)
+    _check_plan_once(ex, ex.loc.data_ptr(), _exchange_invariants, name, ex)
+    coef = coefficients(
+        (kappa, *(0.0 if isinstance(x, torch.Tensor) else x
+                  for x in (tangent.beta, tangent.gamma))), dtype, dev,
+        geo.__dict__.setdefault("_coef_cache", {}))
+    size = coef.element_size()
+    beta, gamma = (
+        (entries[key][0].data_ptr(), entries[key][1]) if key in entries
+        else (coef.data_ptr() + slot * size, 0) for slot, key in ((1, "beta"), (2, "gamma")))
+    n, n_qp_stride = entries["n"]
+    f = u2.new_empty((ex.B, 3, ex.Rn))
+    _launch(_entry("cell_apply", dtype), index, u2.data_ptr(), ex.loc.data_ptr(),
+            geo.dN.data_ptr(), geo.w.data_ptr(), beta[0], gamma[0], n.data_ptr(),
+            coef.data_ptr(), geo.mandel_T.data_ptr(), f.data_ptr(), ex.C_B, ex.B, ex.T,
+            ex.M_pad, geo.n_qp, beta[1], gamma[1], N if n_qp_stride else 1, n_qp_stride)
+    launches["cell_apply"] += 1
+    return f

@@ -444,6 +444,11 @@ class WindowedGeometry(nn.Module):
 
     def residual(self, sigma: torch.Tensor) -> torch.Tensor:
         """Mandel stress [s, N] -> internal residual [vs*M_pad]."""
+        return self.ex.scatter(self.cell_forces(sigma)).reshape(-1)
+
+    def cell_forces(self, sigma: torch.Tensor) -> torch.Tensor:
+        """Mandel stress [s, N] -> each cell's nodal forces as the block rows
+        [B, vs, Rn] the scatter (K5) sums."""
         T = self.mandel_T.to(sigma.dtype)
         s, g = T.shape[0], T.shape[1]
         # sig_t[i, j] = w * sum_s T[s, i, j] sigma[s]
@@ -456,10 +461,28 @@ class WindowedGeometry(nn.Module):
         else:
             dN = self.dN.reshape(self.n_nodes, g, 1, self.n_qp, self.ex.C_pad)
             f_e = (dN * sig_t[None]).sum(dim=(1, 3))
-        return self.ex.scatter(self.ex.cells_to_rows(f_e)).reshape(-1)
+        return self.ex.cells_to_rows(f_e)
+
+    def cell_apply_ref(self, u2: torch.Tensor, tangent) -> torch.Tensor:
+        """[vs, M_pad] node rows -> each cell's forces A_e u_e as block rows
+        [B, vs, Rn]: gather, strain, tangent and divergence in plain PyTorch
+        (K7's twin, ``ops/cuda_window.py::cell_apply_plain``)."""
+        return self.cell_forces(tangent.apply(self.strain(u2.reshape(-1))))
 
     def matvec(self, v: torch.Tensor, tangent) -> torch.Tensor:
-        return self.residual(tangent.apply(self.strain(v)))
+        """The tangent operator: [vs*M_pad] -> [vs*M_pad]. The cells' part
+        runs as K7 on CUDA tensors where ``cuda_window.cell_apply_form``
+        holds (an IsotropicTangent on affine P1 tets of 3 components), in
+        plain PyTorch otherwise; the scatter (K5 on the card) sums it onto
+        the nodes."""
+        from .cuda_window import cell_apply_form, windowed_cell_apply
+
+        u2 = v.reshape(self.vs, self.ex.M_pad)
+        if v.is_cuda and cell_apply_form(self, tangent):
+            f = windowed_cell_apply(self, u2, tangent)
+        else:
+            f = self.cell_apply_ref(u2, tangent)
+        return self.ex.scatter(f).reshape(-1)
 
     def jacobi_diag(self, tangent) -> torch.Tensor:
         """diag(A) in the internal layout via per-node B^T C B."""

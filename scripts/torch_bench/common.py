@@ -169,7 +169,7 @@ def window_counts() -> dict:
 
     settle()
     return {"K4": cuda_window.launches["gather"], "K5": cuda_window.launches["scatter"],
-            "K6": cuda_window.launches["bsr_matvec"]}
+            "K6": cuda_window.launches["bsr_matvec"], "K7": cuda_window.launches["cell_apply"]}
 
 
 def reset_all_counts() -> None:
@@ -181,7 +181,7 @@ def reset_all_counts() -> None:
 
 
 def launches() -> dict:
-    """K1-K6 launches (K3 also per V-cycle entry) since reset_all_counts(),
+    """K1-K7 launches (K3 also per V-cycle entry) since reset_all_counts(),
     by each wrapper's counter."""
     return {**read_counts(), **window_counts()}
 

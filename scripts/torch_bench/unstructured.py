@@ -27,7 +27,7 @@ Environment: FIXED (12), NU (2), STEPS (10), VERIFY_ITERS (3 x FIXED), PC
 One JSON line: ``metric`` (``mises_1MQP_general_tet_newton_step_converged``),
 ``value`` (median ms/step), ``unit``, ``n_qp``, ``engine``, ``pc``,
 ``fixed_iters``, ``verify_iters``, ``r_norm``, ``r_norm_ref``,
-``r_norm_ref2``, ``converged``, ``probes``, the timing fields of common.py, ``launches`` (K1-K6), ``setup_s`` (split:
+``r_norm_ref2``, ``converged``, ``probes``, the timing fields of common.py, ``launches`` (K1-K7), ``setup_s`` (split:
 Gmsh write and read, RCM plus plan, geometry, AMG host build, freeze and
 upload), ``warmup_s``, ``peak_gib``, ``dtype`` and ``device``.
 """

@@ -124,7 +124,7 @@ def test_bench_twins_write_no_file(path):
 def test_kernel_sources_present():
     csrc = PKG / "csrc"
     names = {p.name for p in csrc.glob("*.cu")}
-    # K1-K6, and the while nodes' set-conditional kernel (no TPU kernel's)
+    # K1-K7, and the while nodes' set-conditional kernel (no TPU kernel's)
     assert names == {"matvec.cu", "eval.cu", "window.cu", "smoother.cu", "graph_loop.cu"}
     for p in csrc.glob("*.cu"):
         assert "Replaces" in p.read_text()[:2000], p.name
@@ -183,6 +183,64 @@ def test_window_kernels_refuse_cpu_tensors(tets, kernel):
     with pytest.raises(ValueError, match="CUDA"):
         call()
     assert cuda_window.launches[kernel.removesuffix("_bare")] == 0
+
+
+@pytest.mark.parametrize(("case", "error", "match"), [
+    ("cpu", ValueError, "CUDA"),
+    ("dtype", TypeError, "float32 or float64"),
+    ("geometry_dtype", TypeError, "geometry of"),
+    ("shape", ValueError, "expected shape"),
+    ("plan", ValueError, "affine P1"),
+    ("tangent", TypeError, "IsotropicTangent"),
+    ("field", ValueError, "beta must hold 1 or 1 x N"),
+    ("n_field", ValueError, "n must hold 6 or 6 x N"),
+    ("kappa", ValueError, "kappa must be one value"),
+    ("field_device", ValueError, "beta is on meta"),
+])
+def test_cell_apply_guards(tets, mat, case, error, match):
+    """K7's wrapper checks the plan, the node rows' dtype and shape and the
+    tangent's layout before the device, and raises for each, as K4/K5 do; a
+    call it takes on CPU tensors still raises instead of running its plain
+    twin. Nothing is launched."""
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace
+    from fenics_constitutive_tpu_torch.models.packed_models import _uniform_tangent
+    from fenics_constitutive_tpu_torch.ops import (
+        Constraint,
+        DenseTangent,
+        IsotropicTangent,
+        build_windowed_geometry,
+        cuda_window,
+    )
+
+    mesh = tets(4 if case != "plan" else 3)["torch"][0].mesh
+    degree, q = (2, 4) if case == "plan" else (1, 2)
+    geo = build_windowed_geometry(FunctionSpace(mesh, degree, 3), q, Constraint.FULL,
+                                  device="cpu", dtype=torch.float64, tile=128)
+    u2 = torch.zeros(3, geo.ex.M_pad, dtype=torch.float64)
+    tg = _uniform_tangent(mat["p_ka"], 2.0 * mat["p_mu"], torch.zeros(6, geo.N,
+                                                                       dtype=torch.float64))
+    if case == "dtype":
+        u2 = u2.to(torch.int32)
+    elif case == "geometry_dtype":
+        u2 = u2.float()
+    elif case == "shape":
+        u2 = u2[:, :-1]
+    elif case == "tangent":
+        tg = DenseTangent(torch.zeros(6, 6, geo.N, dtype=torch.float64))
+    elif case == "field":
+        tg = IsotropicTangent(mat["p_ka"], torch.ones(geo.N - 1, dtype=torch.float64),
+                              tg.gamma, tg.n)
+    elif case == "n_field":
+        tg = IsotropicTangent(mat["p_ka"], tg.beta, tg.gamma,
+                              torch.zeros(3, geo.N, dtype=torch.float64))
+    elif case == "kappa":
+        tg = IsotropicTangent(torch.ones(geo.N, dtype=torch.float64), tg.beta, tg.gamma, tg.n)
+    elif case == "field_device":
+        tg = IsotropicTangent(mat["p_ka"], torch.ones(geo.N, device="meta"), tg.gamma, tg.n)
+    before = cuda_window.launches["cell_apply"]
+    with pytest.raises(error, match=match):
+        cuda_window.windowed_cell_apply(geo, u2, tg)
+    assert cuda_window.launches["cell_apply"] == before
 
 
 @pytest.mark.parametrize("entry", ["PackedSimulation", "build_packed_problem", "build_amg",
