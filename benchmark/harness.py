@@ -6,7 +6,8 @@ files of its own, found by the names in ``BENCHMARK.json``:
 ``benchmark/configs/<config>.json`` (with its mesh module
 ``benchmark/meshes/<kind>.py`` and its law's reference
 ``benchmark/reference/<law>.py``), ``benchmark/traffic/<mix>.json`` and
-``benchmark/metrics/<metric>.py``. Nothing here names a cell.
+``benchmark/metrics/<metric>.py``. A configuration's ``degree`` (1 where
+it gives none) is its displacement space's. Nothing here names a cell.
 
 Order of a run: the mesh inputs are made and any mesh file written; the
 set-up clock starts; torch and the port are imported, the simulation is
@@ -206,13 +207,15 @@ def _run(files, mesh_spec, mesh_mod, inputs, path, seed, seconds, trace, device_
     # -- the answers of the drawn cycle, then the program is freed
     steps = [(load, prog.public_u(u).cpu()) for load, u in warm + kept]
     last = {k: v.cpu() for k, v in prog.fields(kept_state).items()}
+    dof_coords = prog.dof_coords if cfg.get("degree", 1) > 1 else None
     del prog, start, kept_state, kept, warm, ctx, readers
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     from .reference.check import judge
 
-    numbers = judge(inputs, cfg["law"], cfg["boundary"], steps, last, device)
+    numbers = judge(inputs, cfg["law"], cfg["boundary"], steps, last, device,
+                    dof_coords=dof_coords)
     limits = cfg["limits"]
     line["correct"] = all(numbers[k] <= limits[k] for k in limits)
     line["compared"] = {k: {"value": numbers[k], "limit": limits[k]} for k in limits}

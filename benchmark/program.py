@@ -38,7 +38,10 @@ class Program:
         from fenics_constitutive_tpu_torch.solver import PackedSimulation
 
         mesh = mesh_module.program_mesh(inputs, cfg["mesh"], workdir)
-        V = FunctionSpace(mesh, 1, 3)
+        V = FunctionSpace(mesh, cfg.get("degree", 1), 3)
+        #: the coordinates of the space's dof nodes [n_dof_nodes, 3], in its
+        #: own numbering (the mesh nodes at degree 1)
+        self.dof_coords = V.dof_coords
         bcs, self._moved = BOUNDARIES[cfg["boundary"]](V, DirichletBC)
         law = getattr(models, cfg["law"]["name"])(cfg["law"]["params"])
         self.sim = PackedSimulation(law, V, bcs, cfg["q_degree"], device=device, dtype=dtype,

@@ -19,6 +19,12 @@ stress or history value of the program except to judge it. Numbers:
   and components between the program's stress and the reference's, over the
   reference's largest stress component, and the same for each history field
   over the larger of its largest value and the law's strain scale.
+
+A space of degree 1 holds its dofs on the mesh nodes in the mesh's order,
+and the displacements are taken as they come. A space of higher degree
+numbers its dof nodes its own way: ``judge`` is then given their
+coordinates, and matches each to the reference's node on the lattice of
+``mesh["spacing"]`` (``node_map``), never by the program's numbering.
 """
 
 from __future__ import annotations
@@ -28,7 +34,11 @@ import importlib
 import numpy as np
 import torch
 
+from ..harness import RunError
 from .fem import Geometry
+
+#: how far (in lattice spacings) a dof coordinate may lie from its lattice node
+ON_LATTICE = 1e-6
 
 
 def _close(x: np.ndarray, v: float) -> np.ndarray:
@@ -56,11 +66,53 @@ def law_module(name: str):
     return importlib.import_module(f"{__package__}.{name.lower()}")
 
 
-def judge(mesh: dict, law: dict, boundary: str, steps: list, last: dict, device) -> dict:
-    """The numbers compared. ``mesh``: nodes, cells, cell_type; ``law``: name
-    and params; ``steps``: [(load, u)] from the zero state, u node-major
-    [3 n_nodes]; ``last``: the program's ``stress`` [C, Q, 6] and history
-    fields [C, Q, h] after the last of them."""
+def node_map(mesh: dict, dof_coords: np.ndarray) -> np.ndarray:
+    """The reference node of each of the program's dof nodes: both sets of
+    coordinates rounded to the lattice of spacing ``mesh["spacing"]``. Raises
+    ``RunError`` where a coordinate lies off that lattice or on no node of
+    the mesh, where two land on one node, or where the counts differ."""
+    h, nodes = float(mesh["spacing"]), mesh["nodes"]
+    ref = np.rint(nodes / h).astype(np.int64)
+    scaled = np.asarray(dof_coords, np.float64) / h
+    mine = np.rint(scaled)
+    off = np.abs(scaled - mine).max(axis=1) > ON_LATTICE
+    if off.any():
+        i = int(np.argmax(off))
+        raise RunError(f"dof node {i} at {dof_coords[i]} lies on no node of the "
+                       f"{h:g} lattice")
+    # one id per distinct lattice point, over the mesh's nodes then the program's
+    _, ids = np.unique(np.vstack([ref, mine.astype(np.int64)]), axis=0, return_inverse=True)
+    ids = ids.reshape(-1)
+    owner = np.full(ids.max() + 1, -1, np.int64)
+    owner[ids[:len(ref)]] = np.arange(len(ref))
+    perm = owner[ids[len(ref):]]
+    if (perm < 0).any():
+        i = int(np.argmax(perm < 0))
+        raise RunError(f"dof node {i} at {dof_coords[i]} lands on no node of the mesh")
+    if len(np.unique(perm)) != len(perm):
+        raise RunError("two of the program's dof nodes land on one lattice node")
+    if len(perm) != len(nodes):
+        raise RunError(f"the program has {len(perm)} dof nodes, the mesh {len(nodes)}")
+    return perm
+
+
+def judge(mesh: dict, law: dict, boundary: str, steps: list, last: dict, device,
+          dof_coords=None) -> dict:
+    """The numbers compared. ``mesh``: nodes, cells, cell_type (and spacing);
+    ``law``: name and params; ``steps``: [(load, u)] from the zero state, u
+    node-major [3 n_dof_nodes]; ``last``: the program's ``stress`` [C, Q, 6]
+    and history fields [C, Q, h] after the last of them; ``dof_coords``: the
+    program's dof node coordinates where they are not the mesh nodes in
+    order (a space of degree above 1), matched by ``node_map``."""
+    if dof_coords is not None:
+        perm = torch.as_tensor(node_map(mesh, dof_coords))
+
+        def renumber(u):
+            out = torch.empty(len(perm), 3, dtype=u.dtype)
+            out[perm] = u.reshape(-1, 3)
+            return out.reshape(-1)
+
+        steps = [(load, renumber(torch.as_tensor(u))) for load, u in steps]
     ref = law_module(law["name"])
     params = law["params"]
     geo = Geometry(mesh["nodes"], mesh["cells"], mesh["cell_type"], device)

@@ -1,4 +1,4 @@
-"""Plain PyTorch P1 finite elements for the reference: shape-function
+"""Plain PyTorch finite elements for the reference: shape-function
 gradients at the quadrature points, the small-strain increment in Mandel
 notation, and the assembled internal force.
 
@@ -8,7 +8,13 @@ program). Hexahedra: trilinear shape functions, the 2 x 2 x 2 Gauss rule
 weight 1/8), corner ``dx + 2 dy + 4 dz``. Tetrahedra: linear shape
 functions, whose gradient is constant in a cell, so one point of weight 1/6
 stands for any rule (the program's four points of a cell all carry the
-cell's one strain). Mandel order: xx, yy, zz, sqrt2 xy, sqrt2 xz, sqrt2 yz.
+cell's one strain). 27-node hexahedra (``hex27``): triquadratic shape
+functions, the tensor products of the 1D quadratic basis on the nodes 0,
+1/2, 1 (local node ``dx + 3 dy + 9 dz`` at ``(dx, dy, dz) / 2``), and the
+3 x 3 x 3 Gauss rule: point ``9 i + 3 j + k`` at ``(g_i, g_j, g_k)``, ``g =
+(1 - sqrt(3/5), 1, 1 + sqrt(3/5)) / 2``, weight ``v_i v_j v_k`` with ``v =
+(5, 8, 5) / 18`` (the program's order of the points at q_degree 4: x
+slowest). Mandel order: xx, yy, zz, sqrt2 xy, sqrt2 xz, sqrt2 yz.
 """
 
 from __future__ import annotations
@@ -41,7 +47,29 @@ def _tet_reference():
     return dN[None], np.array([1.0 / 6.0])
 
 
-REFERENCE_CELLS = {"hex": _hex_reference, "tetra": _tet_reference}
+def _hex27_reference():
+    r = math.sqrt(3.0 / 5.0)
+    g, v = np.array([0.5 - 0.5 * r, 0.5, 0.5 + 0.5 * r]), np.array([5.0, 8.0, 5.0]) / 18.0
+
+    def basis(t):
+        """The 1D quadratic Lagrange values and derivatives on 0, 1/2, 1 at t."""
+        return ((2.0 * (t - 0.5) * (t - 1.0), 4.0 * t * (1.0 - t), 2.0 * t * (t - 0.5)),
+                (4.0 * t - 3.0, 4.0 - 8.0 * t, 4.0 * t - 1.0))
+
+    L, dL = (np.array(t) for t in basis(g))  # [node, point] in 1D
+    pts = [(i, j, k) for i in range(3) for j in range(3) for k in range(3)]
+    dN = np.zeros((27, 27, 3))
+    for a in range(27):
+        loc = (a % 3, (a // 3) % 3, a // 9)
+        for q, p in enumerate(pts):
+            val = [L[loc[d], p[d]] for d in range(3)]
+            der = [dL[loc[d], p[d]] for d in range(3)]
+            for d in range(3):
+                dN[q, a, d] = der[d] * np.prod([val[e] for e in range(3) if e != d])
+    return dN, np.array([v[i] * v[j] * v[k] for i, j, k in pts])
+
+
+REFERENCE_CELLS = {"hex": _hex_reference, "tetra": _tet_reference, "hex27": _hex27_reference}
 
 
 class Geometry:

@@ -34,6 +34,18 @@ def test_box_costs(tmp_path, itemsize):
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
+def test_lattice_vcycle_costs(tmp_path, itemsize):
+    """The refined-P1 hierarchy under a degree-2 space (the lattice engine)."""
+    prog = build("mises-p2-hex32-f64.plastic", tmp_path)
+    assert prog.sim.engine == "lattice"
+    fc = prog.preconditioner.fused_cycle
+    assert fc._chain(0).geo.M == (2 * 4 + 1) ** 3
+    for first in range(fc.n_levels):
+        assert costs.vcycle_costs(fc, itemsize, first) == roofline.vcycle_costs(
+            fc, itemsize, first)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
 def test_tet_costs(tmp_path, itemsize):
     prog = build("mises-tet35-gmsh-f64.plastic", tmp_path, n=6)
     ex = prog.geometry.ex

@@ -20,7 +20,10 @@ CONFIGS = sorted({c.rsplit(".", 1)[0] + ".plastic" for c in CELLS})
 
 
 def cpu_run(cell, seed=2**31 + 7, **kw):
-    return harness.run(cell, seed, SECONDS, False, device="cpu", n=N, **kw)
+    """A run whose window holds a whole cycle: a cell of degree d has d^3
+    times the dofs of a P1 cell at the same N, and its steps take longer."""
+    degree = harness.read_cell(cell)["config"].get("degree", 1)
+    return harness.run(cell, seed, SECONDS * degree**3, False, device="cpu", n=N, **kw)
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -83,6 +86,22 @@ def stress_altered(prog):
 def test_a_broken_step_is_not_correct(cell, fault):
     line = cpu_run(cell, fault=fault)
     assert not line["correct"], line["compared"]
+
+
+@pytest.mark.parametrize("cell", CONFIGS)
+def test_judge_gets_a_dof_map_only_above_degree_1(cell, monkeypatch):
+    from benchmark.reference import check
+
+    seen = []
+    judge = check.judge
+    monkeypatch.setattr(check, "judge", lambda *a, dof_coords: seen.append(dof_coords)
+                        or judge(*a, dof_coords=dof_coords))
+    assert cpu_run(cell)["correct"]
+    degree = harness.read_cell(cell)["config"].get("degree", 1)
+    if degree == 1:
+        assert seen == [None]
+    else:
+        assert seen[0].shape == ((degree * N + 1) ** 3, 3)
 
 
 def test_the_last_line():
