@@ -4,16 +4,22 @@
 Everything that belongs to one configuration, traffic mix or metric sits in
 files of its own, found by the names in ``BENCHMARK.json``:
 ``benchmark/configs/<config>.json`` (with its mesh module
-``benchmark/meshes/<kind>.py`` and its law's reference
+``benchmark/meshes/<kind>.py`` and each law's reference
 ``benchmark/reference/<law>.py``), ``benchmark/traffic/<mix>.json`` and
 ``benchmark/metrics/<metric>.py``. A configuration's ``degree`` (1 where
-it gives none) is its displacement space's. Nothing here names a cell.
+it gives none) is its displacement space's. Its ``law`` runs on every cell;
+where it gives ``laws`` instead, each runs on the cells its ``cells`` rule
+picks (``law_cells``), with a ``constraint`` where the law takes one. Its
+``simulation`` options reach ``PackedSimulation`` as they are, and their
+``del_t`` (1.0 where they give none) is the reference's time step too.
+Nothing here names a cell.
 
 Order of a run: the mesh inputs are made and any mesh file written; the
 set-up clock starts; torch and the port are imported, the simulation is
 built, the warm-up loads and one whole cycle run (every capture and kernel
 build happens here); the window runs cycles of ``solve()`` calls from the
-cycle's start state until ``--seconds`` have passed; the memory peak is
+cycle's start state until ``--seconds`` have passed (and, where a caller
+asks for them, at least ``min_steps`` steps are done); the memory peak is
 read; with ``--trace 1`` one more cycle runs under torch.profiler; the
 program is freed and the reference judges the answers of one cycle drawn
 from the seed.
@@ -29,6 +35,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
+
 from . import loads
 from .meshes import mesh_module
 
@@ -38,6 +46,8 @@ HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "fenics_constitutive_tpu")
 TRACE_TRIES = 3
 WINDOW_MARK = "benchmark.window"
+#: how close a cell's midpoint may lie to a threshold of a law's ``cells`` rule
+ON_THRESHOLD = 1e-9
 
 
 class RunError(Exception):
@@ -80,6 +90,44 @@ def reader(metric: str):
     return mod
 
 
+def law_cells(cfg: dict, inputs: dict) -> list:
+    """[(law, cells)]: the configuration's ``law`` on every cell (cells
+    None), or each of its ``laws`` on the mesh cells (ascending int64 ids)
+    whose midpoint, the mean of the cell's nodes, has its coordinate
+    ``axis`` ``at_least`` and/or ``below`` the rule's thresholds. Raises
+    ``RunError`` where a midpoint lies within ON_THRESHOLD of a threshold
+    (rounding would decide its side), where two laws take one cell, where
+    a cell is taken by no law, and where a law takes no cell."""
+    if "law" in cfg:
+        return [(cfg["law"], None)]
+    mid = inputs["nodes"][inputs["cells"]].mean(axis=1)
+    taken = np.zeros(len(mid), np.int64)
+    out = []
+    for law in cfg["laws"]:
+        rule = law["cells"]
+        x = mid[:, rule["axis"]]
+        picked = np.ones(len(mid), bool)
+        bounds = [(k, float(rule[k])) for k in ("at_least", "below") if k in rule]
+        if not bounds:
+            raise RunError(f"the cells rule of {law['name']} gives neither at_least nor below")
+        for key, t in bounds:
+            near = np.abs(x - t) <= ON_THRESHOLD
+            if near.any():
+                raise RunError(f"cell {int(np.argmax(near))}'s midpoint lies on {law['name']}'s "
+                               f"threshold {key} {t:g} along axis {rule['axis']}")
+            picked &= x >= t if key == "at_least" else x < t
+        cells = np.flatnonzero(picked)
+        if not len(cells):
+            raise RunError(f"the cells rule of {law['name']} picks no cell")
+        taken[cells] += 1
+        out.append((law, cells))
+    if (taken > 1).any():
+        raise RunError(f"cell {int(np.argmax(taken > 1))} is taken by two laws")
+    if (taken == 0).any():
+        raise RunError(f"cell {int(np.argmax(taken == 0))} is taken by no law")
+    return out
+
+
 def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
@@ -88,11 +136,13 @@ def forbidden_modules() -> list:
 
 
 def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
-        n: int | None = None, control: bool = False, fault=None) -> dict:
+        n: int | None = None, control: bool = False, fault=None, min_steps: int = 0) -> dict:
     """One run; returns the result line. ``n`` (cells per edge) overrides
     the configuration's mesh (the tests); ``control`` runs the program in
     the configuration's ``control`` precision and options instead of its
-    own; ``fault(program)`` breaks the program after its set-up (the tests)."""
+    own; ``fault(program)`` breaks the program after its set-up (the tests);
+    the window ends at the first step past ``seconds`` once ``min_steps``
+    steps are done (the tests: whole cycles of slow CPU steps)."""
     files = read_cell(workload)
     cfg, mix = files["config"], files["mix"]
     if control:
@@ -102,15 +152,16 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
     mesh_spec = dict(cfg["mesh"], **({"n": n} if n else {}))
     mesh_mod = mesh_module(mesh_spec["kind"])
     inputs = mesh_mod.inputs(mesh_spec)
+    laws = law_cells(cfg, inputs)
     path = loads.load_path(mix, seed)
     with tempfile.TemporaryDirectory() as tmp:
         mesh_mod.prepare(inputs, mesh_spec, tmp)
-        return _run(files, mesh_spec, mesh_mod, inputs, path, seed, seconds, trace, device,
-                    cfg["dtype"], fault, Path(tmp))
+        return _run(files, mesh_spec, mesh_mod, inputs, laws, path, seed, seconds, trace, device,
+                    cfg["dtype"], fault, min_steps, Path(tmp))
 
 
-def _run(files, mesh_spec, mesh_mod, inputs, path, seed, seconds, trace, device_name, dtype_name,
-         fault, tmp: Path) -> dict:
+def _run(files, mesh_spec, mesh_mod, inputs, laws, path, seed, seconds, trace, device_name,
+         dtype_name, fault, min_steps, tmp: Path) -> dict:
     t_setup = time.perf_counter()
     import torch
 
@@ -133,7 +184,7 @@ def _run(files, mesh_spec, mesh_mod, inputs, path, seed, seconds, trace, device_
         if cuda:
             torch.cuda.synchronize(device)
 
-    prog = program.Program(dict(cfg, mesh=mesh_spec), mesh_mod, inputs, tmp, device, dtype)
+    prog = program.Program(dict(cfg, mesh=mesh_spec), mesh_mod, inputs, laws, tmp, device, dtype)
     if fault is not None:
         fault(prog)
     warm = []
@@ -167,7 +218,7 @@ def _run(files, mesh_spec, mesh_mod, inputs, path, seed, seconds, trace, device_
             if keep:
                 kept.append((load, prog.state.u))
                 kept_state = prog.state
-            if t1 >= deadline:
+            if t1 >= deadline and len(records) >= min_steps:
                 done = True
                 break
         else:
@@ -206,7 +257,7 @@ def _run(files, mesh_spec, mesh_mod, inputs, path, seed, seconds, trace, device_
 
     # -- the answers of the drawn cycle, then the program is freed
     steps = [(load, prog.public_u(u).cpu()) for load, u in warm + kept]
-    last = {k: v.cpu() for k, v in prog.fields(kept_state).items()}
+    last = prog.fields(kept_state)
     dof_coords = prog.dof_coords if cfg.get("degree", 1) > 1 else None
     del prog, start, kept_state, kept, warm, ctx, readers
     gc.collect()
@@ -214,8 +265,8 @@ def _run(files, mesh_spec, mesh_mod, inputs, path, seed, seconds, trace, device_
         torch.cuda.empty_cache()
     from .reference.check import judge
 
-    numbers = judge(inputs, cfg["law"], cfg["boundary"], steps, last, device,
-                    dof_coords=dof_coords)
+    numbers = judge(inputs, laws, cfg["boundary"], steps, last, device,
+                    dt=cfg["simulation"].get("del_t", 1.0), dof_coords=dof_coords)
     limits = cfg["limits"]
     line["correct"] = all(numbers[k] <= limits[k] for k in limits)
     line["compared"] = {k: {"value": numbers[k], "limit": limits[k]} for k in limits}

@@ -1,5 +1,5 @@
 """The system under test, as a user drives it: the port's mesh, function
-space, Dirichlet set and law, and ``PackedSimulation`` with the
+space, Dirichlet set and laws, and ``PackedSimulation`` with the
 configuration's options. Every call into ``fenics_constitutive_tpu_torch``
 that the benchmark makes goes through here."""
 
@@ -28,11 +28,22 @@ def _stretch_x(V, dirichlet):
 BOUNDARIES = {"stretch_x": _stretch_x}
 
 
+def _model(models, law: dict):
+    """The port's model of a law entry (its ``constraint`` by name, where
+    the entry gives one)."""
+    cls = getattr(models, law["name"])
+    if "constraint" in law:
+        return cls(law["params"], models.Constraint[law["constraint"]])
+    return cls(law["params"])
+
+
 class Program:
     """One PackedSimulation of a configuration. ``solve(load)`` is one load
-    step through ``PackedSimulation.solve()``."""
+    step through ``PackedSimulation.solve()``. ``laws`` is the harness's
+    ``law_cells``: one law on every cell (cells None) goes in as the model
+    alone, several as ``[(model, cells)]``."""
 
-    def __init__(self, cfg: dict, mesh_module, inputs: dict, workdir, device, dtype):
+    def __init__(self, cfg: dict, mesh_module, inputs: dict, laws: list, workdir, device, dtype):
         from fenics_constitutive_tpu_torch import models
         from fenics_constitutive_tpu_torch.fem import DirichletBC, FunctionSpace
         from fenics_constitutive_tpu_torch.solver import PackedSimulation
@@ -43,7 +54,10 @@ class Program:
         #: own numbering (the mesh nodes at degree 1)
         self.dof_coords = V.dof_coords
         bcs, self._moved = BOUNDARIES[cfg["boundary"]](V, DirichletBC)
-        law = getattr(models, cfg["law"]["name"])(cfg["law"]["params"])
+        if laws[0][1] is None:
+            law = _model(models, laws[0][0])
+        else:
+            law = [(_model(models, spec), cells) for spec, cells in laws]
         self.sim = PackedSimulation(law, V, bcs, cfg["q_degree"], device=device, dtype=dtype,
                                     **cfg["simulation"])
 
@@ -81,18 +95,20 @@ class Program:
             self.sim.state = keep
 
     def fields(self, state) -> dict:
-        """A state's stress and history fields per cell and point, mesh cell
-        order: ``stress`` [C, Q, 6] and each history field [C, Q, h]."""
+        """A state's fields per cell and point, on the host: ``stress`` [C,
+        Q, 6] of the whole mesh in mesh cell order, and ``histories``, for
+        each law its history fields [C_law, Q, h] on its own cells, in the
+        order they were given."""
         keep = self.sim.state
         try:
             self.sim.state = state
-            out = {"stress": torch.as_tensor(self.sim.stress)}
+            stress = torch.as_tensor(self.sim.stress)
         finally:
             self.sim.state = keep
-        geo = self.sim._geos[0]
-        for name, v in state.histories[0].items():
-            out[name] = geo.extract_cells(v).permute(2, 1, 0).to(torch.float64).cpu()
-        return out
+        histories = [{name: geo.extract_cells(v).permute(2, 1, 0).to(torch.float64).cpu()
+                      for name, v in hist.items()}
+                     for geo, hist in zip(self.sim._geos, state.histories)]
+        return {"stress": stress, "histories": histories}
 
     # -- what the per-layer readers take from the program ---------------------------
 

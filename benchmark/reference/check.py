@@ -17,8 +17,13 @@ stress or history value of the program except to judge it. Numbers:
   bounds.
 - ``state_gap``: at the last step judged, the largest gap over all points
   and components between the program's stress and the reference's, over the
-  reference's largest stress component, and the same for each history field
-  over the larger of its largest value and the law's strain scale.
+  reference's largest stress component, and the same for each law's history
+  fields on its own cells, each over the larger of its largest value there
+  and that law's strain scale.
+
+Where a configuration gives several laws, each runs on its own cells (the
+harness's ``law_cells``), with the time step ``dt`` of the configuration's
+``del_t``; one law runs on every cell.
 
 A space of degree 1 holds its dofs on the mesh nodes in the mesh's order,
 and the displacements are taken as they come. A space of higher degree
@@ -96,14 +101,18 @@ def node_map(mesh: dict, dof_coords: np.ndarray) -> np.ndarray:
     return perm
 
 
-def judge(mesh: dict, law: dict, boundary: str, steps: list, last: dict, device,
-          dof_coords=None) -> dict:
+def judge(mesh: dict, laws: list, boundary: str, steps: list, last: dict, device,
+          dt: float = 1.0, dof_coords=None) -> dict:
     """The numbers compared. ``mesh``: nodes, cells, cell_type (and spacing);
-    ``law``: name and params; ``steps``: [(load, u)] from the zero state, u
-    node-major [3 n_dof_nodes]; ``last``: the program's ``stress`` [C, Q, 6]
-    and history fields [C, Q, h] after the last of them; ``dof_coords``: the
-    program's dof node coordinates where they are not the mesh nodes in
-    order (a space of degree above 1), matched by ``node_map``."""
+    ``laws``: [(law, cells)], each law's name and params on its mesh cells
+    (None: every cell), as ``harness.law_cells`` gives them; ``steps``:
+    [(load, u)] from the zero state, u node-major [3 n_dof_nodes]; ``last``:
+    the program's ``stress`` [C, Q, 6] and, per law, its ``histories``
+    fields [C_law, Q, h] after the last of them; ``dt``: the time step;
+    ``dof_coords``: the program's dof node coordinates where they are not
+    the mesh nodes in order (a space of degree above 1), matched by
+    ``node_map``. Each law's points go through its own reference, and their
+    stresses make one internal force."""
     if dof_coords is not None:
         perm = torch.as_tensor(node_map(mesh, dof_coords))
 
@@ -113,24 +122,43 @@ def judge(mesh: dict, law: dict, boundary: str, steps: list, last: dict, device,
             return out.reshape(-1)
 
         steps = [(load, renumber(torch.as_tensor(u))) for load, u in steps]
-    ref = law_module(law["name"])
-    params = law["params"]
+    if len(last["histories"]) != len(laws):
+        raise RunError(f"the program gives {len(last['histories'])} laws' histories, the "
+                       f"configuration has {len(laws)} laws")
     geo = Geometry(mesh["nodes"], mesh["cells"], mesh["cell_type"], device)
     C, Q = geo.cells.shape[0], geo.Q
+    parts = []  # (reference, params, the law's points in [C * Q] or all)
+    for law, cells in laws:
+        if cells is None:
+            pts, P = slice(None), C * Q
+        else:
+            c = torch.as_tensor(cells, dtype=torch.int64, device=device)
+            pts = (c[:, None] * Q + torch.arange(Q, device=device)).reshape(-1)
+            P = len(pts)
+        parts.append((law_module(law["name"]), law["params"], pts, P))
     dofs_np, weights_np = BOUNDARIES[boundary](mesh["nodes"])
     dofs = torch.as_tensor(dofs_np, device=device)
     weights = torch.as_tensor(weights_np, dtype=torch.float64, device=device)
     free = torch.ones(3 * geo.n_nodes, dtype=torch.bool, device=device)
     free[dofs] = False
-    state = ref.zero_state(C * Q, device)
+    states = [ref.zero_state(P, device) for ref, _, _, P in parts]
     eps_prev = torch.zeros((C * Q, 6), dtype=torch.float64, device=device)
     u_prev = torch.zeros(3 * geo.n_nodes, dtype=torch.float64, device=device)
 
+    def whole_stress(laws_states):
+        stress = torch.zeros((C * Q, 6), dtype=torch.float64, device=device)
+        for (_, _, pts, _), st in zip(parts, laws_states):
+            stress[pts] = st["stress"]
+        return stress
+
     def residual(u):
-        """(free residual norm, the state) at u from the step before's state."""
+        """(free residual norm, the laws' states, the strain) at u from the
+        step before's states."""
         eps = geo.strain(u).reshape(C * Q, 6)
-        new = ref.update(params, eps - eps_prev, state)
-        f = geo.internal_force(new["stress"].reshape(C, Q, 6))
+        d_eps = eps - eps_prev
+        new = [ref.update(params, d_eps[pts], st, dt)
+               for (ref, params, pts, _), st in zip(parts, states)]
+        f = geo.internal_force(whole_stress(new).reshape(C, Q, 6))
         return float(torch.linalg.vector_norm(f[free])), new, eps
 
     bc_gap = newton = 0.0
@@ -141,18 +169,19 @@ def judge(mesh: dict, law: dict, boundary: str, steps: list, last: dict, device,
         u0 = u_prev.clone()
         u0[dofs] = target
         r0 = residual(u0)[0]
-        r, state, eps_prev = residual(u)
+        r, states, eps_prev = residual(u)
         newton = max(newton, r / r0)
         u_prev = u
 
     def gap(prog, mine, floor):
         prog = torch.as_tensor(prog, dtype=torch.float64, device=device)
-        mine = mine.reshape(C, Q, -1)
+        mine = mine.reshape(prog.shape[0], Q, -1)
         scale = max(float(mine.abs().max()), floor)
         diff = float((prog - mine).abs().max())
         return diff / scale if scale > 0 else (0.0 if diff == 0 else float("inf"))
 
-    scale = ref.strain_scale(params)
-    state_gap = max([gap(last["stress"], state["stress"], 0.0)]
-                    + [gap(last[name], state[name], scale) for name in ref.HISTORY])
-    return {"bc_gap": bc_gap, "newton_residual": newton, "state_gap": state_gap}
+    gaps = [gap(last["stress"], whole_stress(states), 0.0)]
+    for (ref, params, _, _), st, hist in zip(parts, states, last["histories"]):
+        scale = ref.strain_scale(params)
+        gaps += [gap(hist[name], st[name], scale) for name in ref.HISTORY]
+    return {"bc_gap": bc_gap, "newton_residual": newton, "state_gap": max(gaps)}

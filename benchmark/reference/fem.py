@@ -15,6 +15,11 @@ functions, the tensor products of the 1D quadratic basis on the nodes 0,
 (1 - sqrt(3/5), 1, 1 + sqrt(3/5)) / 2``, weight ``v_i v_j v_k`` with ``v =
 (5, 8, 5) / 18`` (the program's order of the points at q_degree 4: x
 slowest). Mandel order: xx, yy, zz, sqrt2 xy, sqrt2 xz, sqrt2 yz.
+
+The force sums each dof's cell contributions one after the other, in the
+order of the cells (a segment sum over the contributions sorted by dof), on
+any device: the reference gives the same bits in every run, where an
+``index_add_`` on the card adds with atomics in no fixed order.
 """
 
 from __future__ import annotations
@@ -91,6 +96,17 @@ class Geometry:
         self.dNdx = torch.einsum("qai,cqij->cqaj", dN_ref, Jinv)
         self.w = torch.as_tensor(wq, dtype=dtype, device=device) * torch.linalg.det(J).abs()
         self.Q = dN_ref.shape[0]
+        # the force's segment sum: contribution j of the flat [C, k, 3] force
+        # goes to slot (dof, rank among the dof's contributions in cell order)
+        # of a [3 n_nodes, width] table, whose columns are then added in turn
+        dofs = (3 * self.cells[:, :, None] + torch.arange(3, device=device)).reshape(-1)
+        order = torch.argsort(dofs, stable=True)
+        counts = torch.bincount(dofs, minlength=3 * self.n_nodes)
+        first = torch.cumsum(counts, 0) - counts
+        rank = torch.empty_like(dofs)
+        rank[order] = torch.arange(len(dofs), device=device) - first[dofs[order]]
+        self._width = int(counts.max())
+        self._slot = dofs * self._width + rank
 
     def strain(self, u: torch.Tensor) -> torch.Tensor:
         """Mandel strain [C, Q, 6] of a node-major displacement [3 n_nodes]."""
@@ -110,6 +126,10 @@ class Geometry:
             torch.stack([s[..., 4] / SQRT2, s[..., 5] / SQRT2, s[..., 2]], dim=-1),
         ], dim=-2)  # [C, Q, 3, 3]
         fe = torch.einsum("cq,cqij,cqaj->cai", self.w, sig, self.dNdx)  # [C, k, 3]
-        dofs = (3 * self.cells[:, :, None] + torch.arange(3, device=fe.device)).reshape(-1)
+        table = torch.zeros(3 * self.n_nodes * self._width, dtype=fe.dtype, device=fe.device)
+        table[self._slot] = fe.reshape(-1)
+        table = table.reshape(3 * self.n_nodes, self._width)
         out = torch.zeros(3 * self.n_nodes, dtype=fe.dtype, device=fe.device)
-        return out.index_add_(0, dofs, fe.reshape(-1))
+        for j in range(self._width):
+            out += table[:, j]
+        return out

@@ -33,8 +33,10 @@ def _dev(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return tr, dev
 
 
-def update(params: dict, d_eps: torch.Tensor, state: dict) -> dict:
-    """The state after the strain increment ``d_eps`` [P, 6] from ``state``."""
+def update(params: dict, d_eps: torch.Tensor, state: dict, dt: float) -> dict:
+    """The state after the strain increment ``d_eps`` [P, 6] from ``state``
+    (rate-independent: the time step ``dt`` plays no part)."""
+    del dt
     ka, mu = params["p_ka"], params["p_mu"]
     y0, y00, w = params["p_y0"], params["p_y00"], params["p_w"]
     tr, de = _dev(d_eps)

@@ -19,8 +19,8 @@ def build(cell, tmp_path, n=4):
     mod = mesh_module(spec["kind"])
     inp = mod.inputs(spec)
     mod.prepare(inp, spec, tmp_path)
-    return program.Program(dict(cfg, mesh=spec), mod, inp, tmp_path, torch.device("cpu"),
-                           torch.float64)
+    return program.Program(dict(cfg, mesh=spec), mod, inp, harness.law_cells(cfg, inp), tmp_path,
+                           torch.device("cpu"), torch.float64)
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])

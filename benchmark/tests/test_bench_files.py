@@ -21,7 +21,10 @@ def test_cell_files_load(cell):
     mod = mesh_module(cfg["mesh"]["kind"])
     inp = mod.inputs(dict(cfg["mesh"], n=2))
     assert inp["cells"].max() < len(inp["nodes"])
-    assert check.law_module(cfg["law"]["name"]).HISTORY
+    for law in [cfg["law"]] if "law" in cfg else cfg["laws"]:
+        assert check.law_module(law["name"]).HISTORY
+    if "laws" in cfg:  # the cells rules split the mesh at the size the cell runs
+        assert len(harness.law_cells(cfg, mod.inputs(cfg["mesh"]))) == len(cfg["laws"])
     assert cfg["boundary"] in check.BOUNDARIES and cfg["boundary"] in program.BOUNDARIES
     path = loads.load_path(files["mix"], 2**31 + 12345)
     assert len(path["cycle"]) == len(files["mix"]["cycle"])

@@ -15,6 +15,7 @@ CPU = torch.device("cpu")
 LAW = {"name": "VonMises3D",
        "params": {"p_ka": 175000.0, "p_mu": 80769.0, "p_y0": 1200.0, "p_y00": 2500.0,
                   "p_w": 200.0}}
+EVERY_CELL = [(LAW, None)]
 
 
 def q2_box(n):
@@ -74,15 +75,15 @@ def uniaxial(inp, load):
     C, Q = len(inp["cells"]), 27
     stress = np.zeros((C, Q, 6))
     stress[..., 0] = 9 * K * mu / (3 * K + mu) * load
-    last = {"stress": torch.as_tensor(stress), "eps_n": torch.zeros(C, Q, 6),
-            "alpha": torch.zeros(C, Q, 1)}
+    last = {"stress": torch.as_tensor(stress),
+            "histories": [{"eps_n": torch.zeros(C, Q, 6), "alpha": torch.zeros(C, Q, 1)}]}
     return torch.as_tensor(u.reshape(-1)), last
 
 
 def test_a_permuted_numbering_judges_through_the_coordinates():
     inp = q2_box(2)
     u, last = uniaxial(inp, 1e-3)
-    plain = check.judge(inp, LAW, "stretch_x", [(1e-3, u)], last, CPU)
+    plain = check.judge(inp, EVERY_CELL, "stretch_x", [(1e-3, u)], last, CPU)
     assert all(plain[k] <= lim for k, lim in
                {"bc_gap": 1e-15, "newton_residual": 1e-10, "state_gap": 1e-12}.items()), plain
     pi = np.random.default_rng(3).permutation(len(inp["nodes"]))
@@ -90,11 +91,11 @@ def test_a_permuted_numbering_judges_through_the_coordinates():
     coords[pi] = inp["nodes"]
     u_prog = torch.empty(len(pi), 3, dtype=u.dtype)
     u_prog[pi] = u.reshape(-1, 3)
-    permuted = check.judge(inp, LAW, "stretch_x", [(1e-3, u_prog.reshape(-1))], last, CPU,
+    permuted = check.judge(inp, EVERY_CELL, "stretch_x", [(1e-3, u_prog.reshape(-1))], last, CPU,
                            dof_coords=coords)
     assert permuted == plain
     # taken in the program's order, the same answers are wrong
-    blind = check.judge(inp, LAW, "stretch_x", [(1e-3, u_prog.reshape(-1))], last, CPU)
+    blind = check.judge(inp, EVERY_CELL, "stretch_x", [(1e-3, u_prog.reshape(-1))], last, CPU)
     assert blind["bc_gap"] > 0.1 and blind["state_gap"] > 0.1
 
 
