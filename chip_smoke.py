@@ -102,7 +102,13 @@ around them:
      the card and bound; the same entries and the whole cycle on an
      11 x 10 x 10 box (non-nested transfers); the device ops of one fused
      V-cycle at 50^3 (torch.profiler; fails above 8); the fused V-cycle
-     against the unfused one.
+     against the unfused one. Then the fine levels on bricks (51^3, and the
+     65^3 of a 64^3 box, the P2 box's refined-P1 size): the 65^3 V-cycle and
+     its entries, and a 51^3 chain with two planes of cells masked out (runs
+     of mixed patterns), against their twins, each level's brick launches a V-cycle
+     (fails at 0), its level-0 apply one node a thread and on bricks (CUDA
+     events) beside the float64 bound, and ptxas's registers and spills of
+     both kernels (fails where chain_kernel<f64, 3, run> spills).
  12. bench_torch.py's run as a user runs it by default, in this process:
      phase 5's workload and protocol with fused_smoothing=True, ms/step
      beside phase 5's, the V-cycle fused against unfused, K3 launches per
@@ -387,6 +393,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import re
 import subprocess
 import tempfile
 import time
@@ -2133,6 +2140,122 @@ def phase_k3(results: dict) -> None:
                 results[f"K3_{kind}"] = {**a, "bound_ms": bound, "bound_by": by,
                                          "library_ms": None}
             results["K3_vcycle"] = {"ops": ops, "ms": vf_ms, "unfused_ms": vp_ms}
+        phase_k3_bricks(dtype, tol, mg, r, results)
+
+
+#: the P2 box's refined-P1 fine level: 65^3 nodes, a 64^3 box's
+N_BRICK_BOX = 64
+
+
+def chain_kernel_usage() -> dict:
+    """ptxas's report of each chain_kernel<T, D, run> of this process's
+    smoother build: {(type, D, run): (registers, spill stores, spill loads)}
+    (empty where the library came from an earlier build)."""
+    from fenics_constitutive_tpu_torch.ops import _cuda_build
+
+    out, key = {}, None
+    for line in _cuda_build.build_log.get("smoother", {}).get("log", "").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"chain_kernelI([df])Li(\d)ELi(\d+)E", line)
+            key = (("float32", "float64")[m[1] == "d"], int(m[2]), int(m[3])) if m else None
+            if key:
+                out[key] = [0, 0, 0]
+        elif key and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[key][1:] = [int(m[1]), int(m[2])]
+        elif key and (m := re.search(r"Used (\d+) registers", line)):
+            out[key][0] = int(m[1])
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def k3_apply_us(pre, b, plan) -> float:
+    """One stencil phase of a level's chain on the card (a sweep and the
+    grid sync before it), in us: the zero-start chain of nu = 2 less the one
+    of nu = 1, each timed by CUDA events; ``plan`` () runs it one node a
+    thread, None by the card's rule."""
+    from fenics_constitutive_tpu_torch.ops import cuda_smoother
+
+    ke = pre.ke.double().cpu().numpy()
+    one, two = (cuda_smoother.build_fused_smoother(pre.geo, ke, pre.inv_d, pre.mask, nu=nu,
+                                                   zero_start=True, emit_residual=False)
+                for nu in (1, 2))
+    t = [gated_ms(lambda c=c: c._kernel(None, b, plan=plan), iters=40) for c in (one, two)]
+    return (t[1] - t[0]) * 1e3
+
+
+def phase_k3_bricks(dtype, tol, mg, r, results: dict) -> None:
+    """Phase 11 on bricks: the fine levels of the 50^3 hierarchy (51^3 nodes)
+    and of a 64^3 box's (65^3, the P2 box's refined-P1 fine level) run their
+    stencil phases on bricks: every entry of one V-cycle on the 65^3
+    hierarchy against its twin (bit-equal across two launches), the brick
+    launches of one V-cycle on both, and a level-0 apply one node a thread
+    (before) and on bricks (after), beside its bound and ptxas's registers
+    and spills of both kernels."""
+    from fenics_constitutive_tpu_torch.models import Constraint
+    from fenics_constitutive_tpu_torch.ops import cuda_smoother
+    from fenics_constitutive_tpu_torch.ops.structured import build_structured_geometry
+    from fenics_constitutive_tpu_torch.solver import build_multigrid
+
+    V, bcs = box(N_BRICK_BOX)
+    geo = build_structured_geometry(V, 2, Constraint.FULL, device="cuda", dtype=dtype)
+    mg65 = build_multigrid(geo, MU, KAPPA, torch.as_tensor(free_mask(V, bcs)), device="cuda",
+                           dtype=dtype, nu=3, nu_coarse=2, coarse_direct=True,
+                           fused_smoothing=True)
+    r65 = torch.as_tensor(np.random.default_rng(5).normal(size=V.ndofs), dtype=dtype,
+                          device="cuda")
+    name = str(dtype)[6:]
+    usage = chain_kernel_usage()
+    parts = []
+    for kernel, plain in (((lambda: mg65(r65)), (lambda: mg65.fused_cycle.plain(r65))),
+                          *((k, p) for _, _, k, p, _ in k3_entries(mg65.fused_cycle, r65))):
+        parts.append(check_k3(f"65^3 bricks {name}", kernel, plain, dtype, tol)[1])
+    # a 51^3 level whose cells of two planes are masked out: runs whose nodes
+    # differ in pattern, each such node again by its own stencil
+    pre = mg.fused[0]["pre"]
+    holes = pre.mask.clone().reshape(pre.grid)
+    holes[20:22] = 0
+    chain = cuda_smoother.build_fused_smoother(pre.geo, pre.ke.double().cpu().numpy(),
+                                               pre.inv_d, holes.reshape(-1), nu=3,
+                                               zero_start=True, emit_residual=True)
+    bh = torch.as_tensor(np.random.default_rng(7).normal(size=pre.inv_d.numel()), dtype=dtype,
+                         device="cuda")
+    before = cuda_smoother.brick_launches
+    parts.append(check_k3(f"51^3 bricks with holes {name}", lambda: chain(bh),
+                          lambda: chain.plain(bh), dtype, tol)[1])
+    if cuda_smoother.brick_launches - before != 2:
+        fail(f"K3 51^3 with holes {name}: {cuda_smoother.brick_launches - before} brick "
+             "launches for 2 calls")
+    line = [f"65^3 V-cycle and its entries, and a 51^3 chain with two planes of cells masked "
+            f"out, vs plain rel <= {max(parts):.1e}"]
+    for label, m, rr in (("51^3", mg, r), ("65^3", mg65, r65)):
+        pre = m.fused[0]["pre"]
+        plan = pre.plan(rr.device)
+        before = cuda_smoother.brick_launches
+        m(rr)
+        settle()
+        per_cycle = cuda_smoother.brick_launches - before
+        if plan is None or per_cycle <= 0:
+            fail(f"K3 {label} {name}: level 0 took no bricks (plan {plan}, {per_cycle} brick "
+                 "launches a V-cycle)")
+        n = pre.inv_d.numel()
+        b = torch.as_tensor(np.random.default_rng(6).normal(size=n), dtype=dtype,
+                            device="cuda") * (pre.inv_d != 0).to(dtype)
+        t_node, t_brick = k3_apply_us(pre, b, ()), k3_apply_us(pre, b, None)
+        M = pre.geo.M
+        bound, by = bound_ms(4 * 3 * M * pre.inv_d.element_size(), 2 * 243 * M, torch.float64)
+        line.append(f"{label} (plan {plan}, {per_cycle} of {m.fused_cycle.n_levels} brick "
+                    f"launches a V-cycle) level-0 apply {t_node:.2f} us one node a thread, "
+                    f"{t_brick:.2f} us on bricks (f64 bound {bound * 1e3:.2f} us, {by})")
+        results.setdefault("K3_bricks", {})[f"{label}_{name}"] = {
+            "plan": plan, "apply_us_one_node": t_node, "apply_us_bricks": t_brick,
+            "bound_us_f64": bound * 1e3}
+    for run, what in ((0, "one node a thread"), (cuda_smoother.BRICK_RUN, "bricks")):
+        regs = usage.get((name, 3, run))
+        line.append(f"chain_kernel<{name}, 3, {run}> ({what}): " + (
+            f"{regs[0]} registers, {regs[1]} B spill stores, {regs[2]} B spill loads" if regs
+            else "no ptxas report (an earlier build)"))
+        if run and regs and dtype == torch.float64 and regs[1] + regs[2] > 0:
+            fail(f"chain_kernel<float64, 3, {run}> spills: {regs}")
+    print(f"phase 11 K3 on bricks {name} (tol {tol:g}): " + "; ".join(line))
 
 
 # -- every P1 mesh: the structured-tet and gather engines, the AMG's two formats -------

@@ -58,16 +58,46 @@
 // 9-point stencil of 2 x 2 blocks of its 4 cells, 9 patterns on a box, 18
 // loads and 36 multiply-adds.) (The wrapper
 // takes cell masks of 0 and 1 only, the validity masks the engine builds.)
-// The coefficients are read from shared memory 16 bytes at a time. Every
-// sum is taken in a fixed order by the thread that owns the node: no
-// atomics, and two launches are bit-equal.
+// Every sum is taken in a fixed order by the thread that owns the node: no
+// atomics, and two launches are bit-equal. A stencil phase (a sweep or the
+// residual) runs one of two ways, chosen on the host per level
+// (ops/cuda_smoother.py::brick_plan) and passed as FctChain::run, p1, p2:
+//
+// * one node a thread (chain_kernel<T, D, 0>, every 2D level and the small
+//   3D ones): the node's 27 neighbours a component are loaded from global
+//   memory together, the coefficients read from the stencils in shared
+//   memory 16 bytes at a time;
+// * on bricks (chain_kernel<T, 3, kBrickRun>, a 3D level that gives every SM
+//   at least 4 warps of runs: the 51^3 and 65^3 fine levels): runs of 4
+//   nodes along axis 0 over the planes 1 .. n0 - 2 and of one node on the
+//   planes 0 and n0 - 1 (so that the nodes of a run share their pattern on a
+//   box), over tiles of columns; a block walks over its bricks, stages the
+//   brick's x with its one-node halo and its b and inv_d into shared memory
+//   (cp.async, 8 or 4 bytes a copy: a row of 51 or 65 values is not 16-byte
+//   aligned, so neither 16-byte copies nor a TMA tensor map line up with
+//   it), and each thread slides down its run: each component's 3 x 3
+//   neighbour columns of 6 planes are read once for the 4 nodes, and each
+//   coefficient (read through L1) once for the 4 nodes; a node of another
+//   pattern than its run's middle node (a level with masked cells) is
+//   applied again by its own stencil. The sums run k, d1, d2, d0 per node,
+//   another order than one node a thread's (within the tolerances of the
+//   plain twin).
 //
 // What bounds it on the H100: a chain moves ~13 values per node (~7 MB at
 // 51^3 in float32) and does 243 multiply-adds per node per apply, so its
-// bound is arithmetic (67 TFLOP/s float32, 34 float64) at a few us; what
-// binds it is latency: ~4 us per phase of a cooperative chain on the H100
-// whether it runs 2 or 519 blocks (a grid sync and one node's latency), and
-// one SM for the whole tail. The tensor cores (DMMA, wgmma) are later work.
+// bound is arithmetic (67 TFLOP/s float32, 34 float64): 1.9 us for an apply
+// at 51^3 in float64, 4.0 us at 65^3. What binds it is latency. One node a
+// thread holds 64 registers (4 blocks of 256 an SM) and spills in both
+// types (float64: 476 bytes stored, 572 loaded a thread); an apply (a sweep
+// and its grid sync) takes ~19-21 us at 51^3 in float64, ~49-50 at 65^3. On
+// bricks (128 registers, no spill) ~12.5-13.5 us and ~28-29 us: a 51^3
+// brick spends ~2.5 us staging, ~5.4 us in the stencil (at ~40% of the
+// float64 pipe, 2 bricks an SM), ~1.1 us writing back, and the phase ~1.3
+// us in its grid sync; at 65^3 the runs fill the SMs twice at 128
+// registers, so the bricks go in two rounds. Each level below runs at ~4-7
+// us a phase whether it holds 2 or 519 blocks (a grid sync and one node's
+// latency), and the tail on one SM. The tensor cores (DMMA, wgmma) are
+// later work.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -96,6 +126,8 @@ struct FctChain {
   void* bc;        // [vs, Mc] its restriction (with restrict_to)
   int c0, c1, c2;  // coarse node grid (2D: c2 = 1)
   int zero_start, residual, prolong, restrict_to;
+  int run;         // stencil phases on bricks with runs of `run` nodes a thread, or 0
+  int p1, p2;      // the bricks' tiles along axes 1 and 2 (with run)
 };
 
 constexpr int kMaxTail = 8;
@@ -144,6 +176,11 @@ struct Vec16<double> {
 
 constexpr int kChainThreads = 256;
 constexpr int kTailThreads = 512;
+// a chain on bricks: at most this many threads a block, and the blocks an SM
+// must hold at once by registers (so at most 128 registers a thread)
+constexpr int kBrickThreads = 256;
+constexpr int kBrickBlocks = 2;
+constexpr int kBrickRun = 4;  // nodes a thread takes along axis 0 on bricks
 
 template <typename T>
 struct Lv {
@@ -270,6 +307,209 @@ __device__ void sweep(const Lv<T>& L, const T* st, const T* x, const T* b,
   }
 }
 
+// The bricks of a 3D level: along axis 0 the plane 0, the planes 1 .. n0 - 2
+// cut into runs of kRun nodes (the last run shorter), and the plane n0 - 1,
+// so that the nodes of a run share their pattern of cells on a box; the
+// (axis 1, axis 2) plane cut into p1 x p2 tiles of e1 x e2 columns as even
+// as the grid allows, one thread a column. A brick's x and its one-node
+// halo are staged as [3][w1][w2][kPitch] values (w1, w2: the largest e1 + 2
+// and e2 + 2), a column's kRun + 2 planes together, at an odd pitch so that
+// neighbouring threads' columns fall in different banks; its b and inv_d
+// as [3][w1 - 2][w2 - 2][kPitchB] each.
+template <int kRun>
+constexpr int kPitch = (kRun + 2) | 1;
+template <int kRun>
+constexpr int kPitchB = kRun | 1;
+
+struct Bricks {
+  int p0, p1, p2;
+  int w1, w2;
+};
+
+template <int kRun>
+__device__ __forceinline__ Bricks bricks(int n0, int n1, int n2, int p1, int p2) {
+  return {2 + (n0 - 2 + kRun - 1) / kRun, p1, p2, (n1 + p1 - 1) / p1 + 2, (n2 + p2 - 1) / p2 + 2};
+}
+
+// cp.async of one value into shared memory, or a zero where `in` is false
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src),
+               "n"(sizeof(T)), "r"(in ? static_cast<int>(sizeof(T)) : 0));
+}
+
+// acc[r][j] += (A x)[j] at the run's node r by the stencil c (global
+// memory, read through L1), from the staged brick: col is the staged column
+// (component 0, row t1, column t2), the run's lower corner of its halo. Per
+// component k and neighbour column (d1, d2) the kRun + 2 planes are loaded
+// once and feed every node of the run, and each coefficient is read once
+// for the kRun nodes. Each node sums k, d1, d2, d0 in this order.
+template <typename T, int kRun>
+__device__ __forceinline__ void run_stencil(const T* col, const Bricks& B, const T* __restrict__ c,
+                                            T (&acc)[kRun][3]) {
+  constexpr int kK = Dim<3>::kStencilK, kP = kPitch<kRun>;
+#pragma unroll 1
+  for (int k = 0; k < 3; ++k) {
+    const T* vk = col + k * B.w1 * B.w2 * kP;
+#pragma unroll
+    for (int d12 = 0; d12 < 9; ++d12) {
+      T v[kRun + 2];
+#pragma unroll
+      for (int p = 0; p < kRun + 2; ++p) v[p] = vk[((d12 / 3) * B.w2 + d12 % 3) * kP + p];
+#pragma unroll
+      for (int d0 = 0; d0 < 3; ++d0) {
+        const T* ck = c + k * kK + (d0 * 9 + d12) * 3;
+        const T c0 = __ldg(ck), c1 = __ldg(ck + 1), c2 = __ldg(ck + 2);
+#pragma unroll
+        for (int r = 0; r < kRun; ++r) {
+          acc[r][0] += c0 * v[r + d0];
+          acc[r][1] += c1 * v[r + d0];
+          acc[r][2] += c2 * v[r + d0];
+        }
+      }
+    }
+  }
+}
+
+// acc[j] = (A x)[j] at one node of a run by its own stencil c, in
+// run_stencil's order: col + r is the node's staged column
+template <typename T, int kRun>
+__device__ __noinline__ void node_stencil(const T* col, const Bricks& B, const T* __restrict__ c,
+                                          T (&acc)[3]) {
+  constexpr int kK = Dim<3>::kStencilK, kP = kPitch<kRun>;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) acc[j] = T(0);
+#pragma unroll 1
+  for (int k = 0; k < 3; ++k) {
+    const T* vk = col + k * B.w1 * B.w2 * kP;
+#pragma unroll
+    for (int d12 = 0; d12 < 9; ++d12) {
+#pragma unroll
+      for (int d0 = 0; d0 < 3; ++d0) {
+        const T v = vk[((d12 / 3) * B.w2 + d12 % 3) * kP + d0];
+        const T* ck = c + k * kK + (d0 * 9 + d12) * 3;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) acc[j] += __ldg(ck + j) * v;
+      }
+    }
+  }
+}
+
+// sweep (kResid false) or residual (true) of a 3D level on bricks, the
+// same arithmetic per node as sweep() but the order of its sums: each block
+// walks over its bricks, stages x's brick and halo (zeros outside the grid)
+// and the brick's b and inv_d into shared memory (cp.async), then each
+// thread applies the stencil to its run of nodes along axis 0.
+template <typename T, int kRun, bool kResid>
+__device__ void sweep_bricks(const Lv<T>& L, const T* st, const Bricks& B, T* sx, const T* x,
+                             const T* b, T* out) {
+  constexpr int kP = kPitch<kRun>, kQ = kPitchB<kRun>;
+  const int n0 = L.n0, n1 = L.n1, n2 = L.n2, M = L.M, s0 = n1 * n2;
+  const int nb = B.p0 * B.p1 * B.p2, sk = B.w1 * B.w2 * kP, sq = (B.w1 - 2) * (B.w2 - 2) * kQ;
+  T* sb = sx + 3 * sk;
+  T* sd = sb + 3 * sq;
+  // block b takes bricks [b nb / G, (b + 1) nb / G) (rounded up): with more
+  // blocks than bricks, the busy ones spread evenly over the block indices
+  const int g = gridDim.x;
+  const int q_begin = (blockIdx.x * nb + g - 1) / g;
+  const int q_end = ((blockIdx.x + 1) * nb + g - 1) / g;
+  for (int q = q_begin; q < q_end; ++q) {
+    const int q2 = q % B.p2, q1 = (q / B.p2) % B.p1, q0 = q / (B.p1 * B.p2);
+    // the planes 0 and n0 - 1 are runs of one node
+    const int b0 = q0 == 0 ? 0 : q0 == B.p0 - 1 ? n0 - 1 : 1 + (q0 - 1) * kRun;
+    const int e0 = q0 == 0 || q0 == B.p0 - 1 ? 1 : min(kRun, n0 - 1 - b0);
+    const int b1 = q1 * n1 / B.p1, e1 = (q1 + 1) * n1 / B.p1 - b1;
+    const int b2 = q2 * n2 / B.p2, e2 = (q2 + 1) * n2 / B.p2 - b2;
+    __syncthreads();  // every read of the previous brick is done
+    for (int j = threadIdx.x; j < (e1 + 2) * (e2 + 2); j += blockDim.x) {
+      const int h1 = j / (e2 + 2), h2 = j - h1 * (e2 + 2);
+      const int i1 = b1 - 1 + h1, i2 = b2 - 1 + h2;
+      const bool in12 = i1 >= 0 && i1 < n1 && i2 >= 0 && i2 < n2;
+      T* dst = sx + (h1 * B.w2 + h2) * kP;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+#pragma unroll
+        for (int p = 0; p < kRun + 2; ++p) {
+          const int i0 = b0 - 1 + p;
+          const bool in = in12 && i0 >= 0 && i0 < n0;
+          copy_async(dst + k * sk + p, in ? x + k * M + i0 * s0 + i1 * n2 + i2 : x, in);
+        }
+      }
+    }
+    for (int j = threadIdx.x; j < e1 * e2; j += blockDim.x) {
+      const int h1 = j / e2, h2 = j - h1 * e2;
+      const int i = b0 * s0 + (b1 + h1) * n2 + b2 + h2;
+      const int s = (h1 * (B.w2 - 2) + h2) * kQ;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+#pragma unroll
+        for (int r = 0; r < kRun; ++r) {
+          const bool in = r < e0;
+          copy_async(sb + k * sq + s + r, in ? b + k * M + i + r * s0 : b, in);
+          copy_async(sd + k * sq + s + r, in ? L.invd + k * M + i + r * s0 : L.invd, in);
+        }
+      }
+    }
+    const int t1 = threadIdx.x / e2, t2 = threadIdx.x - t1 * e2;
+    const int n = b0 * s0 + (b1 + t1) * n2 + b2 + t2;
+    const bool active = threadIdx.x < e1 * e2;
+    // the whole run by the stencil of its middle node, then each node of
+    // another pattern again by its own
+    int pat[kRun];
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) pat[r] = active ? __ldg(L.pid + n + min(r, e0 - 1) * s0) : 0;
+    const int mid = active ? __ldg(L.pid + n + (e0 - 1) / 2 * s0) : 0;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (!active) continue;
+    T acc[kRun][3];
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) acc[r][j] = T(0);
+    }
+    const T* col = sx + (t1 * B.w2 + t2) * kP;
+    run_stencil<T, kRun>(col, B, st + mid * kStencilValues<3>, acc);
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) {
+      if (r < e0 && pat[r] != mid) {
+        node_stencil<T, kRun>(col + r, B, st + pat[r] * kStencilValues<3>, acc[r]);
+      }
+    }
+    const T* xc = col + (B.w2 + 1) * kP + 1;  // the run's own staged values
+    const int s = (t1 * (B.w2 - 2) + t2) * kQ;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+#pragma unroll
+      for (int r = 0; r < kRun; ++r) {
+        if (r >= e0) break;
+        const int i = j * M + n + r * s0;
+        const T d = sd[j * sq + s + r];
+        const T rj = (d != T(0) ? sb[j * sq + s + r] : T(0)) - acc[r][j];
+        if constexpr (kResid) {
+          out[i] = d != T(0) ? rj : T(0);
+        } else {
+          out[i] = xc[j * sk + r] + d * rj;
+        }
+      }
+    }
+  }
+}
+
+// a stencil phase of a chain: on bricks (kRun > 0, 3D) or one node a thread
+template <typename T, int D, int kRun, bool kResid>
+__device__ __forceinline__ void stencil_phase(const Lv<T>& L, const T* st, const Bricks& B, T* sx,
+                                              const T* x, const T* b, T* out, int first,
+                                              int stride) {
+  if constexpr (kRun > 0) {
+    static_assert(D == 3, "bricks are 3D");
+    sweep_bricks<T, kRun, kResid>(L, st, B, sx, x, b, out);
+  } else {
+    sweep<T, D, kResid>(L, st, x, b, out, first, stride);
+  }
+}
+
 // trilinear (2D: bilinear) prolongation of xc (coarse grid c0 x c1 x c2;
 // 2D: c0 x c1) at fine node (i0, i1, i2), component k: fine 2i reads coarse
 // i, fine 2i+1 reads (i + (i+1)) / 2 with coarse nodes past the end read as 0
@@ -371,46 +611,58 @@ __device__ void restrict_all(const T* r, int f0, int f1, int f2, T* bc, int c0, 
   }
 }
 
-// A chain: the first write, then the sweeps, each phase behind sync(). The
-// writes alternate between tmp and xout so that the last one lands in xout.
-template <typename T, int D, typename Sync>
-__device__ void run_chain(const Lv<T>& L, const T* st, const T* x, const T* b,
-                          const T* xc, int c0, int c1, int c2, bool zero_start, T* xout,
-                          T* tmp, int first, int stride, Sync sync) {
+// A chain: the first write, then the sweeps (sweep_to(x, out)), each phase
+// behind sync(). The writes alternate between tmp and xout so that the last
+// one lands in xout.
+template <typename T, int D, typename Sync, typename Sweep>
+__device__ void run_chain(const Lv<T>& L, const T* x, const T* b, const T* xc, int c0, int c1,
+                          int c2, bool zero_start, T* xout, T* tmp, int first, int stride,
+                          Sync sync, Sweep sweep_to) {
   const int sweeps = zero_start ? (L.nu > 1 ? L.nu - 1 : 0) : L.nu;
   T* cur = (sweeps & 1) ? tmp : xout;
   start<T, D>(L, x, b, xc, c0, c1, c2, zero_start, cur, first, stride);
   for (int s = 1; s <= sweeps; ++s) {
     sync();
     T* nxt = ((sweeps - s) & 1) ? tmp : xout;
-    sweep<T, D, false>(L, st, cur, b, nxt, first, stride);
+    sweep_to(cur, nxt);
     cur = nxt;
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kChainThreads, 4) chain_kernel(FctChain a) {
+// kRun = 0: every phase one node a thread (kChainThreads a block), the
+// stencils in shared memory; kRun > 0: the stencil phases on bricks (a.p1,
+// a.p2; at most kBrickThreads a block), the brick in shared memory and the
+// stencils read from global memory through L1, which the SM's blocks share
+template <typename T, int D, int kRun>
+__global__ void __launch_bounds__(kRun ? kBrickThreads : kChainThreads, kRun ? kBrickBlocks : 4)
+    chain_kernel(FctChain a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* st = reinterpret_cast<T*>(smem_raw);
-  {
-    const T* g = static_cast<const T*>(a.lv.st);
-    for (int i = threadIdx.x; i < a.lv.n_pat * kStencilValues<D>; i += blockDim.x) st[i] = g[i];
-  }
-  __syncthreads();
-  cg::grid_group grid = cg::this_grid();
+  T* sx = reinterpret_cast<T*>(smem_raw);
+  const T* st = static_cast<const T*>(a.lv.st);
   const Lv<T> L = view<T>(a.lv);
+  if constexpr (kRun == 0) {
+    for (int i = threadIdx.x; i < a.lv.n_pat * kStencilValues<D>; i += blockDim.x) sx[i] = st[i];
+    st = sx;
+    __syncthreads();
+  }
+  cg::grid_group grid = cg::this_grid();
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
   const int stride = gridDim.x * blockDim.x;
   const T* b = static_cast<const T*>(a.b);
   T* xout = static_cast<T*>(a.xout);
-  run_chain<T, D>(L, st, static_cast<const T*>(a.x), b,
+  Bricks B{};
+  if constexpr (kRun > 0) B = bricks<kRun>(L.n0, L.n1, L.n2, a.p1, a.p2);
+  run_chain<T, D>(L, static_cast<const T*>(a.x), b,
                   a.prolong ? static_cast<const T*>(a.xc) : nullptr, a.c0, a.c1, a.c2,
                   a.zero_start != 0, xout, static_cast<T*>(a.tmp), first, stride,
-                  [&] { grid.sync(); });
+                  [&] { grid.sync(); },
+                  [&](const T* x, T* out) {
+                    stencil_phase<T, D, kRun, false>(L, st, B, sx, x, b, out, first, stride);
+                  });
   if (!a.residual) return;
   grid.sync();
   T* r = static_cast<T*>(a.r);
-  sweep<T, D, true>(L, st, xout, b, r, first, stride);
+  stencil_phase<T, D, kRun, true>(L, st, B, sx, xout, b, r, first, stride);
   if (!a.restrict_to) return;
   grid.sync();
   restrict_all<T, D>(r, L.n0, L.n1, L.n2, static_cast<T*>(a.bc), a.c0, a.c1, a.c2, first,
@@ -468,6 +720,9 @@ __global__ void __launch_bounds__(kTailThreads) tail_kernel(FctTail a) {
   }
   const int first = threadIdx.x, stride = blockDim.x;
   auto sync = [] { __syncthreads(); };
+  auto sweep_in = [=](const Lv<T>& L, const T* st, const T* B) {
+    return [=](const T* x, T* out) { sweep<T, D, false>(L, st, x, B, out, first, stride); };
+  };
 
   {
     const T* b = static_cast<const T*>(a.b);
@@ -482,8 +737,8 @@ __global__ void __launch_bounds__(kTailThreads) tail_kernel(FctTail a) {
     T* X = sX[t];
     T* B = sB[t];
     T* S = sS[t];
-    run_chain<T, D>(L, sSt[t], (const T*)nullptr, B, (const T*)nullptr, 0, 0, 0, true, X, S,
-                    first, stride, sync);
+    run_chain<T, D>(L, (const T*)nullptr, B, (const T*)nullptr, 0, 0, 0, true, X, S, first,
+                    stride, sync, sweep_in(L, sSt[t], B));
     __syncthreads();
     sweep<T, D, true>(L, sSt[t], X, B, S, first, stride);
     __syncthreads();
@@ -523,8 +778,8 @@ __global__ void __launch_bounds__(kTailThreads) tail_kernel(FctTail a) {
         }
       }
     } else {
-      run_chain<T, D>(L, sSt[c], (const T*)nullptr, B, (const T*)nullptr, 0, 0, 0, true, X,
-                      sS[c], first, stride, sync);
+      run_chain<T, D>(L, (const T*)nullptr, B, (const T*)nullptr, 0, 0, 0, true, X, sS[c],
+                      first, stride, sync, sweep_in(L, sSt[c], B));
     }
   }
   __syncthreads();
@@ -533,8 +788,8 @@ __global__ void __launch_bounds__(kTailThreads) tail_kernel(FctTail a) {
   for (int t = nt - 2; t >= 0; --t) {
     const Lv<T> L = sL[t];
     const Lv<T> Lc = sL[t + 1];
-    run_chain<T, D>(L, sSt[t], sX[t], sB[t], sX[t + 1], Lc.n0, Lc.n1, Lc.n2, false, sX[t],
-                    sS[t], first, stride, sync);
+    run_chain<T, D>(L, sX[t], sB[t], sX[t + 1], Lc.n0, Lc.n1, Lc.n2, false, sX[t], sS[t], first,
+                    stride, sync, sweep_in(L, sSt[t], sB[t]));
     __syncthreads();
   }
   T* xout = static_cast<T*>(a.xout);
@@ -542,44 +797,83 @@ __global__ void __launch_bounds__(kTailThreads) tail_kernel(FctTail a) {
   for (int i = first; i < kVs * sL[0].M; i += stride) xout[i] = X0[i];
 }
 
-template <typename T, int D>
-int launch_chain(const FctChain* args, void* stream) {
-  // the persistent grid: as many blocks as the SMs hold at once with this
-  // many stencils in shared memory, once per device and pattern count; the
-  // shared-memory opt-in once per device
-  constexpr int kPats = 257;
-  static int cap[fct::kMaxDevices][kPats] = {};
-  static size_t opted[fct::kMaxDevices] = {};
+// the blocks of a persistent grid the card holds at once (kernel, block size
+// and shared memory), once per device and kernel shape
+cudaError_t grid_cap(const void* kernel, int threads, size_t bytes, int& cap) {
+  struct Seen {
+    const void* kernel;
+    int dev, threads;
+    size_t bytes;
+    int cap;
+  };
+  static Seen seen[64];
+  static int n_seen = 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_pat = args->lv.n_pat;
-  if (dev >= fct::kMaxDevices || n_pat < 1 || n_pat >= kPats) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (e != cudaSuccess) return e;
+  for (int i = 0; i < n_seen; ++i) {
+    const Seen& s = seen[i];
+    if (s.kernel == kernel && s.dev == dev && s.threads == threads && s.bytes == bytes) {
+      cap = s.cap;
+      return cudaSuccess;
+    }
   }
-  const size_t bytes = static_cast<size_t>(n_pat) * kStencilValues<D> * sizeof(T);
-  e = fct::opt_in_smem(chain_kernel<T, D>, bytes, opted);
+  int per_sm = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  if (per_sm * sms == 0) return cudaErrorCooperativeLaunchTooLarge;
+  cap = per_sm * sms;
+  if (n_seen < 64) seen[n_seen++] = {kernel, dev, threads, bytes, cap};
+  return cudaSuccess;
+}
+
+// One cooperative launch of chain_kernel<T, D, kRun>: the persistent grid is
+// as many blocks as the SMs hold at once, and no more than the nodes need;
+// the shared-memory opt-in once per device.
+template <typename T, int D, int kRun>
+int launch_chain_as(const FctChain* args, void* stream, int threads, size_t bytes) {
+  static size_t opted[fct::kMaxDevices] = {};
+  const void* kernel = reinterpret_cast<const void*>(chain_kernel<T, D, kRun>);
+  cudaError_t e = fct::opt_in_smem(chain_kernel<T, D, kRun>, bytes, opted);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (cap[dev][n_pat] == 0) {
-    int per_sm = 0, sms = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_kernel<T, D>,
-                                                      kChainThreads, bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (per_sm * sms == 0) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-    cap[dev][n_pat] = per_sm * sms;
-  }
+  int cap = 0;
+  e = grid_cap(kernel, threads, bytes, cap);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int M = args->lv.n0 * args->lv.n1 * args->lv.n2;
-  int blocks = (M + kChainThreads - 1) / kChainThreads;
-  if (blocks > cap[dev][n_pat]) blocks = cap[dev][n_pat];
+  int blocks = (M + threads - 1) / threads;
+  if (blocks > cap) blocks = cap;
   FctChain a = *args;
   void* params[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(chain_kernel<T, D>),
-                                  dim3(blocks), dim3(kChainThreads), params, bytes,
+  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(threads), params, bytes,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// in shared memory the stencils, or with bricks (run, p1, p2) the staged
+// brick; a block of kChainThreads, or on bricks the warps that cover the
+// largest tile of columns
+template <typename T, int D>
+int launch_chain(const FctChain* args, void* stream) {
+  const FctLevel& l = args->lv;
+  if (l.n_pat < 1 || l.n_pat > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (args->run == 0) {
+    const size_t bytes = static_cast<size_t>(l.n_pat) * kStencilValues<D> * sizeof(T);
+    return launch_chain_as<T, D, 0>(args, stream, kChainThreads, bytes);
+  }
+  if (D != 3 || args->run != kBrickRun || l.n0 < 3 || args->p1 < 1 || args->p2 < 1 ||
+      args->p1 > l.n1 || args->p2 > l.n2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int e1 = (l.n1 + args->p1 - 1) / args->p1, e2 = (l.n2 + args->p2 - 1) / args->p2;
+  const int threads = (e1 * e2 + 31) / 32 * 32;
+  if (threads > kBrickThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = (static_cast<size_t>(3) * (e1 + 2) * (e2 + 2) * kPitch<kBrickRun> +
+                        static_cast<size_t>(6) * e1 * e2 * kPitchB<kBrickRun>) * sizeof(T);
+  if constexpr (D == 3) return launch_chain_as<T, 3, kBrickRun>(args, stream, threads, bytes);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, int D>

@@ -32,7 +32,10 @@ the sweeps for a fine level's chain, one block in shared memory for the tail.
 The V-cycle runs ``pre_restrict`` on the levels above the tail's first level
 (``tail_start``, from the level sizes, the type and the shared memory the
 card holds per block), one ``tail``, then ``prolong_post`` upwards: 5 launches
-on the 50^3 hierarchy. On CPU tensors every entry runs its plain PyTorch twin
+on the 50^3 hierarchy. A chain on a level large enough (``brick_plan``: the
+51^3 and 65^3 fine levels) runs its sweeps and residual on bricks of staged
+nodes, 4-node runs a thread, in the same one launch; ``brick_launches``
+counts those launches. On CPU tensors every entry runs its plain PyTorch twin
 (``*_plain``, and ``plain`` for the tail and the whole cycle), and on the card
 nothing calls the twins: an unsupported input there raises.
 """
@@ -52,7 +55,10 @@ from .structured import StructuredGeometry, _matmul
 __all__ = [
     "FusedChain",
     "FusedVcycle",
+    "brick_launches",
+    "brick_plan",
     "build_fused_smoother",
+    "chain_bytes",
     "coarse_len",
     "entry_launches",
     "launches",
@@ -72,6 +78,8 @@ __all__ = [
 launches = 0
 #: the same launches per entry point
 entry_launches = dict.fromkeys(("chain", "pre_restrict", "prolong_post", "tail"), 0)
+#: chain launches that ran their stencil phases on bricks (``brick_plan``)
+brick_launches = 0
 
 #: levels the one-block tail can hold (``kMaxTail`` of csrc/smoother.cu)
 MAX_TAIL_LEVELS = 8
@@ -219,6 +227,65 @@ def tail_start(node_grids, patterns, itemsize: int, smem_bytes: int, vs: int = 3
     return first
 
 
+# -- bricks ------------------------------------------------------------------------------
+
+#: nodes a thread takes along axis 0 in a stencil phase on bricks (kBrickRun
+#: of csrc/smoother.cu)
+BRICK_RUN = 4
+#: the warps of runs each SM must get for a level to take bricks
+BRICK_MIN_WARPS = 4
+#: most columns (threads) of a brick's tile, and most nodes of its rows
+BRICK_TILE, BRICK_ROW = 192, 64
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def chain_bytes(node_grid, plan, n_patterns: int, itemsize: int) -> int:
+    """Shared memory one block of a chain launch asks for: the level's
+    ``n_patterns`` stencils with one node a thread (``plan`` None), or on
+    bricks (``plan`` = (run, p1, p2)) the staged brick at the largest tile
+    e1 x e2: x with its halo, [3][e1 + 2][e2 + 2] columns of (run + 2) | 1
+    values, and b and inv_d, 2 x [3][e1][e2] columns of run | 1 values (the
+    stencils are then read through L1)."""
+    if plan is None:
+        return n_patterns * stencil_values(len(node_grid)) * itemsize
+    run, p1, p2 = plan
+    e1, e2 = _ceil(node_grid[1], p1), _ceil(node_grid[2], p2)
+    return (3 * (e1 + 2) * (e2 + 2) * ((run + 2) | 1) + 6 * e1 * e2 * (run | 1)) * itemsize
+
+
+def brick_plan(node_grid, itemsize: int, sms: int, smem_bytes: int):
+    """How a chain's stencil phases run on a level: ``(run, p1, p2)`` for
+    bricks, or None for one node a thread.
+
+    Bricks cover the level: along axis 0 runs of ``run`` nodes over the
+    planes 1 .. n0 - 2 and runs of one node on the planes 0 and n0 - 1, the
+    (axis 1, axis 2) plane cut evenly into p1 x p2 tiles, one thread a
+    column. A 3D level takes
+    bricks where its runs give each of the card's ``sms`` SMs at least
+    ``BRICK_MIN_WARPS`` warps. A tile's rows are axis 2 cut into the fewest
+    parts of at most ``BRICK_ROW`` nodes, and it takes as many rows as
+    ``BRICK_TILE`` threads hold, fewer where its block would not fit in
+    ``smem_bytes`` (on the H100 the fastest of every cut of the 51^3 and
+    65^3 levels in float64, PERF.md)."""
+    if len(node_grid) != 3 or node_grid[0] < 3:
+        return None
+    n0, n1, n2 = node_grid
+    if (2 + _ceil(n0 - 2, BRICK_RUN)) * n1 * n2 < BRICK_MIN_WARPS * 32 * sms:
+        return None
+    p2 = _ceil(n2, BRICK_ROW)
+    e2 = _ceil(n2, p2)
+    for tile in range(BRICK_TILE, 32, -32):
+        if tile < e2:
+            break
+        plan = (BRICK_RUN, _ceil(n1, tile // e2), p2)
+        if chain_bytes(node_grid, plan, 0, itemsize) <= smem_bytes:
+            return plan
+    return None
+
+
 # -- the C interface ---------------------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -233,7 +300,8 @@ class _Level(ctypes.Structure):
 class _Chain(ctypes.Structure):
     _fields_ = [("lv", _Level), ("x", _P), ("b", _P), ("xc", _P), ("xout", _P), ("tmp", _P),
                 ("r", _P), ("bc", _P), ("c0", _I), ("c1", _I), ("c2", _I),
-                ("zero_start", _I), ("residual", _I), ("prolong", _I), ("restrict_to", _I)]
+                ("zero_start", _I), ("residual", _I), ("prolong", _I), ("restrict_to", _I),
+                ("run", _I), ("p1", _I), ("p2", _I)]
 
 
 class _Tail(ctypes.Structure):
@@ -244,6 +312,7 @@ class _Tail(ctypes.Structure):
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _entries: dict = {}
 _smem: dict = {}
+_sms: dict = {}
 
 
 def _entry(kind: str, dtype: torch.dtype, gdim: int = 3):
@@ -259,10 +328,22 @@ def _grid3(grid) -> tuple:
     return (*grid, 1) if len(grid) == 2 else tuple(grid)
 
 
+def _index(device) -> int:
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors."""
+    index = _index(device)
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
+
+
 def smem_optin(device: torch.device) -> int:
     """Shared memory one block may hold on the card (bytes), as it reports."""
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
+    index = _index(device)
     if index not in _smem:
         fn = load_library("smoother").fct_smem_optin
         fn.argtypes, fn.restype = [_I], _I
@@ -354,6 +435,7 @@ class FusedChain:
         self.st, self.pid = st, pid
         self.grid = tuple(g + 1 for g in geo.grid)
         self._level = None
+        self._plans: dict = {}
 
     def _opts(self) -> dict:
         return dict(nu=self.nu, zero_start=self.zero_start, emit_residual=self.emit_residual)
@@ -383,12 +465,22 @@ class FusedChain:
                                  *_grid3(self.grid), self.nu, self.n_patterns)
         return self._level
 
-    def _kernel(self, x, b):
+    def plan(self, device) -> tuple | None:
+        """The stencil phases' plan on this card (``brick_plan``)."""
+        key = _index(device)
+        if key not in self._plans:
+            self._plans[key] = brick_plan(self.grid, self.inv_d.element_size(),
+                                          sm_count(device), smem_optin(device))
+        return self._plans[key]
+
+    def _kernel(self, x, b, plan=None):
+        """One launch; ``plan`` (a ``brick_plan`` value, or () for one node
+        a thread) replaces the card's rule, for measurements."""
         _check_card_level(self)
         _check(self.geo, b, "b")
         if not self.zero_start:
             _check(self.geo, x, "x")
-        xout, r, _ = _launch(self, "chain", x=x, b=b, residual=self.emit_residual)
+        xout, r, _ = _launch(self, "chain", x=x, b=b, residual=self.emit_residual, plan=plan)
         return (xout, r) if self.emit_residual else xout
 
 
@@ -434,18 +526,21 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _count(kind: str) -> None:
-    global launches
+def _count(kind: str, bricks: bool = False) -> None:
+    global launches, brick_launches
     launches += 1
     entry_launches[kind] += 1
+    brick_launches += int(bricks)
 
 
 def _launch(chain: FusedChain, kind: str, *, x, b, residual: bool, xc=None, coarse=None,
-            restrict: bool = False):
+            restrict: bool = False, plan=None):
     """One cooperative launch of a chain: the first write (inv_d * b, or x
     with ``xc`` prolonged, masked and added), the sweeps, and with
     ``residual`` the residual and with ``restrict`` its restriction onto the
-    grid ``coarse``. Returns (x, r or None, b_coarse or None)."""
+    grid ``coarse``, the stencil phases by ``chain.plan`` (or ``plan``).
+    Returns (x, r or None, b_coarse or None)."""
+    plan = chain.plan(b.device) if plan is None else plan
     sweeps = max(chain.nu - 1, 0) if chain.zero_start else chain.nu
     xout = torch.empty_like(b)
     tmp = torch.empty_like(b) if sweeps else None
@@ -457,11 +552,11 @@ def _launch(chain: FusedChain, kind: str, *, x, b, residual: bool, xc=None, coar
 
     a = _Chain(chain.level(), ptr(x), ptr(b), ptr(xc), ptr(xout), ptr(tmp), ptr(r), ptr(bc),
                *(_grid3(coarse) if coarse else (0, 0, 0)), int(chain.zero_start),
-               int(residual), int(xc is not None), int(restrict))
+               int(residual), int(xc is not None), int(restrict), *(plan or (0, 0, 0)))
     with torch.cuda.device(b.device):
         rc = _entry("chain", b.dtype, chain.geo.gdim)(ctypes.byref(a), _stream(b))
     launch_check("smoother", rc)
-    _count(kind)
+    _count(kind, bool(plan))
     return xout, r, bc
 
 

@@ -117,6 +117,7 @@ LAUNCH_COUNTERS: list = [
     (f"{_PKG}.ops.cuda_eval", "launches"),
     (f"{_PKG}.ops.cuda_smoother", "launches"),
     (f"{_PKG}.ops.cuda_smoother", "entry_launches"),
+    (f"{_PKG}.ops.cuda_smoother", "brick_launches"),
     (f"{_PKG}.ops.cuda_window", "launches"),
     (f"{_PKG}.solver.graph_loop", "launches"),
 ]

@@ -151,6 +151,7 @@ def reset_counts() -> None:
 
     settle()
     cuda_matvec.launches = cuda_eval.launches = cuda_smoother.launches = 0
+    cuda_smoother.brick_launches = 0
     for key in cuda_smoother.entry_launches:
         cuda_smoother.entry_launches[key] = 0
 

@@ -9,6 +9,8 @@ package's own tests do.
 * The fused V-cycle (nu=3, nu_coarse=1, direct or iterative coarse solve)
   against JAX's fused V-cycle and against the port's unfused one: rtol
   1e-10, the bar of the JAX package's test.
+* The host rule that puts a level's stencil phases on bricks on the card
+  (``brick_plan``), and the shared memory each chain asks for.
 """
 
 import jax.numpy as jnp
@@ -161,3 +163,47 @@ def test_quad_level_on_the_card_is_not_ported():
     chain.geo = odd
     with pytest.raises(ValueError, match="corner layouts"):
         chain._kernel(None, z)
+
+
+#: the H100's SMs and the shared memory one block may hold there
+H100_SMS, H100_SMEM = 132, 232_448
+#: node grids of the 50^3 box's hierarchy, the 65^3 P2 lattice's refined-P1
+#: hierarchy and a 512^2 quad hierarchy, with their levels' pattern counts
+HIERARCHIES = {
+    "box50": (((51,) * 3, (26,) * 3, (13,) * 3, (7,) * 3, (4,) * 3), 27),
+    "p2_lattice65": (((65,) * 3, (33,) * 3, (17,) * 3, (9,) * 3, (5,) * 3), 27),
+    "quad512": (((513, 513), (257, 257), (129, 129), (65, 65), (33, 33)), 9),
+}
+
+
+@pytest.mark.parametrize(("hierarchy", "itemsize", "smem", "bricks"), [
+    ("box50", 8, H100_SMEM, (True, False, False, False, False)),
+    ("box50", 4, H100_SMEM, (True, False, False, False, False)),
+    ("p2_lattice65", 8, H100_SMEM, (True, False, False, False, False)),
+    ("p2_lattice65", 4, H100_SMEM, (True, False, False, False, False)),
+    ("quad512", 8, H100_SMEM, (False,) * 5),
+    ("quad512", 4, H100_SMEM, (False,) * 5),
+    # a card with less shared memory a block takes smaller bricks
+    ("box50", 8, 64 * 1024, (True, False, False, False, False)),
+    ("p2_lattice65", 8, 64 * 1024, (True, False, False, False, False)),
+])
+def test_brick_plan(hierarchy, itemsize, smem, bricks):
+    """Which levels run their chains' stencil phases on bricks on the H100:
+    those whose runs give every SM at least BRICK_MIN_WARPS warps (the fine
+    level of both 3D hierarchies, no 2D level); the shared memory each
+    level's chain asks for, on bricks or with its stencils, fits in a block;
+    a brick's tile holds more than a warp and at most BRICK_TILE columns."""
+    grids, n_patterns = HIERARCHIES[hierarchy]
+    for grid, want in zip(grids, bricks):
+        plan = cuda_smoother.brick_plan(grid, itemsize, H100_SMS, smem)
+        assert (plan is not None) == want, grid
+        assert cuda_smoother.chain_bytes(grid, None, n_patterns, itemsize) <= H100_SMEM
+        if plan is None:
+            continue
+        run, p1, p2 = plan
+        assert run == cuda_smoother.BRICK_RUN
+        tile = -(-grid[1] // p1) * -(-grid[2] // p2)
+        assert 33 <= tile <= cuda_smoother.BRICK_TILE
+        runs = (2 + -(-(grid[0] - 2) // run)) * grid[1] * grid[2]
+        assert runs >= cuda_smoother.BRICK_MIN_WARPS * 32 * H100_SMS
+        assert cuda_smoother.chain_bytes(grid, plan, n_patterns, itemsize) <= smem
