@@ -50,7 +50,7 @@ One JSON line: ``metric`` (``mises_1MQP_newton_step_converged``, with
 re-run's), ``r_norm_ref2`` (the 2x-deep one's, where made), ``converged``,
 ``windows_ms``, ``host_windows_ms``, ``spread``, ``host_ms``, ``clock``,
 ``probes`` (the timed window's residual per step), ``n_qp``, ``dtype``,
-``fused``, ``captured``, ``launches`` (K1-K6 over the timed windows), ``setup_s``,
+``fused``, ``captured``, ``launches`` (K1-K6 of one eager window), ``setup_s``,
 ``warmup_s``, ``peak_gib`` and ``device`` (name and power limit). bench.py's
 ``vs_baseline`` (80 ms over the v5p-8's chip count) is a TPU number and is
 not printed.

@@ -302,7 +302,8 @@ The compiled step (solver/compiled.py, the counterpart of jax.jit):
      K6): 8 steps eager (inside disable_capture()) and 8 steps replayed
      from one captured CUDA graph, the replays under
      torch.cuda.set_sync_debug_mode("error"), bit-equal in u, the stresses,
-     the histories and the stats, with equal launch counts; ms/step eager,
+     the histories and the stats, each of the path's kernels launched
+     eagerly; ms/step eager,
      replayed and eager again by the twins' protocol (windows of 8 steps);
      the capture's seconds and what the copy into the static buffers and
      the clone of the outputs cost a call. Then PackedSimulation on the
@@ -322,16 +323,16 @@ counterpart of lax.while_loop; csrc/graph_loop.cu):
 
  27. first the while node alone: a counter loop captured once
      (CudaGraphRecorder), its trip count a device tensor, replays exactly
-     N trips for N = 0, 1 and 37, flat and with a nested loop of 3 trips,
-     the set-conditional kernel launched 1 + N (1 + 5 N) times. Then, each
+     N trips for N = 0, 1 and 37, flat and with a nested loop of 3 trips.
+     Then, each
      at full width, converged Newton and adaptive CG replayed from one
      composed graph (segments captured by torch, child-graph and while
      nodes composed by the shim) against disable_capture(), the replays
      under set_sync_debug_mode("error"): 3 steps from the zero state at
      0.0004 k, bit-equal in u, stresses, histories and the stats
-     (newton_iters, cg_iters_last, r_norm, r0_norm), launches equal; ms/step
-     both ways (windows of 3 steps), the first call's and the composition's
-     seconds, the set-conditional launches a step. (a) the 50^3 hex box
+     (newton_iters, cg_iters_last, r_norm, r0_norm), each of the path's
+     kernels launched eagerly; ms/step both ways (windows of 3 steps), the
+     first call's and the composition's seconds. (a) the 50^3 hex box
      through PackedSimulation (VonMises3D, the fused V-cycle K3, K1 by
      matvec_impl="auto", the plain Mises eval whose local Newton nests in
      each Newton trip), float64 at its defaults and float32 at newton_rtol
@@ -351,11 +352,11 @@ says how often that happened.
 
 Then one JSON line of per-kernel results (launches on the path's run, for
 K3 also on phase 16's tet run, phase 19's fused P2 steps and phase 20's P2
-quad steps, for K4-K6 also on phase 14's 3-step run and phase 21's timed
-run, for K6 also on phase 17's timed run, for every kernel on phase 22's
-packed problem (0 for K1-K3), for K4-K6 per rank on phase 23's sharded
-run, for K1 and K3 on phase 24's full-width creep run, per bench twin on
-its timed windows, times, plain and library times,
+quad steps, for K4-K6 also on phase 14's 3-step run and phase 21's run,
+for K6 also on phase 17's run, for every kernel on phase 22's packed
+problem (0 for K1-K3), for K4-K6 per rank on phase 23's sharded run, for
+K1 and K3 on phase 24's full-width creep run, per bench twin on its eager
+window, times, plain and library times,
 the bound; for K3 also the quad entries' numbers) and, last, the device
 JSON line.
 
@@ -430,7 +431,6 @@ from scripts.torch_bench.common import (
     reset_all_counts,
     reset_counts,
     run_schedule,
-    settle,
     step_args,
     window_counts,
 )
@@ -506,7 +506,7 @@ def hold_line(phase: str, label: str, line: dict, kernels=(), key: str = "launch
               captured: bool = True) -> dict:
     """Print a bench twin's JSON line (without its in-process objects); fail
     unless it says converged, its step was captured in a CUDA graph as
-    ``captured`` says, and its timed run launched each of ``kernels``."""
+    ``captured`` says, and its eager window launched each of ``kernels``."""
     line = {k: v for k, v in line.items() if k != "objects"}
     print(f"{phase} {label}: {json.dumps(line)}", flush=True)
     if line["converged"] is not True:
@@ -517,7 +517,7 @@ def hold_line(phase: str, label: str, line: dict, kernels=(), key: str = "launch
              f"expected {captured}")
     missing = [k for k in kernels if line[key][k] <= 0]
     if missing:
-        fail(f"{phase} {label}: its timed run never launched {', '.join(missing)} "
+        fail(f"{phase} {label}: its eager window never launched {', '.join(missing)} "
              f"({line[key]})")
     BENCH_LINES[label] = line
     return line
@@ -1069,7 +1069,6 @@ def phase_simulation() -> None:
         VonMises3D(MAT), V, bcs, 2, preconditioner="vcycle", eval_impl="kernel",
         dtype=torch.float64, device="cuda",
     )
-    settle()
     k1, k2 = cuda_matvec.launches, cuda_eval.launches
     report = []
     for k in (1, 2, 3):
@@ -1084,7 +1083,6 @@ def phase_simulation() -> None:
     stress = sim.stress
     if stress.shape != (N_BENCH**3, 8, 6) or not np.isfinite(stress).all():
         fail(f"PackedSimulation stress has shape {stress.shape} or non-finite values")
-    settle()
     d1, d2 = cuda_matvec.launches - k1, cuda_eval.launches - k2
     print("phase 6 PackedSimulation 50^3 f64 vcycle: " + "; ".join(report)
           + f"; kernel launches K1 +{d1} K2 +{d2}")
@@ -1242,13 +1240,12 @@ def k7_simulation_step(V, bcs) -> str:
     """One converged plastic step of PackedSimulation (f64 at its defaults,
     the windowed engine with its AMG) from the same state three ways: eager
     with K7, eager with the plain operator, and replayed from the CUDA graph
-    with K7. The replay equals the eager K7 step bit for bit, with as many K7
-    launches as that step made operator applies; the plain operator takes
-    the same Newton trips, and applies within one per trip of K7's."""
+    with K7. The replay equals the eager K7 step bit for bit, with the same
+    Newton and CG trips; the plain operator takes the same Newton trips, and
+    applies within one per trip of K7's."""
     from fenics_constitutive_tpu_torch.models import VonMises3D
     from fenics_constitutive_tpu_torch.ops import cuda_window
-    from fenics_constitutive_tpu_torch.solver import PackedSimulation
-    from fenics_constitutive_tpu_torch.solver.compiled import disable_capture
+    from fenics_constitutive_tpu_torch.solver import PackedSimulation, disable_capture
 
     sim = PackedSimulation(VonMises3D(MAT), V, bcs, 2, dtype=torch.float64, device=CARD,
                            engine="windowed")
@@ -1261,7 +1258,6 @@ def k7_simulation_step(V, bcs) -> str:
 
     def run(label, eager=True, plain=False):
         sim.load_state_dict(start)
-        settle()
         before = cuda_window.launches["cell_apply"]
         applies = []
         if plain:
@@ -1275,7 +1271,6 @@ def k7_simulation_step(V, bcs) -> str:
             if plain:
                 del geo.cell_apply_ref
                 cuda_window.cell_apply_form = pick
-        settle()
         if not converged:
             fail(f"phase 7b: the {label} step did not converge: {sim.last_stats}")
         return {"niter": niter, "cg_last": int(sim.last_stats["cg_iters_last"]),
@@ -1284,11 +1279,11 @@ def k7_simulation_step(V, bcs) -> str:
 
     eager, plain, replay = run("eager K7"), run("plain", plain=True), run("replayed", eager=False)
     same = torch.equal(replay["u"], eager["u"]) and torch.equal(replay["stress"], eager["stress"])
-    if not same or [replay[k] for k in ("niter", "cg_last", "applies")] != [
-            eager[k] for k in ("niter", "cg_last", "applies")]:
+    if not same or [replay[k] for k in ("niter", "cg_last")] != [
+            eager[k] for k in ("niter", "cg_last")]:
         fail(f"phase 7b: the replayed K7 step differs from the eager one: "
-             f"{ {k: v for k, v in replay.items() if k not in ('u', 'stress')} } against "
-             f"{ {k: v for k, v in eager.items() if k not in ('u', 'stress')} }")
+             f"{ {k: replay[k] for k in ('niter', 'cg_last')} } against "
+             f"{ {k: eager[k] for k in ('niter', 'cg_last')} }")
     if plain["niter"] != eager["niter"] or abs(plain["applies"] - eager["applies"]) > eager["niter"]:
         fail(f"phase 7b: K7 took {eager['niter']} Newton trips and {eager['applies']} applies, "
              f"the plain operator {plain['niter']} and {plain['applies']}")
@@ -1299,8 +1294,8 @@ def k7_simulation_step(V, bcs) -> str:
              f"{s_rel:.3e} > {TOL_K7_STEP:g}")
     return (f"one plastic step (f64 defaults): Newton {eager['niter']} / {plain['niter']} "
             f"(K7 / plain), CG last {eager['cg_last']} / {plain['cg_last']}, applies "
-            f"{eager['applies']} / {plain['applies']}; the replay bit-equal to eager K7 with "
-            f"{replay['applies']} K7 launches; u rel {u_rel:.2e}, stress rel {s_rel:.2e} "
+            f"{eager['applies']} / {plain['applies']}; the replay bit-equal to eager K7, "
+            f"Newton and CG trips equal; u rel {u_rel:.2e}, stress rel {s_rel:.2e} "
             f"(tol {TOL_K7_STEP:g})")
 
 
@@ -1569,7 +1564,6 @@ def phase_tet_simulation(tet: dict) -> None:
     if (sim.engine, sim.preconditioner) != ("windowed", "amg"):
         fail(f"PackedSimulation resolved to {sim.engine} + {sim.preconditioner}, "
              "expected windowed + amg")
-    settle()
     before = dict(cuda_window.launches)
     report = []
     for k in (1, 2, 3):
@@ -1588,7 +1582,6 @@ def phase_tet_simulation(tet: dict) -> None:
         fail(f"PackedSimulation stress has shape {stress.shape} or non-finite values")
     if sim.u.shape != (V.ndofs,) or not torch.isfinite(sim.u).all():
         fail("PackedSimulation displacement has the wrong shape or non-finite values")
-    settle()
     rise = {k: cuda_window.launches[k] - before[k] for k in before}
     print(f"phase 10 PackedSimulation on the imported 35^3 mesh f32 ({sim.engine} + "
           f"{sim.preconditioner}, build {build_s:.1f} s): " + "; ".join(report)
@@ -1848,7 +1841,6 @@ def phase_library() -> None:
             for device in (CARD, "cpu"):
                 V = FunctionSpace(tet_mesh, 1, 3) if kind == "tet" else box(N_LIBRARY)[0]
                 bcs = bench_bcs(V)
-                settle()
                 k1 = cuda_matvec.launches
                 win = sum(cuda_window.launches.values())
                 laws = make(V) if make is two_layer_laws else make()
@@ -1862,7 +1854,6 @@ def phase_library() -> None:
                     if not conv:
                         fail(f"phase 15 {kind} {name} on {device}: step {k} did not converge")
                     iters.append(niter)
-                settle()
                 runs[device] = (sim.u.cpu(), torch.as_tensor(sim.stress), iters,
                                 cuda_matvec.launches - k1,
                                 sum(cuda_window.launches.values()) - win)
@@ -2231,7 +2222,6 @@ def phase_k3_bricks(dtype, tol, mg, r, results: dict) -> None:
         plan = pre.plan(rr.device)
         before = cuda_smoother.brick_launches
         m(rr)
-        settle()
         per_cycle = cuda_smoother.brick_launches - before
         if plan is None or per_cycle <= 0:
             fail(f"K3 {label} {name}: level 0 took no bricks (plan {plan}, {per_cycle} brick "
@@ -2376,7 +2366,7 @@ def phase_tet_box(results: dict) -> dict:
     results["tet_box"] = {"counts": counts, "ms_step": runs[True]["ms_step"],
                           "eager_ms_step": runs[False]["ms_step"]}
     K = TET_BOX_STEPS
-    n_steps = K * len(BENCH_LINES["tet"]["windows_ms"])
+    n_steps = K  # the counts are of one eager window (time_windows)
     print(f"phase 16 Kuhn box {N_TET_BOX}^3 f32 ({N_QP_TET_BOX:,} QPs, structured-tet engine, "
           f"{mgs[True].n_levels} levels {fc.node_grids}): fused V-cycle "
           f"{runs[True]['ms_step']:.3f} ms/step, eager {runs[False]['ms_step']:.3f} ms/step, "
@@ -2451,7 +2441,7 @@ def phase_gather(tet: dict, workdir: Path) -> dict:
     QPs, whose levels K6 applies on the card, fixed-3 PCG held to fixed-9
     and fixed-18 by the bench twins' protocol; one step run twice (bit for bit); the ELL levels of the same hierarchy
     beside them (V-cycle and step); the displacement and stress through
-    write_vtu/read_vtu. Returns the K6 launches of the timed run."""
+    write_vtu/read_vtu. Returns the K6 launches of one eager window."""
     from fenics_constitutive_tpu_torch.fem import (
         FunctionSpace,
         read_gmsh,
@@ -2557,7 +2547,7 @@ def phase_gather(tet: dict, workdir: Path) -> dict:
         fail("the VTU round trip of the displacement and stress is not bit-equal")
 
     bs_g, bs_a, bs_e = geo.build_seconds, amg.build_seconds, ell.build_seconds
-    n_steps = K * len(run["windows_ms"])
+    n_steps = K  # the counts are of one eager window (time_windows)
     print(f"phase 17 gather engine + AMG on the imported {N_TET}^3 mesh f32 ({geo.N:,} QPs "
           f"unpadded, gather_idx {tuple(geo.gather_idx.shape)}, AMG {amg.n_levels} windowed "
           f"levels; build {build_s:.1f} s): {run['value']:.3f} ms/step, the median of "
@@ -2777,7 +2767,11 @@ def phase_p2_box(results: dict) -> dict:
         LatticeGeometry,
         build_packed_geometry,
     )
-    from fenics_constitutive_tpu_torch.solver import PackedSimulation, build_packed_problem
+    from fenics_constitutive_tpu_torch.solver import (
+        PackedSimulation,
+        build_packed_problem,
+        disable_capture,
+    )
     from fenics_constitutive_tpu_torch.solver.multigrid import refined_p1_geometry
 
     V, bcs = p2_box(N_P2)
@@ -2852,8 +2846,10 @@ def phase_p2_box(results: dict) -> dict:
     ref_eager = p2_step_runs(p2_eager(V, bcs, torch.float64)[1], loads[-1:])
     sim, run = p2_fused(V, bcs, f32)
     run(loads[0])  # the first step: the kernels' first launches
-    reset_counts()
     fused = p2_step_runs(run, loads[1:])
+    reset_counts()
+    with disable_capture():  # a replay adds no count: the same steps eagerly
+        p2_step_runs(run, loads[1:])
     counts = read_counts()
     r = geo.to_grid_major(torch.as_tensor(rng.normal(size=V.ndofs), dtype=f32, device=CARD))
     # the step's own V-cycle against its plain twin
@@ -3058,7 +3054,7 @@ def phase_p2_imported(results: dict, workdir: Path) -> dict:
     from fenics_constitutive_tpu_torch.fem import FunctionSpace, read_gmsh, write_gmsh
     from fenics_constitutive_tpu_torch.models import VonMises3D
     from fenics_constitutive_tpu_torch.ops import cuda_window
-    from fenics_constitutive_tpu_torch.solver import PackedSimulation
+    from fenics_constitutive_tpu_torch.solver import PackedSimulation, disable_capture
 
     t0 = time.perf_counter()
     written = imported_mesh(N_P2_TET)
@@ -3126,16 +3122,16 @@ def phase_p2_imported(results: dict, workdir: Path) -> dict:
     torch.cuda.synchronize()
     K = 10
     scales = [2.0 + 0.05 * (i + 1) for i in range(K)]
-    settle()
-    for key in cuda_window.launches:
-        cuda_window.launches[key] = 0
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
     ev0.record()
     out_state, probes = run_schedule(step, models, st.clone(), args, scales)
     ev1.record()
     ev1.synchronize()
-    settle()
+    for key in cuda_window.launches:
+        cuda_window.launches[key] = 0
+    with disable_capture():  # a replay adds no count: the same steps eagerly
+        run_schedule(step, models, st.clone(), args, scales)
     counts = dict(cuda_window.launches)
     ms_step = ev0.elapsed_time(ev1) / K
     if not (torch.isfinite(probes).all() and torch.isfinite(out_state.u).all()):
@@ -3920,15 +3916,15 @@ def path_on_its_own(label: str) -> dict:
 
 def compiled_run(label: str, path: dict, phase: str = "phase 26", K: int = COMPILED_STEPS,
                  scales_of=None, eager_again: bool = True) -> dict:
-    """One path: K steps eager (inside disable_capture) and K steps replayed
-    from the same warm state under torch.cuda.set_sync_debug_mode("error"),
-    which must agree bit for bit in u, the stresses, the histories and the
-    stats, with equal launch counts; then ms/step both ways by the twins'
-    protocol (common.time_windows, windows of K steps at ``scales_of(j)``,
-    by default the bench ramp). Also the capture's and the composition's
-    seconds and the set-conditional kernel's launches a replayed step."""
-    from fenics_constitutive_tpu_torch.solver import disable_capture, graph_loop
-    from fenics_constitutive_tpu_torch.solver.compiled import _clone, _map, settle_counters
+    """One path: K steps eager (inside disable_capture), each of the path's
+    kernels launched, and K steps replayed from the same warm state under
+    torch.cuda.set_sync_debug_mode("error"), which must agree bit for bit in
+    u, the stresses, the histories and the stats; then ms/step both ways by
+    the twins' protocol (common.time_windows, windows of K steps at
+    ``scales_of(j)``, by default the bench ramp). Also the capture's and the
+    composition's seconds."""
+    from fenics_constitutive_tpu_torch.solver import disable_capture
+    from fenics_constitutive_tpu_torch.solver.compiled import _clone, _map
     from scripts.torch_bench.common import launches, time_windows
     from scripts.torch_bench.common import scales as bench_scales
 
@@ -3958,24 +3954,19 @@ def compiled_run(label: str, path: dict, phase: str = "phase 26", K: int = COMPI
         eager, eager_rows = run(state0)
     torch.cuda.synchronize()
     eager_counts = launches()
-    reset_all_counts()
-    settle_counters()
-    sets = graph_loop.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         graph, graph_rows = run(state0)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    graph_counts = launches()
-    sets = (graph_loop.launches - sets) / K
     if not same_tree(eager, graph):
         fail(f"{phase} {label}: {K} replayed steps differ from {K} eager steps")
     if not all(same_tree(a, b) for a, b in zip(eager_rows, graph_rows)):
         fail(f"{phase} {label}: the replayed steps' stats differ from the eager steps'")
-    if eager_counts != graph_counts or any(eager_counts[k] <= 0 for k in path["kernels"]):
-        fail(f"{phase} {label}: launches eager {eager_counts} vs replayed {graph_counts} "
-             f"(each of {path['kernels']} must launch)")
+    if any(eager_counts[k] <= 0 for k in path["kernels"]):
+        fail(f"{phase} {label}: eager launches {eager_counts} (each of {path['kernels']} must "
+             "launch)")
     if not torch.isfinite(graph.u).all():
         fail(f"{phase} {label}: non-finite state")
 
@@ -4000,8 +3991,8 @@ def compiled_run(label: str, path: dict, phase: str = "phase 26", K: int = COMPI
             "host_ms": (t_eager["host_ms"], t_graph["host_ms"]), "capture_s": capture_s,
             "segment_capture_s": recorder.seconds["capture"],
             "compose_s": recorder.seconds["compose"], "segments": len(recorder.graphs),
-            "loops": len(recorder.loops), "set_conditional_per_step": sets,
-            "copy_ms": copy_ms, "counts": graph_counts, "replays": step.replays,
+            "loops": len(recorder.loops), "copy_ms": copy_ms, "counts": eager_counts,
+            "replays": step.replays,
             "stats": {k: graph_rows[-1][k].item() for k in graph_rows[-1]}}
 
 
@@ -4022,7 +4013,7 @@ def phase_compiled() -> dict:
         c = r["counts"]
         print(f"phase 26 {label}: {COMPILED_STEPS} replayed steps bit-equal to {COMPILED_STEPS} "
               f"eager ones (u, stresses, histories, stats; no host sync in the replays), "
-              f"launches equal ({', '.join(f'{k} {c[k]}' for k in path['kernels'])}); "
+              f"eager launches {', '.join(f'{k} {c[k]}' for k in path['kernels'])}; "
               f"ms/step eager {r['eager_ms']:.3f} / graph {r['graph_ms']:.3f} / eager "
               f"{r['eager_ms_again']:.3f} (medians of windows of {COMPILED_STEPS} steps, "
               f"spread {r['spread'][0]:.1%} / {r['spread'][1]:.1%}; host clock "
@@ -4170,14 +4161,9 @@ def loop_self_test() -> str:
     """The while node alone: a counter loop captured once by
     CudaGraphRecorder, its trip count a device tensor, replays exactly N
     trips for N = 0, 1 and 37, alone and with a nested loop of 3 trips a
-    trip; the set-conditional kernel's launches settle to 1 + N (1 + 5 N
-    nested). Also the versions the while node needs."""
+    trip. Also the versions the while node needs."""
     from fenics_constitutive_tpu_torch.solver import graph_loop
-    from fenics_constitutive_tpu_torch.solver.compiled import (
-        CudaGraphRecorder,
-        device_while,
-        settle_counters,
-    )
+    from fenics_constitutive_tpu_torch.solver.compiled import CudaGraphRecorder, device_while
 
     build, driver = graph_loop.versions()
     if not hasattr(torch.cuda.CUDAGraph, "raw_cuda_graph"):
@@ -4205,22 +4191,18 @@ def loop_self_test() -> str:
         got = []
         for trips in LOOP_TRIPS:
             n.fill_(trips)
-            settle_counters()
-            before = graph_loop.launches
             torch.cuda.set_sync_debug_mode("error")
             try:
                 rec.replay()
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             torch.cuda.synchronize()
-            settle_counters()
-            sets = graph_loop.launches - before
-            want = (trips, trips * (3.0 if nested else 1.0), 1 + trips * (5 if nested else 1))
-            have = (int(out[0]), float(out[1]), sets)
+            want = (trips, trips * (3.0 if nested else 1.0))
+            have = (int(out[0]), float(out[1]))
             if have != want:
-                fail(f"phase 27 counter loop (nested {nested}): {trips} trips gave (trips, sum, "
-                     f"set-conditional launches) {have}, expected {want}")
-            got.append(f"{trips}: {have[0]} trips, {have[2]} sets")
+                fail(f"phase 27 counter loop (nested {nested}): {trips} trips gave (trips, sum) "
+                     f"{have}, expected {want}")
+            got.append(f"{trips}: {have[0]} trips")
         report.append(f"{'nested' if nested else 'flat'} ({len(rec.graphs)} segments, "
                       f"{rec.graph.sets} set nodes) " + ", ".join(got))
     line = (f"while node self-test (CUDA runtime {build}, driver {driver}, torch "
@@ -4335,8 +4317,8 @@ def phase_loops(tet: dict | None = None, n_box: int = N_BENCH, n_p2: int = N_P2,
                 q_p2: int = 4) -> dict:
     """Phase 27: the steps whose loops the device decides, each replayed from
     one composed graph (compiled_run: bit-equal to disable_capture() in u,
-    stresses, histories and stats, launches equal, no host read during the
-    replays, ms/step both ways): (a) the box through PackedSimulation in
+    stresses, histories and stats, the path's kernels launched eagerly, no
+    host read during the replays, ms/step both ways): (a) the box through PackedSimulation in
     float64 and float32, (b) the imported tet mesh on the windowed engine,
     (c) p2.py's step; first the while node's self-test, last
     PackedSimulation.solve() at its defaults."""
@@ -4357,14 +4339,13 @@ def phase_loops(tet: dict | None = None, n_box: int = N_BENCH, n_p2: int = N_P2,
         print(f"phase 27 {label}: {LOOP_STEPS} replayed steps bit-equal to {LOOP_STEPS} eager "
               f"ones (u, stresses, histories; newton_iters {st['newton_iters']}, cg_iters_last "
               f"{st['cg_iters_last']}, r_norm {st['r_norm']:.4e}, r0_norm {st['r0_norm']:.4e} "
-              f"on the last), no host sync in the replays, launches equal ("
-              f"{', '.join(f'{k} {c[k]}' for k in path['kernels'])}); ms/step eager "
+              f"on the last), no host sync in the replays, eager launches "
+              f"{', '.join(f'{k} {c[k]}' for k in path['kernels'])}; ms/step eager "
               f"{r['eager_ms']:.3f} / graph {r['graph_ms']:.3f} (spread {r['spread'][0]:.1%} / "
               f"{r['spread'][1]:.1%}; host clock {r['host_ms'][0]:.3f} / {r['host_ms'][1]:.3f}); "
               f"first call {r['capture_s']:.2f} s (segment capture {r['segment_capture_s']:.3f} "
               f"s, composition {r['compose_s']:.3f} s; {r['segments']} segments, {r['loops']} "
-              f"loops); set-conditional launches {r['set_conditional_per_step']:.1f} a step",
-              flush=True)
+              f"loops)", flush=True)
         if label.startswith("(a)") and "float64" in label:
             results["simulation"] = loop_simulation(path)
         del path
@@ -4374,7 +4355,6 @@ def phase_loops(tet: dict | None = None, n_box: int = N_BENCH, n_p2: int = N_P2,
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
-    settle()  # no replayed loop's trips left to count in a later phase
     print(f"{label} took {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
@@ -4461,7 +4441,7 @@ def main() -> None:
          "launches_parity_run": parity["packed"]["K6"],
          "launches_sharded_run": [r["K6"] for r in sharded], **results["K6"]},
     ]
-    for k in kernels:  # the bench twins' timed runs (phases 5, 9, 12, 16 and 25)
+    for k in kernels:  # the bench twins' eager windows (phases 5, 9, 12, 16 and 25)
         key = TWIN_LAUNCH_KEYS[k["name"]]
         runs = {label: line.get("amg_launches", line.get("launches"))[key]
                 for label, line in BENCH_LINES.items()}
@@ -4649,7 +4629,7 @@ def newton_forms(K: int = 24) -> None:
                 if len(rec.graphs) != 1 or rec.loops:
                     fail(f"newton forms: the select form has {len(rec.graphs)} segments")
                 if replay == "torch":
-                    rec.launch = rec.graphs[0].replay
+                    rec.replay = rec.graphs[0].replay
                 run(f"{v} V-cycle, select, {replay} replay", step, models, state, args)
     finally:
         packed_step.device_while = own

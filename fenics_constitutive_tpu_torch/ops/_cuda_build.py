@@ -19,7 +19,10 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_log", "entry_point", "launch_check", "load_library"]
+import torch
+
+__all__ = ["NVCC_FLAGS", "build_log", "entry_point", "launch_check", "launched",
+           "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -110,3 +113,11 @@ def launch_check(name: str, rc: int) -> None:
         err = _libs[name].fct_error_string(rc).decode()
         msg = f"{name} kernel: CUDA launch failed: {err} (cudaError {rc})"
         raise RuntimeError(msg)
+
+
+def launched() -> int:
+    """What a launch just made adds to its wrapper's counter: 1, or 0 while
+    the current stream is capturing a CUDA graph, which records the kernel
+    and launches nothing. Every wrapper counts through it."""
+    capturing = torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
+    return 0 if capturing else 1

@@ -27,7 +27,7 @@ import torch
 
 from ..models.mises import VonMises3D
 from ..models.packed_models import newton_controls
-from ._cuda_build import entry_point, launch_check
+from ._cuda_build import entry_point, launch_check, launched
 from .cuda_matvec import check_cuda_args, hex_tables, hot_path_geometry
 from .structured import StructuredGeometry
 
@@ -115,7 +115,7 @@ def build_cuda_eval(geo: StructuredGeometry, model: VonMises3D):
                 *node_grid, stream,
             )
         launch_check("eval", rc)
-        launches += 1
+        launches += launched()
         return r, s_new, (beta, gamma, n_new), {"eps_n": e_new, "alpha": a_new}
 
     return eval_assemble

@@ -18,7 +18,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ._cuda_build import entry_point, launch_check
+from ._cuda_build import entry_point, launch_check, launched
 from . import mandel
 from .packed import IsotropicTangent
 from .structured import StructuredGeometry, StructuredTetGeometry
@@ -183,7 +183,7 @@ def build_cuda_matvec(geo: StructuredGeometry, *, brick_nodes=None):
                 *tables["brick"], stream,
             )
         launch_check("matvec", rc)
-        launches += 1
+        launches += launched()
         return r
 
     def matvec(u_gm: torch.Tensor, tangent: IsotropicTangent) -> torch.Tensor:

@@ -48,7 +48,7 @@ import math
 import numpy as np
 import torch
 
-from ._cuda_build import entry_point, launch_check, load_library
+from ._cuda_build import entry_point, launch_check, launched, load_library
 from .cuda_matvec import hex_corner_layout
 from .structured import StructuredGeometry, _matmul
 
@@ -528,9 +528,10 @@ def _stream(t: torch.Tensor) -> int:
 
 def _count(kind: str, bricks: bool = False) -> None:
     global launches, brick_launches
-    launches += 1
-    entry_launches[kind] += 1
-    brick_launches += int(bricks)
+    n = launched()
+    launches += n
+    entry_launches[kind] += n
+    brick_launches += n * bricks
 
 
 def _launch(chain: FusedChain, kind: str, *, x, b, residual: bool, xc=None, coarse=None,

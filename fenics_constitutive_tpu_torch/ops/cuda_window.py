@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from ._cuda_build import entry_point, launch_check
+from ._cuda_build import entry_point, launch_check, launched
 from .cuda_matvec import coefficients
 from .mandel import Constraint
 from .packed import IsotropicTangent
@@ -237,7 +237,7 @@ def windowed_gather(ex, u2: torch.Tensor) -> torch.Tensor:
     out = u2.new_empty((ex.B, K, ex.Rn))
     _launch(_entry("gather", u2.dtype), index, u2.data_ptr(), loc.data_ptr(),
             out.data_ptr(), K, ex.B, ex.Rn, ex.T, ex.M_pad)
-    launches["gather"] += 1
+    launches["gather"] += launched()
     return out
 
 
@@ -257,7 +257,7 @@ def windowed_scatter(ex, f: torch.Tensor) -> torch.Tensor:
     out = f.new_empty((K, ex.M_pad))
     _launch(_entry("scatter", f.dtype), index, f.data_ptr(), ex.node_ptr.data_ptr(),
             ex.node_rows.data_ptr(), out.data_ptr(), K, ex.Rn, ex.M_pad)
-    launches["scatter"] += 1
+    launches["scatter"] += launched()
     return out
 
 
@@ -291,7 +291,7 @@ def windowed_bsr_matvec(w, x: torch.Tensor, *, lanes: int | None = None) -> torc
     _launch(_entry("bsr", x.dtype), index, x.data_ptr(), w.row_ptr.data_ptr(),
             w.col.data_ptr(), blk.data_ptr(), y.data_ptr(), w.br, w.bc, w.NR_pad,
             w.NC_pad, lanes.bit_length() - 1, round_bf16)
-    launches["bsr_matvec"] += 1
+    launches["bsr_matvec"] += launched()
     return y
 
 
@@ -377,5 +377,5 @@ def windowed_cell_apply(geo, u2: torch.Tensor, tangent) -> torch.Tensor:
             geo.dN.data_ptr(), geo.w.data_ptr(), beta[0], gamma[0], n.data_ptr(),
             coef.data_ptr(), geo.mandel_T.data_ptr(), f.data_ptr(), ex.C_B, ex.B, ex.T,
             ex.M_pad, geo.n_qp, beta[1], gamma[1], N if n_qp_stride else 1, n_qp_stride)
-    launches["cell_apply"] += 1
+    launches["cell_apply"] += launched()
     return f

@@ -17,8 +17,10 @@ the step on them. The first call of a key runs the step once eagerly (the
 warm-up: it makes the kernels' one-time set-up calls, and its result is the
 call's result), then captures one call; every later call copies in and
 replays. A new capture is taken when a shape, a dtype, the Dirichlet dofs
-or a model object changes (JAX's retrace); the Dirichlet set is prepared
-outside the graph, once per capture (``step.prepare``).
+or a model object changes (JAX's retrace). The key holds the Dirichlet dofs
+as host bytes (``PackedSimulation`` passes a host array; a device tensor is
+read back); the set is uploaded and prepared outside the graph, once per
+capture (``step.prepare``).
 
 Loops. ``device_while`` runs eagerly as ``while cond(carry): carry =
 body(carry)``, reading the 0-d bool predicate back once a trip: the only
@@ -55,14 +57,10 @@ the products of the step run through ``ops.structured._matmul``, which
 switches it off around each call, and a graph keeps the setting of its
 capture.
 
-Launch counters. The kernels' wrappers count at call time, and a replay
-calls no wrapper: the counts a capture makes are recorded per segment (and
-taken back, since a capture launches nothing). A replay adds the counts of
-the segments outside any loop; each loop keeps a device-side trip counter,
-and ``settle_counters()`` (which ``read_counters()`` calls) reads the
-counters back and adds each loop's counts per trip times its new trips. So
-a counter reads the same after K replays as after K eager steps, at the
-price of one host read when it is read, never one a replay.
+Launch counters. A kernel's wrapper counts a launch only where it runs one
+(``ops/_cuda_build.launched``): a capture records kernels and launches
+none, and a replay calls no wrapper, so neither adds a count. To count what
+a replayed step launches, run the step once inside ``disable_capture()``.
 
 Scopes. A call names its host parts with ``utils.timers.timing``:
 ``step.key`` (the capture's key), ``step.copy_in``, ``step.capture`` (the
@@ -82,10 +80,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import importlib
 import time
 import warnings
-import weakref
 from collections import OrderedDict
 
 import numpy as np
@@ -94,7 +90,6 @@ import torch
 from ..utils.timers import scope, timing
 
 __all__ = [
-    "LAUNCH_COUNTERS",
     "CompiledStep",
     "CudaGraphRecorder",
     "GraphRecorder",
@@ -104,22 +99,7 @@ __all__ = [
     "disable_capture",
     "host_reads_allowed",
     "no_host_sync",
-    "read_counters",
     "settle_counters",
-]
-
-_PKG = __name__.rsplit(".", 2)[0]
-
-#: the kernels' launch counters, (module or object, attribute): an int or
-#: a dict of ints each
-LAUNCH_COUNTERS: list = [
-    (f"{_PKG}.ops.cuda_matvec", "launches"),
-    (f"{_PKG}.ops.cuda_eval", "launches"),
-    (f"{_PKG}.ops.cuda_smoother", "launches"),
-    (f"{_PKG}.ops.cuda_smoother", "entry_launches"),
-    (f"{_PKG}.ops.cuda_smoother", "brick_launches"),
-    (f"{_PKG}.ops.cuda_window", "launches"),
-    (f"{_PKG}.solver.graph_loop", "launches"),
 ]
 
 #: captures a CompiledStep keeps (the least recently used goes first)
@@ -128,16 +108,13 @@ MAX_CAPTURES = 4
 #: the Tensor methods that read a value back to the host
 GUARDED = ("item", "__bool__", "__float__", "__int__", "cpu", "numpy", "tolist")
 
-#: the unguarded reads: device_while's predicate and settle_counters' trips
+#: the unguarded read: device_while's predicate
 _BOOL = torch.Tensor.__bool__
-_INT = torch.Tensor.__int__
 
 _disabled = 0
 _guarded = 0
 #: the recorder capturing (or, in a stand-in, replaying) the current call
 _recording = None
-#: every loop of a live recorder, for settle_counters
-_PENDING: weakref.WeakSet = weakref.WeakSet()
 
 
 class HostSyncError(RuntimeError):
@@ -226,79 +203,8 @@ def device_while(cond, body, carry, *, name, reads=None):
     return carry
 
 
-# -- launch counters ------------------------------------------------------------------
-
-
-def _owner(owner):
-    return importlib.import_module(owner) if isinstance(owner, str) else owner
-
-
-def _raw_counters() -> list:
-    out = []
-    for owner, attr in LAUNCH_COUNTERS:
-        value = getattr(_owner(owner), attr)
-        out.append(((owner, attr), dict(value) if isinstance(value, dict) else value))
-    return out
-
-
-def read_counters() -> list:
-    """[((owner, attribute), value)] of every counter in LAUNCH_COUNTERS (dict
-    values copied), the replayed loops' trips settled first."""
-    settle_counters()
-    return _raw_counters()
-
-
-def _set_counters(values: list) -> None:
-    for (owner, attr), value in values:
-        obj = _owner(owner)
-        current = getattr(obj, attr)
-        if isinstance(current, dict):
-            current.update(value)  # the same dict: callers zero its keys in place
-        else:
-            setattr(obj, attr, value)
-
-
-def _diff(after: list, before: list) -> list:
-    out = []
-    for (key, a), (_, b) in zip(after, before):
-        out.append((key, {k: a[k] - b.get(k, 0) for k in a} if isinstance(a, dict) else a - b))
-    return out
-
-
-def _scaled(delta: list, k: int) -> list:
-    return [(key, {n: v * k for n, v in d.items()} if isinstance(d, dict) else d * k)
-            for key, d in delta]
-
-
-def _advance(delta: list) -> None:
-    for (owner, attr), d in delta:
-        obj = _owner(owner)
-        current = getattr(obj, attr)
-        if isinstance(current, dict):
-            for k, v in d.items():
-                current[k] = current.get(k, 0) + v
-        else:
-            setattr(obj, attr, current + d)
-
-
-def _added(acc: list | None, delta: list) -> list:
-    if acc is None:
-        return delta
-    return [(key, {k: a.get(k, 0) + d.get(k, 0) for k in {*a, *d}} if isinstance(a, dict)
-             else a + d) for (key, a), (_, d) in zip(acc, delta)]
-
-
 def settle_counters() -> None:
-    """Add the launches of every replayed loop's trips not yet counted: one
-    host read of each loop's device trip counter. Does nothing inside
-    ``no_host_sync()`` or a capture, where no value may be read."""
-    if _guarded or _recording is not None:
-        return
-    for loop in list(_PENDING):
-        trips = _INT(loop.trips)
-        if trips != loop.resolved:
-            _advance(_scaled(loop.counts, trips - loop.resolved))
-            loop.resolved = trips
+    """Does nothing: a replay adds no launch count (module docstring)."""
 
 
 # -- pytrees of the step --------------------------------------------------------------
@@ -375,14 +281,12 @@ def _law_syncs(models) -> tuple:
 
 
 class _Loop:
-    """One while node: the static carry, the predicate buffer, the device
-    trip counter, the body's program and one trip's launch counts."""
+    """One while node: the static carry, the predicate buffer and the body's
+    program."""
 
-    def __init__(self, static, pred: torch.Tensor, trips: torch.Tensor):
-        self.static, self.pred, self.trips = static, pred, trips
+    def __init__(self, static, pred: torch.Tensor):
+        self.static, self.pred = static, pred
         self.body: list = []
-        self.counts: list | None = None
-        self.resolved = 0
 
 
 class GraphRecorder:
@@ -390,20 +294,17 @@ class GraphRecorder:
     loops between them (``device_while``), and replays it.
 
     ``capture`` runs ``fn`` once, cutting a segment at each loop's entry,
-    at the start and end of its body and at its exit; the launch counts of
-    each segment are kept with the loop whose body holds it (or with the
-    program, once a replay). A loop under capture clones its carry into
-    static buffers, evaluates ``cond`` into a predicate buffer, runs the
-    body once on the buffers, copies the result into them, evaluates
-    ``cond`` again and adds one to its trip counter. Subclasses capture the
-    segments (``begin_segment``, ``end_segment``), compose them
-    (``finish``) and launch the result (``launch``)."""
+    at the start and end of its body and at its exit. A loop under capture
+    clones its carry into static buffers, evaluates ``cond`` into a
+    predicate buffer, runs the body once on the buffers, copies the result
+    into them and evaluates ``cond`` again. Subclasses capture the segments
+    (``begin_segment``, ``end_segment``), compose them (``finish``) and
+    launch the result (``replay``)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.program: list = []
         self.loops: list = []
-        self.counts: list | None = None
         #: host seconds of the capture and of the composition
         self.seconds = {"capture": 0.0, "compose": 0.0}
 
@@ -420,14 +321,13 @@ class GraphRecorder:
     def finish(self) -> None:
         pass
 
-    def launch(self) -> None:
+    def replay(self) -> None:
         raise NotImplementedError
 
     # recording
     def capture(self, fn):
         global _recording
-        self._items, self._scopes = [self.program], [None]
-        self._mark = _raw_counters()
+        self._items = [self.program]
         prev, _recording = _recording, self
         t0 = time.perf_counter()
         try:
@@ -439,52 +339,30 @@ class GraphRecorder:
             raise
         finally:
             _recording = prev
-        for loop in self.loops:
-            loop.trips.zero_()
-            _PENDING.add(loop)
         t1 = time.perf_counter()
         self.finish()
         self.seconds = {"capture": t1 - t0, "compose": time.perf_counter() - t1}
         return out
 
     def _cut(self) -> None:
-        seg = self.end_segment()
-        now = _raw_counters()
-        delta, self._mark = _diff(now, self._mark), now
-        scope = self._scopes[-1]
-        if scope is None:
-            self.counts = _added(self.counts, delta)
-        else:
-            scope.counts = _added(scope.counts, delta)
-        self._items[-1].append(("graph", seg))
+        self._items[-1].append(("graph", self.end_segment()))
 
     def loop(self, cond, body, carry, reads=None):
-        from . import graph_loop
-
         static = _static_carry(carry, reads)
         pred = torch.empty((), dtype=torch.bool, device=self.device)
         pred.copy_(cond(static))
-        graph_loop.launches += 1  # the set-conditional kernel before the node
         self._cut()
-        loop = _Loop(static, pred, torch.zeros((), dtype=torch.int64, device=self.device))
+        loop = _Loop(static, pred)
         self.loops.append(loop)
         self._items[-1].append(("while", loop))
         self._items.append(loop.body)
-        self._scopes.append(loop)
         self.begin_segment()
         _copy_into(static, body(static))
         pred.copy_(cond(static))
-        loop.trips.add_(1)
-        graph_loop.launches += 1  # the set-conditional kernel ending the trip
         self._cut()
         self._items.pop()
-        self._scopes.pop()
         self.begin_segment()
         return static
-
-    def replay(self) -> None:
-        self.launch()
-        _advance(self.counts)
 
 
 class CudaGraphRecorder(GraphRecorder):
@@ -542,7 +420,7 @@ class CudaGraphRecorder(GraphRecorder):
 
         self.graph = graph_loop.compose(program(self.program), self.device)
 
-    def launch(self) -> None:
+    def replay(self) -> None:
         self.graph.launch(torch.cuda.current_stream(self.device).cuda_stream)
 
 
@@ -599,7 +477,6 @@ class CompiledStep:
         self.static = (bool(capture) if capture is not None
                        else not syncs and self._recorder is not None)
         self._entries: OrderedDict = OrderedDict()
-        self._bc = None
         self.captures = 0
         self.replays = 0
 
@@ -628,42 +505,29 @@ class CompiledStep:
         with timing("step.clone_out"):
             return _clone(out)
 
-    def _bc_key(self, bc_dofs) -> bytes:
-        """The Dirichlet dofs as host bytes. A device tensor is read once per
-        tensor object (and again when modified in place), outside any replay."""
-        if isinstance(bc_dofs, torch.Tensor):
-            hit = self._bc
-            if hit is not None and hit[0] is bc_dofs and hit[1] == bc_dofs._version:
-                return hit[2]
-            key = np.asarray(bc_dofs.detach().cpu().numpy(), np.int64).tobytes()
-            self._bc = (bc_dofs, bc_dofs._version, key)
-            return key
-        return np.asarray(bc_dofs, np.int64).tobytes()
-
     def _entry(self, models, state, bc_dofs, bc_vals, f_ext) -> _Entry:
         bad = _law_syncs(models)
         if bad:
             msg = "the step cannot be captured in a CUDA graph: " + "; ".join(bad)
             raise ValueError(msg)
-        key = (tuple(map(id, models)), _signature(state), self._bc_key(bc_dofs),
+        # the Dirichlet dofs as host bytes (a tensor a caller passes is read back)
+        key = (tuple(map(id, models)), _signature(state),
+               np.asarray(torch.as_tensor(bc_dofs).cpu(), np.int64).tobytes(),
                tuple(torch.as_tensor(bc_vals).shape), _signature(f_ext))
         entry = self._entries.get(key)
         if entry is None:
             entry = _Entry(self.step, tuple(models), state, bc_dofs, bc_vals, f_ext)
             self._entries[key] = entry
             while len(self._entries) > MAX_CAPTURES:
-                settle_counters()  # the evicted graph's loops stop counting
                 self._entries.popitem(last=False)
         self._entries.move_to_end(key)
         return entry
 
     def _record(self, entry: _Entry):
-        """The warm-up call (its launches counted, its result the call's),
-        then the capture (whose counts are taken back and kept for replays)."""
+        """The warm-up call (its result the call's), then the capture."""
         with timing("step.capture"):
             with no_host_sync():
                 out = entry.body()
-            before = _raw_counters()
             recorder = self._recorder(self.device)
             try:
                 with no_host_sync():
@@ -673,8 +537,6 @@ class CompiledStep:
             except RuntimeError as err:
                 msg = f"capturing the step in a CUDA graph failed: {err}"
                 raise RuntimeError(msg) from err
-            finally:
-                _set_counters(before)
         entry.recorder = recorder
         self.captures += 1
         return out

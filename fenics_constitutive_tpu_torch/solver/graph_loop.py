@@ -27,11 +27,7 @@ import torch
 
 from ..ops._cuda_build import entry_point, launch_check
 
-__all__ = ["ComposedGraph", "check", "compose", "launches", "node_count", "versions"]
-
-#: launches of the set-conditional kernel (one before each while node's
-#: first trip, one at the end of each trip), as the replays' counts resolve
-launches = 0
+__all__ = ["ComposedGraph", "check", "compose", "node_count", "versions"]
 
 #: CUDA's cudaGraphNodeType names, for the refusal message
 NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",

@@ -298,6 +298,11 @@ class PackedSimulation:
     def _converged(self, r_norm, r0_norm):
         return r_norm <= np.maximum(self._newton_atol, self._newton_rtol * r0_norm)
 
+    def _dirichlet(self) -> tuple[np.ndarray, np.ndarray]:
+        """The Dirichlet dofs and values of ``bcs`` on the host
+        (``combine_bcs``); the compiled step uploads the dofs once per capture."""
+        return combine_bcs(self.bcs)
+
     def _inputs(self, bc_vals, f_ext) -> tuple[torch.Tensor, torch.Tensor]:
         """The step's BC values (a tensor of the state's dtype and device)
         and its external load (in the engine's layout)."""
@@ -334,8 +339,7 @@ class PackedSimulation:
         the finiteness check and the commit ``solve.read_back``.
         """
         with timing("solve.inputs"):
-            bc_dofs_np, bc_vals = combine_bcs(self.bcs)
-            bc_dofs = torch.as_tensor(bc_dofs_np, dtype=torch.int64, device=self.device)
+            bc_dofs, bc_vals = self._dirichlet()
             f_ext = self._load(self.f_ext)
             inputs = self._inputs(bc_vals, f_ext)
         niter, ok = self._attempt(bc_dofs, *inputs, self.del_t)
@@ -346,7 +350,9 @@ class PackedSimulation:
 
         state0 = self.state
         geo = self._geos[0]
-        idx = geo.bc_internal(bc_dofs) if isinstance(geo, WindowedGeometry) else bc_dofs
+        idx = torch.as_tensor(bc_dofs, dtype=torch.int64, device=self.device)
+        if isinstance(geo, WindowedGeometry):
+            idx = geo.bc_internal(idx)
         start_vals = state0.u[idx].cpu().numpy().astype(np.float64)
         f_start = self._f_ext_committed
         for level in range(1, self._max_subdivisions + 1):
@@ -398,7 +404,7 @@ class PackedSimulation:
                 msg = "a callable bc_values needs dts for the number of steps"
                 raise ValueError(msg)
             bc_values = np.stack([np.asarray(bc_values(i)) for i in range(len(dts))])
-        bc_dofs_np, _ = combine_bcs(self.bcs)
+        bc_dofs, _ = self._dirichlet()
         dtype = self.state.u.dtype
         vals = torch.as_tensor(np.asarray(bc_values), dtype=dtype, device=self.device)
         K = vals.shape[0]
@@ -424,7 +430,6 @@ class PackedSimulation:
                 msg = f"f_ext_scales rows have {scales.shape[1]} values, not {self.space.ndofs}"
                 raise ValueError(msg)
             loads = [f_base * s if scales.dim() == 1 else s for s in scales]
-        bc_dofs = torch.as_tensor(bc_dofs_np, dtype=torch.int64, device=self.device)
         st, rows = self.state, []
         for i in range(K):
             st, stats = self._step(

@@ -137,19 +137,10 @@ def print_line(line: dict) -> None:
 # -- the kernels' launch counters ---------------------------------------------------
 
 
-def settle() -> None:
-    """Count the launches of the replayed graphs' loop trips so far
-    (``solver.compiled.settle_counters``: one host read a loop)."""
-    from fenics_constitutive_tpu_torch.solver.compiled import settle_counters
-
-    settle_counters()
-
-
 def reset_counts() -> None:
     """Zero the K1-K3 counters (and K3's per entry)."""
     from fenics_constitutive_tpu_torch.ops import cuda_eval, cuda_matvec, cuda_smoother
 
-    settle()
     cuda_matvec.launches = cuda_eval.launches = cuda_smoother.launches = 0
     cuda_smoother.brick_launches = 0
     for key in cuda_smoother.entry_launches:
@@ -160,7 +151,6 @@ def read_counts() -> dict:
     """K1-K3 launches since reset_counts(), and K3's per V-cycle entry."""
     from fenics_constitutive_tpu_torch.ops import cuda_eval, cuda_matvec, cuda_smoother
 
-    settle()
     return {"K1": cuda_matvec.launches, "K2": cuda_eval.launches, "K3": cuda_smoother.launches,
             **{f"K3_{kind}": cuda_smoother.entry_launches[kind] for kind in K3_ENTRIES}}
 
@@ -168,7 +158,6 @@ def read_counts() -> dict:
 def window_counts() -> dict:
     from fenics_constitutive_tpu_torch.ops import cuda_window
 
-    settle()
     return {"K4": cuda_window.launches["gather"], "K5": cuda_window.launches["scatter"],
             "K6": cuda_window.launches["bsr_matvec"], "K7": cuda_window.launches["cell_apply"]}
 
@@ -183,15 +172,15 @@ def reset_all_counts() -> None:
 
 def launches() -> dict:
     """K1-K7 launches (K3 also per V-cycle entry) since reset_all_counts(),
-    by each wrapper's counter."""
+    by each wrapper's counter: the launches that ran, none of a replay."""
     return {**read_counts(), **window_counts()}
 
 
 def require_launched(counts: dict, kernels, label: str) -> None:
-    """Fail unless each of ``kernels`` launched in the timed run (on the card)."""
+    """Fail unless each of ``kernels`` launched in the counted run (on the card)."""
     missing = [k for k in kernels if counts[k] <= 0]
     if missing:
-        fail(f"{label}: the timed run never launched {', '.join(missing)} ({counts})")
+        fail(f"{label}: the counted run never launched {', '.join(missing)} ({counts})")
 
 
 # -- timing -------------------------------------------------------------------------
@@ -219,15 +208,32 @@ def scales(j: int, K: int, first: int = 0) -> list:
     return [2.0 + 1e-4 * j + 0.05 * (i + first) for i in range(K)]
 
 
+def all_ranks(flag: bool, device) -> bool:
+    """``flag`` held on every rank of the process group, where one is
+    initialised (a sharded twin: each rank reads its own clock, and ranks
+    that run different windows pair their all-reduces wrongly); else
+    ``flag``."""
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()):
+        return flag
+    t = torch.tensor(int(flag), device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return bool(t)
+
+
 def time_windows(run, steps: int, device, windows: int = WINDOWS) -> dict:
     """The timing protocol. ``run(j)`` runs window j (``steps`` steps) and
     returns what the caller wants of its last window. Window 0 runs untimed
-    until two runs of it in a row agree (``warm_windows`` of them); the
-    launch counters are zeroed after them, so ``launches`` holds the timed
-    windows' launches. Returns ``windows_ms`` and ``host_windows_ms`` (ms a
+    until two runs of it in a row agree (``warm_windows`` of them; on every
+    rank, when sharded). A replay
+    adds no launch count, so after the timed windows window 0 runs once more
+    inside ``disable_capture()``, untimed, and ``launches`` holds that eager
+    window's launches. Returns ``windows_ms`` and ``host_windows_ms`` (ms a
     step, per window), ``value`` (their median), ``spread`` ((max - min) /
     median), ``host_ms`` (the host clock's median), ``clock``, ``launches``,
-    ``warm_windows`` and ``out`` (the last window's result)."""
+    ``warm_windows`` and ``out`` (the last timed window's result)."""
+    from fenics_constitutive_tpu_torch.solver import disable_capture
+
     cuda = torch.device(device).type == "cuda"
     warm = []
     while len(warm) < WARM_MAX:
@@ -235,9 +241,9 @@ def time_windows(run, steps: int, device, windows: int = WINDOWS) -> dict:
         run(0)
         sync(device)
         warm.append(time.perf_counter() - h0)
-        if len(warm) >= 2 and abs(warm[-1] - warm[-2]) <= WARM_AGREE * warm[-2]:
+        if all_ranks(len(warm) >= 2 and abs(warm[-1] - warm[-2]) <= WARM_AGREE * warm[-2],
+                     device):
             break
-    reset_all_counts()
     ms, host, out = [], [], None
     for j in range(1, windows + 1):
         if cuda:
@@ -252,6 +258,9 @@ def time_windows(run, steps: int, device, windows: int = WINDOWS) -> dict:
             e1.synchronize()
         host.append((time.perf_counter() - h0) * 1e3 / steps)
         ms.append(e0.elapsed_time(e1) / steps if cuda else host[-1])
+    reset_all_counts()
+    with disable_capture():
+        run(0)
     counts = launches()
     median = statistics.median(ms)
     return {"windows_ms": ms, "host_windows_ms": host, "value": median,
@@ -320,13 +329,13 @@ def free_mask(V, bcs) -> np.ndarray:
 
 
 def step_args(bcs, ndofs: int, dtype, device) -> tuple:
-    """(bc_dofs, bc_vals, f_ext, dt) of a step; ``ndofs``: the length of the
-    step's f_ext (the internal layout's on the windowed engine)."""
+    """(bc_dofs, bc_vals, f_ext, dt) of a step, the dofs on the host as
+    ``PackedSimulation`` passes them; ``ndofs``: the length of the step's
+    f_ext (the internal layout's on the windowed engine)."""
     from fenics_constitutive_tpu_torch.fem import combine_bcs
 
     bc_dofs, bc_vals = combine_bcs(bcs)
-    return (torch.as_tensor(bc_dofs, dtype=torch.int64, device=device),
-            torch.as_tensor(bc_vals, dtype=dtype, device=device),
+    return (bc_dofs, torch.as_tensor(bc_vals, dtype=dtype, device=device),
             torch.zeros(ndofs, dtype=dtype, device=device), 1.0)
 
 

@@ -26,7 +26,7 @@ float32, 34 in float64; NVIDIA's data sheet, SXM, 700 W). One JSON line:
 ``phases`` (per phase ``ms``, ``bytes``, ``flops``, ``bound_ms``,
 ``bound_by`` and ``x_bound`` = ms / bound), ``converged`` (every phase's
 output finite and the step's residual below its start), ``launches``
-(K1-K6 over the phases), ``clock``, ``dtype`` and ``device``.
+(K1-K7 over the phases' own kernel calls; the step's replays add none), ``clock``, ``dtype`` and ``device``.
 """
 
 from __future__ import annotations

@@ -8,16 +8,13 @@ under ``no_host_sync()``, clone out) runs eagerly, and ``HostRecorder``
 stands in for the graph where a test needs a replay: it records the same
 program of segments and while nodes as the card's recorder, and a replay
 reruns the captured call on the same static buffers into the same output
-tensors, each ``device_while`` replayed from its static carry, predicate
-buffer and trip counter, launching nothing the counters see. Every
-comparison with the plain step is bit for bit: the two run the same
-operations and the same loop trips (counter loops of 0, 1 and 37 trips,
+tensors, each ``device_while`` replayed from its static carry and predicate
+buffer. Every comparison with the plain step is bit for bit: the two run
+the same operations and the same loop trips (counter loops of 0, 1 and 37 trips,
 flat and nested; converged Newton with adaptive CG on four engines; the
 Mises local Newton). The schedule is held to JAX's ``lax.scan`` with the
 tolerances of the existing schedule parity tests (test_torch_simulation.py).
 """
-
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -47,11 +44,9 @@ from fenics_constitutive_tpu_torch.solver.compiled import (
     GUARDED,
     HostSyncError,
     _map,
-    _set_counters,
     device_while,
     host_reads_allowed,
     no_host_sync,
-    read_counters,
 )
 from scripts.torch_bench import amg as amg_bench
 from scripts.torch_bench import common, tet, unstructured
@@ -65,28 +60,26 @@ SLS = {"E0": 42000.0, "E1": 10000.0, "tau": 2.0, "nu": 0.3}
 class HostRecorder(compiled.GraphRecorder):
     """Stands in for ``CudaGraphRecorder`` on the CPU. Its capture records
     the program as the card's does (segments cut at each loop, the loops'
-    static carries, predicate buffers, trip counters and per-segment launch
-    counts); a replay reruns the captured call with every ``device_while``
-    replayed as a while node replays: the carry copied into the recorded
-    static buffers, the recorded predicate buffer read before each trip, the
-    recorded body run on the buffers and copied back, the trip counter
-    advanced. It writes the same output tensors and leaves the launch
-    counters as a replay does (the recorded counts are added, the loops'
-    per trip when the counters are settled)."""
+    static carries and predicate buffers); a replay reruns the captured call
+    with every ``device_while`` replayed as a while node replays: the carry
+    copied into the recorded static buffers, the recorded predicate buffer
+    read before each trip, the recorded body run on the buffers and copied
+    back. It writes the same output tensors. ``trips`` holds the trips each
+    recorded loop ran in the last replay (summed over its entries)."""
 
     def capture(self, fn):
         self.fn = fn
         self.out = super().capture(fn)
         return self.out
 
-    def launch(self):
-        before = compiled._raw_counters()
-        prev, compiled._recording = compiled._recording, _Replayer(self.program)
+    def replay(self):
+        replayer = _Replayer(self.program)
+        prev, compiled._recording = compiled._recording, replayer
         try:
             new = self.fn()
         finally:
             compiled._recording = prev
-        _set_counters(before)
+        self.trips = [replayer.trips.get(id(loop), 0) for loop in self.loops]
         _map(lambda dst, src: dst.copy_(src), self.out, new)
 
 
@@ -96,6 +89,7 @@ class _Replayer:
 
     def __init__(self, program):
         self.cursors = [self.loops(program)]
+        self.trips: dict = {}
 
     @staticmethod
     def loops(program):
@@ -109,7 +103,7 @@ class _Replayer:
             self.cursors.append(self.loops(node.body))
             compiled._copy_into(node.static, body(node.static))
             node.pred.copy_(cond(node.static))
-            node.trips.add_(1)
+            self.trips[id(node)] = self.trips.get(id(node), 0) + 1
             self.cursors.pop()
         return node.static
 
@@ -139,12 +133,11 @@ def configs():
                    spmv="ell", device=CPU, dtype=F64)
     out["gather"] = (lambda: raw(amg_bench.step_of(g, am, 3)), m, st,
                      common.step_args(s["bcs"], V.ndofs, F64, CPU))
-    # the same problems at converged Newton and adaptive CG (device loops),
-    # each preconditioner apply counted by COUNTED (once a CG trip)
+    # the same problems at converged Newton and adaptive CG (device loops)
     for name, gs, pc in (("box", geos, mg), ("kuhn", b["geos"], b["mg"]),
                          ("windowed", s["geos"], s["pc"]), ("gather", g, am)):
         def make(gs=gs, pc=pc):
-            return make_packed_step(gs, preconditioner=counted(pc), **CONVERGED)
+            return make_packed_step(gs, preconditioner=pc, **CONVERGED)
 
         out[f"{name} converged"] = (make, *out[name][1:])
     assert {k: v[0]().host_syncs for k, v in out.items()} == dict.fromkeys(out, ())
@@ -154,16 +147,6 @@ def configs():
 #: converged Newton and adaptive CG, tight enough for several trips of each
 CONVERGED = dict(max_newton=25, newton_rtol=1e-9, newton_atol=1e-12, cg_rtol=1e-8,
                  cg_maxiter=400)
-#: a launch counter that the tests' preconditioner applies advance
-COUNTED = SimpleNamespace(launches=0)
-
-
-def counted(pc):
-    def apply(r):
-        COUNTED.launches += 1
-        return pc(r)
-
-    return apply
 
 
 def trees_equal(a, b) -> bool:
@@ -261,15 +244,19 @@ def test_a_new_dirichlet_set_or_shape_recaptures(configs):
     comp = compile_step(make(), recorder=HostRecorder)
     plain = make()
     comp(models, state, bc_dofs, bc_vals, f_ext, dt)
-    comp(models, state, bc_dofs.clone(), bc_vals * 2, f_ext, dt)  # same dofs: a replay
+    comp(models, state, bc_dofs.copy(), bc_vals * 2, f_ext, dt)  # same dofs: a replay
     assert (comp.captures, comp.replays) == (1, 1)
+    # the same dofs as a tensor, and as an int64 array: the same key, a replay
+    comp(models, state, torch.as_tensor(bc_dofs), bc_vals * 3, f_ext, dt)
+    comp(models, state, np.asarray(bc_dofs, np.int64), bc_vals, f_ext, dt)
+    assert (comp.captures, comp.replays) == (1, 3)
     fewer = (bc_dofs[:-3], bc_vals[:-3])
     got, _ = comp(models, state, fewer[0], fewer[1], f_ext, dt)
     want, _ = plain(models, state, fewer[0], fewer[1], f_ext, dt)
     assert comp.captures == 2 and trees_equal(got, want)
     with disable_capture():
         comp(models, state, bc_dofs, bc_vals, f_ext, dt)
-    assert (comp.captures, comp.replays) == (2, 1)
+    assert (comp.captures, comp.replays) == (2, 3)
 
 
 # -- (d) the schedule against JAX's lax.scan -------------------------------------------
@@ -348,11 +335,11 @@ def test_mises_without_early_exit_is_bit_equal(form, dtype):
     with no_host_sync():
         rec.capture(run)
     assert len(rec.loops) == 1
+    trips = 0
     for _ in range(2):
         rec.replay()
         assert trees_equal(early, rec.out)
-    compiled.settle_counters()
-    trips = int(rec.loops[0].trips)
+        trips += rec.trips[0]
     assert 2 < trips <= 2 * (law.newton_max_iter + 1)
     alpha = early[2]["alpha"]
     assert float((alpha > hist["alpha"].reshape(alpha.shape)).double().mean()) > 0.2
@@ -412,30 +399,22 @@ def test_simulation_runs_eagerly_off_the_card_and_where_it_reads_back(box, mat):
     assert fixed.last_stats["captured"] is False and conv.last_stats["captured"] is False
 
 
-# -- (g) launch bookkeeping ----------------------------------------------------------
+# -- (g) launch counters -------------------------------------------------------------
 
 
-def test_captured_counts_are_added_at_each_replay(configs, monkeypatch):
-    stub = SimpleNamespace(launches=0, per_entry={"a": 0})
-    monkeypatch.setattr(compiled, "LAUNCH_COUNTERS",
-                        [*compiled.LAUNCH_COUNTERS, (stub, "launches"), (stub, "per_entry")])
-    make, models, state, (bc_dofs, bc_vals, f_ext, dt) = configs["gather"]
-    inner = make()
-    run = inner.run
+def test_a_launch_on_a_capturing_stream_is_not_counted(monkeypatch):
+    """A wrapper called while the current stream captures a CUDA graph
+    records a kernel and launches nothing: ``launched`` adds 0 then, 1
+    otherwise (a CUDA context is stood in for: no stream captures without
+    one)."""
+    from fenics_constitutive_tpu_torch.ops import _cuda_build
 
-    def counting_run(*args):
-        stub.launches += 3
-        stub.per_entry["a"] += 1
-        return run(*args)
-
-    inner.run = counting_run
-    comp = compile_step(inner, recorder=HostRecorder)
-    st = state
-    for k in LOADS:
-        st, _ = comp(models, st, bc_dofs, bc_vals * k, f_ext, dt)
-    # the warm-up counted once, the capture taken back, each replay added
-    assert (comp.captures, comp.replays) == (1, 3)
-    assert stub.launches == 3 * len(LOADS) and stub.per_entry == {"a": len(LOADS)}
+    assert _cuda_build.launched() == 1
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    assert _cuda_build.launched() == 1
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    assert _cuda_build.launched() == 0
 
 
 # -- (h) the loops the device decides (device_while) -------------------------------
@@ -443,22 +422,16 @@ def test_captured_counts_are_added_at_each_replay(configs, monkeypatch):
 
 @pytest.mark.parametrize("trips", [0, 1, 37])
 @pytest.mark.parametrize("nested", [False, True], ids=["flat", "nested"])
-def test_counter_loop_replays_n_trips(trips, nested, monkeypatch):
-    """A counter loop recorded once with its trip count in a tensor replays
-    exactly N trips (a nested loop of 3 trips in each), from the static
-    buffers, with the launch counts of each segment times its trips."""
-    stub = SimpleNamespace(launches=0)
-    monkeypatch.setattr(compiled, "LAUNCH_COUNTERS", [*compiled.LAUNCH_COUNTERS,
-                                                      (stub, "launches")])
+def test_loop_replays_n_trips(trips, nested):
+    """A loop recorded once with its trip count in a tensor replays exactly
+    N trips (a nested loop of 3 trips in each), from the static buffers."""
     i64 = torch.int64
     n = torch.zeros((), dtype=i64)
 
     def body(carry):
         i, acc = carry
-        stub.launches += 1
         if nested:
             def inner(c):
-                stub.launches += 10
                 return c[0] + 1, c[1] + 1.0
 
             acc = device_while(lambda c: c[0] < 3, inner, (torch.zeros_like(i), acc),
@@ -475,14 +448,11 @@ def test_counter_loop_replays_n_trips(trips, nested, monkeypatch):
     rec = HostRecorder(CPU)
     rec.capture(fn)
     assert len(rec.loops) == (2 if nested else 1)
-    for _ in range(2):  # the trips accumulate; each replay adds its own
-        stub.launches = 0
+    for _ in range(2):  # each replay runs its own trips from the static buffers
         n.fill_(trips)
         rec.replay()
-        read_counters()
-        per_trip = 31 if nested else 1
         assert (int(rec.out[0]), float(rec.out[1])) == (trips, trips * (3.0 if nested else 1.0))
-        assert stub.launches == per_trip * trips
+        assert rec.trips == ([trips, 3 * trips] if nested else [trips])
     n.fill_(trips)
     eager = fn()  # the same loop eagerly
     assert (int(eager[0]), float(eager[1])) == (int(rec.out[0]), float(rec.out[1]))
@@ -506,28 +476,20 @@ def test_device_while_refuses_a_changed_carry_and_a_host_read():
 
 
 @pytest.mark.parametrize("config", ["box", "kuhn", "windowed", "gather"])
-def test_converged_steps_replay_bit_equal(configs, config, monkeypatch):
+def test_converged_steps_replay_bit_equal(configs, config):
     """Converged Newton with adaptive CG (and the Mises local Newton) through
     the stand-in's capture and replays, against the plain step: bit-equal
-    states and stats over four loads, and the preconditioner's count (one a
-    CG trip, in a loop nested in a Newton trip) equal to eager's."""
-    monkeypatch.setattr(compiled, "LAUNCH_COUNTERS", [*compiled.LAUNCH_COUNTERS,
-                                                      (COUNTED, "launches")])
+    states and stats over four loads, so the replays take the plain step's
+    Newton and CG trips (``newton_iters``, ``cg_iters_last``)."""
     make, models, state, (bc_dofs, bc_vals, f_ext, dt) = configs[f"{config} converged"]
     plain = make()
     comp = compile_step(make(), recorder=HostRecorder)
     sp = sc = state
     newton = []
     for k in LOADS:
-        read_counters()
-        COUNTED.launches = 0
         sp, stp = plain(models, sp, bc_dofs, bc_vals * k, f_ext, dt)
-        want = COUNTED.launches
-        COUNTED.launches = 0
         sc, stc = comp(models, sc, bc_dofs, bc_vals * k, f_ext, dt)
-        read_counters()
         assert trees_equal(sp, sc) and trees_equal(stp, stc)
-        assert COUNTED.launches == want
         newton.append((int(stc["newton_iters"]), int(stc["cg_iters_last"])))
     assert (comp.captures, comp.replays) == (1, len(LOADS) - 1)
     assert max(n for n, _ in newton) >= 2 and max(k for _, k in newton) > 1
