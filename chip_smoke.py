@@ -658,7 +658,7 @@ def phase_device() -> tuple[str, str]:
 def phase_build() -> None:
     from fenics_constitutive_tpu_torch.ops import _cuda_build
 
-    libs = ("matvec", "eval", "window", "smoother", "graph_loop")
+    libs = ("matvec", "eval", "window", "smoother", "lattice", "graph_loop")
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(_cuda_build.load_library, lib) for lib in libs]:
@@ -2912,6 +2912,128 @@ def phase_p2_box(results: dict) -> dict:
     return {"counts": counts}
 
 
+# K8 against the plain lattice operator, normwise (L2): both sum the same
+# 27 x 27 products of each cell and at most 8 cells a node, in another order
+TOL_K8 = {torch.float64: 1e-13, torch.float32: 1e-5}
+#: boxes besides the 32^3 one: ragged bricks, and rows longer than a block's 32 cells
+K8_BOXES = ((3, 4, 5), (3, 2, 40))
+
+
+def k8_cost(geo, itemsize: int, fields: bool = True) -> float:
+    """Bytes of one K8 apply, each read or written once: u and r [3, M] and,
+    for a field tangent, n, beta and gamma (8 values a Gauss point)."""
+    return itemsize * (6 * geo.M + (8 * geo.N if fields else 0))
+
+
+def k8_tangents(geo, law, seed: int) -> dict:
+    """A plastic field tangent (one Mises evaluation past yield from the zero
+    state, as phase 19's) and a uniform one whose n is a stride-0 view."""
+    from fenics_constitutive_tpu_torch.ops import IsotropicTangent
+
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.normal(size=geo.ndofs) * 2e-3 / geo.grid[0] * N_P2, dtype=geo.dtype,
+                        device=CARD)
+    zeros = torch.zeros(geo.qp_shape(6), dtype=geo.dtype, device=CARD)
+    hist = {"eps_n": zeros.clone(),
+            "alpha": torch.zeros(geo.qp_shape(1), dtype=geo.dtype, device=CARD)}
+    _, plastic, _ = law.evaluate_packed(0.0, 1.0, geo.strain(u), zeros, hist)
+    if float(plastic.gamma.abs().max()) <= 0:
+        fail("phase 19b: the plastic tangent is not plastic anywhere")
+    n = torch.as_tensor(rng.normal(size=6), dtype=geo.dtype, device=CARD)
+    n = (n / n.norm()).reshape(6, 1, 1).expand(6, geo.n_qp, geo.n_cells)
+    uniform = IsotropicTangent(kappa=KAPPA, beta=2 * MU, gamma=-0.3 * MU, n=n)
+    return {"plastic": plastic, "uniform": uniform}
+
+
+def phase_k8(results: dict) -> None:
+    """Phase 19b: K8 (the P2 lattice operator) on the 32^3 box and two small
+    ones, float64 and float32, against the plain operator (the body of
+    LatticeGeometry.matvec_gm) and its sum-factorised twin; two launches
+    bit-equal; matvec_gm takes K8 once a call; a CUDA graph of matvec_gm
+    replays bit-equal to the eager call and counts no launch; K8's time on
+    the card beside the plain operator's and its byte bound."""
+    from fenics_constitutive_tpu_torch.fem import FunctionSpace, unit_cube_mesh
+    from fenics_constitutive_tpu_torch.models import Constraint, VonMises3D
+    from fenics_constitutive_tpu_torch.ops import _cuda_build, build_lattice_geometry, cuda_lattice
+
+    law = VonMises3D(MAT)
+    line = []
+    for cells in ((N_P2,) * 3, *K8_BOXES):
+        V = FunctionSpace(unit_cube_mesh(*cells, "hex"), 2, 3)
+        for dtype in (torch.float64, torch.float32):
+            geo = build_lattice_geometry(V, Q_P2, Constraint.FULL, device=CARD, dtype=dtype)
+            v = torch.as_tensor(np.random.default_rng(7).normal(size=3 * geo.M), dtype=dtype,
+                                device=CARD)
+            errs = []
+            for form, tg in k8_tangents(geo, law, 8).items():
+                if not cuda_lattice.lattice_apply_form(geo, tg):
+                    fail(f"phase 19b: the {form} tangent does not take K8")
+                r1 = cuda_lattice.lattice_apply(geo, v, tg)
+                r2 = cuda_lattice.lattice_apply(geo, v, tg)
+                before = cuda_lattice.launches["lattice_apply"]
+                r_m = geo.matvec_gm(v, tg)
+                torch.cuda.synchronize()
+                if cuda_lattice.launches["lattice_apply"] - before != 1:
+                    fail(f"phase 19b: matvec_gm did not launch K8 once ({form}, {cells})")
+                if not torch.equal(r1, r2) or not torch.equal(r1, r_m):
+                    fail(f"phase 19b: K8 {dtype} {form} {cells} differs between two launches "
+                         "or from matvec_gm")
+                plain = geo.residual_gm(tg.apply(geo.strain_gm(v)))
+                twin = cuda_lattice.lattice_apply_plain(geo, v, tg)
+                rel = float((r1.double() - plain.double()).norm() / plain.double().norm())
+                rel_twin = float((r1.double() - twin.double()).norm() / twin.double().norm())
+                errs.append(f"{form} rel {rel:.2e} (twin {rel_twin:.2e})")
+                if not np.isfinite(rel) or max(rel, rel_twin) > TOL_K8[dtype]:
+                    fail(f"phase 19b: K8 {dtype} {form} on {cells} disagrees with the plain "
+                         f"operator: rel {rel:.3e}, twin {rel_twin:.3e} > {TOL_K8[dtype]:g}")
+            label = f"{'x'.join(map(str, cells))} {str(dtype)[6:]}"
+            if cells != (N_P2,) * 3:
+                line.append(f"{label}: " + ", ".join(errs))
+                continue
+            tg = k8_tangents(geo, law, 9)["plastic"]
+            graph_line = k8_graph_replay(geo, v, tg)
+            nbytes = k8_cost(geo, v.element_size())
+            bound, _ = bound_ms(nbytes, 0.0, dtype)
+            dev = device_ms(lambda: geo.matvec_gm(v, tg), floor_ms=bound)
+            events = cuda_ms(lambda: geo.matvec_gm(v, tg))
+            plain_dev = device_ms(lambda: geo.residual_gm(tg.apply(geo.strain_gm(v))))
+            results[f"K8_{str(dtype)[6:]}"] = {"device_ms": dev, "ms": events,
+                                               "plain_device_ms": plain_dev, "bound_ms": bound,
+                                               "bytes": nbytes}
+            line.append(f"{label}: " + ", ".join(errs) + f" (tol {TOL_K8[dtype]:g}); two launches "
+                        f"and matvec_gm bit-equal; {graph_line}; K8 on the card {dev:.4f} ms "
+                        f"(events {events:.4f}; plain operator {plain_dev:.4f}), bound "
+                        f"{bound:.4f} (bytes, {nbytes / 1e6:.1f} MB): {100 * bound / dev:.1f}%")
+    usage = [ln.strip() for ln in _cuda_build.build_log["lattice"]["log"].splitlines()
+             if "registers" in ln or "spill" in ln]
+    print("phase 19b K8 vs the plain lattice operator: " + "; ".join(line) + "; ptxas: "
+          + " | ".join(usage), flush=True)
+
+
+def k8_graph_replay(geo, v, tg) -> str:
+    """matvec_gm captured in a CUDA graph: the capture and three replays add
+    no launch to the counter, and the replays equal the eager call."""
+    from fenics_constitutive_tpu_torch.ops import cuda_lattice
+
+    ref = geo.matvec_gm(v, tg)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        geo.matvec_gm(v, tg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = cuda_lattice.launches["lattice_apply"]
+    with torch.cuda.graph(graph):
+        out = geo.matvec_gm(v, tg)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    added = cuda_lattice.launches["lattice_apply"] - before
+    if added or not torch.equal(out, ref):
+        fail(f"phase 19b: a graph of matvec_gm counted {added} launches or replays unequal")
+    return "a CUDA graph of it replays bit-equal and counts no launch"
+
+
 def k3_hierarchy_checks(label: str, geo, free, results: dict | None, parts: list,
                         key: str = "K3_2d"):
     """K3 against its twins on every level of the hierarchy of geo(dtype)
@@ -4256,7 +4378,7 @@ def loop_p2_path(n: int, q: int) -> dict:
     V = FunctionSpace(unit_cube_mesh(n, n, n, "hex"), 2, 3)
     p = p2_bench.p2_problem(V, bench_bcs(V), q, CARD, torch.float32)
     return {"make_step": lambda: p["step"], "models": p["models"], "state": p["state"],
-            "args": p["args"], "kernels": ("K3",)}
+            "args": p["args"], "kernels": ("K3", "K8")}
 
 
 def loop_simulation(path: dict) -> str:
@@ -4386,6 +4508,7 @@ def main() -> None:
         gather_counts = timed("phase 17", phase_gather, tet, Path(tmp))
     timed("phase 18", phase_small)
     p2_box_run = timed("phase 19", phase_p2_box, results)
+    timed("phase 19b", phase_k8, results)
     run_2d = timed("phase 20", phase_2d, results)
     with tempfile.TemporaryDirectory() as tmp:
         p2_tet = timed("phase 21", phase_p2_imported, results, Path(tmp))

@@ -706,6 +706,12 @@ class LatticeGeometry(nn.Module):
     algorithms) is never called. Cell and quadrature fields are DENSE
     ``[k, Q, C]`` in mesh cell order, so the observation maps are identities.
 
+    The operator ``matvec_gm`` of an IsotropicTangent on 3D 27-node hexes
+    with 27 Gauss points (FULL) runs on CUDA tensors as the hand-written
+    kernel K8 (``ops/cuda_lattice.py``: one launch, sum-factorised, no
+    intermediate in device memory); the products above are its plain twin,
+    which CPU tensors, quads, DenseTangents and every other op run.
+
     Buffers: KEPS_c [s*Q, n*vs], KDIV_c [n*vs, s*Q], w [Q] (quadrature weight
     x |det J|, for the Jacobi diagonal). Host constant: ``dN_host`` ([n, g,
     Q] physical gradients).
@@ -855,6 +861,17 @@ class LatticeGeometry(nn.Module):
         return self.assemble_gm(self.element_forces_gm(sigma))
 
     def matvec_gm(self, v_gm: torch.Tensor, tangent) -> torch.Tensor:
+        """The tangent operator on grid-major vectors [vs*M] -> [vs*M]. On a
+        CUDA vector where ``cuda_lattice.lattice_apply_form`` holds (an
+        IsotropicTangent on 3D 27-node hexes with 27 Gauss points, FULL) it
+        runs as ONE launch of K8 (``ops/cuda_lattice.py::lattice_apply``);
+        everywhere else as the strain, the tangent's ``apply`` and the
+        residual below, K8's twin."""
+        if v_gm.is_cuda:
+            from .cuda_lattice import lattice_apply, lattice_apply_form
+
+            if lattice_apply_form(self, tangent):
+                return lattice_apply(self, v_gm.reshape(-1), tangent)
         return self.residual_gm(tangent.apply(self.strain_gm(v_gm)))
 
     def jacobi_diag_gm(self, tangent) -> torch.Tensor:

@@ -271,9 +271,13 @@ def make_packed_step(
     model.evaluate_packed -> residual) or "kernel" (the fused VonMises3D
     kernel of ops/cuda_eval.py, CUDA only). Both kernels serve one law on the
     structured hex engine; the windowed engine takes "plain" and launches
-    its own kernels (gather, scatter, BSR SpMV) whenever its tensors are on
-    a CUDA device; the gather engine takes "plain" (plain PyTorch gathers
-    and gather-sums, as in the JAX package).
+    its own kernels (gather, scatter, BSR SpMV, and K7 for the cells of an
+    IsotropicTangent) whenever its tensors are on a CUDA device; the
+    lattice engine takes "plain" and, as the windowed engine launches K7,
+    launches K8 (``ops/cuda_lattice.py``) for its operator on CUDA tensors
+    where ``lattice_apply_form`` holds (an IsotropicTangent on 27-node
+    hexes); the gather engine takes "plain" (plain PyTorch gathers and
+    gather-sums, as in the JAX package).
     ``cg_flexible``/``cg_reduce_dtype``/``cg_fixed_iters``: see
     solver.linear.cg_solve.
 

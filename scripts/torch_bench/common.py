@@ -156,22 +156,25 @@ def read_counts() -> dict:
 
 
 def window_counts() -> dict:
-    from fenics_constitutive_tpu_torch.ops import cuda_window
+    """K4-K7 launches, and K8's (the lattice operator)."""
+    from fenics_constitutive_tpu_torch.ops import cuda_lattice, cuda_window
 
     return {"K4": cuda_window.launches["gather"], "K5": cuda_window.launches["scatter"],
-            "K6": cuda_window.launches["bsr_matvec"], "K7": cuda_window.launches["cell_apply"]}
+            "K6": cuda_window.launches["bsr_matvec"], "K7": cuda_window.launches["cell_apply"],
+            "K8": cuda_lattice.launches["lattice_apply"]}
 
 
 def reset_all_counts() -> None:
-    from fenics_constitutive_tpu_torch.ops import cuda_window
+    from fenics_constitutive_tpu_torch.ops import cuda_lattice, cuda_window
 
     reset_counts()
-    for key in cuda_window.launches:
-        cuda_window.launches[key] = 0
+    for counter in (cuda_window.launches, cuda_lattice.launches):
+        for key in counter:
+            counter[key] = 0
 
 
 def launches() -> dict:
-    """K1-K7 launches (K3 also per V-cycle entry) since reset_all_counts(),
+    """K1-K8 launches (K3 also per V-cycle entry) since reset_all_counts(),
     by each wrapper's counter: the launches that ran, none of a replay."""
     return {**read_counts(), **window_counts()}
 
