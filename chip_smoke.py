@@ -133,8 +133,11 @@ Several laws on the imported mesh, and the whole model library:
      tolerance. Prints ms per
      step, Newton iterations, launches per step, the DP return map's trips,
      the device memory peak, and the parts of a step timed apart (each
-     law's eval with its local Newton's active points per trip, the
-     operator apply, the V-cycle, K4-K6 on the card).
+     law's eval, the operator apply, the V-cycle, K4-K6 on the card). Last,
+     the step is captured (captured true, no host sync): three more steps
+     of the compiled step, replayed under set_sync_debug_mode("error"), are
+     bit-equal in state and stats to the same steps inside
+     disable_capture().
  15. Every FULL law of the JAX package's production-path test on the card
      against the same run on the CPU (plain versions), float64, 2 steps of
      0.004 k: on a 6^3 shuffled tet mesh (windowed engine, AMG) and on a 6^3
@@ -341,7 +344,9 @@ counterpart of lax.while_loop; csrc/graph_loop.cu):
      (c) p2.py's step (the 32^3 P2 lattice box, K3, adaptive CG to 1e-5).
      Last, PackedSimulation.solve() at its defaults (f64, the box) three
      times through the graph, bit-equal to disable_capture() in state and
-     last_stats, captured true; DruckerPrager3D reports captured false.
+     last_stats, captured true; DruckerPrager3D alone on the 4^3 box is
+     captured too (no host sync): three steps past yield replayed under
+     set_sync_debug_mode("error"), bit-equal to disable_capture().
 
 A kernel's time on the card and a device-op count come from torch.profiler.
 CUPTI now and then delivers a short profile on the H100, so such a profile
@@ -1707,7 +1712,6 @@ def phase_multilaw(tet: dict) -> dict:
     tangents = [law_eval(0)[1]]
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    trips = list(models[0].last_active_per_trip)
     tangents.append(law_eval(1)[1])
     eval_ms = [cuda_ms(lambda i=i: law_eval(i), iters=3, warmup=1) for i in range(len(geos))]
     # and on an elastic iterate (no displacement increment), as the later
@@ -1803,8 +1807,8 @@ def phase_multilaw(tet: dict) -> dict:
           f"{counts['bsr_matvec'] / K:g}; device memory peak {peak_gib:.2f} GiB")
     print(f"phase 14 K4/K5 vs plain on each law's plan (f64, tol K5 {TOL_K5[torch.float64]:g}): "
           + "; ".join(held))
-    print(f"phase 14 parts on the first iterate of step 1: eval ms DP {eval_ms[0]:.2f} (local "
-          f"Newton active per trip {trips}), Maxwell {eval_ms[1]:.2f}; on an elastic iterate DP "
+    print(f"phase 14 parts on the first iterate of step 1: eval ms DP {eval_ms[0]:.2f}, "
+          f"Maxwell {eval_ms[1]:.2f}; on an elastic iterate DP "
           f"{elastic_ms[0]:.2f}, Maxwell {elastic_ms[1]:.2f}; two-law operator apply "
           f"{mv_ms:.3f} ms; V-cycle {vc_ms:.3f} ms ({k6_cycle} K6); per step {evals / K:g} "
           f"evals, {applies / K:g} applies, {cycles / K:g} V-cycles: eval "
@@ -1814,7 +1818,57 @@ def phase_multilaw(tet: dict) -> dict:
           + ("not measured" if k6_cycle_ms is None else f"{cycles * k6_cycle_ms / K:.2f} ms/step")
           + f"; step 4 alone newton {niter4}, {step4_ms:.1f} ms (host clock); step 5 profiled: "
           + dev)
+    rows = graph_against_eager("phase 14", sim, STRETCH_STEP)
+    print(f"phase 14 the two-law step captured (host_syncs {sim.host_syncs}): 3 steps replayed "
+          f"under set_sync_debug_mode('error') bit-equal to disable_capture() in state and "
+          f"stats (newton {[r['newton_iters'] for r in rows]}, cg_last "
+          f"{[r['cg_iters_last'] for r in rows]})", flush=True)
     return counts
+
+
+def graph_against_eager(phase: str, sim, increment: float, steps: int = 3) -> list:
+    """``steps`` load steps of a captured PackedSimulation's compiled step
+    from its committed state, the moved BC (``bcs[1]``) raised by
+    ``increment`` each: replayed under set_sync_debug_mode("error"), and
+    again inside disable_capture(), each side from its own previous state.
+    Fails unless the simulation is captured with no host sync and both sides
+    agree bit for bit in state and stats at every step, and every step
+    converged. The capture must have been taken (one ``solve()`` first).
+    Returns the replayed steps' stats."""
+    from fenics_constitutive_tpu_torch.fem import combine_bcs
+    from fenics_constitutive_tpu_torch.solver import disable_capture
+
+    if not sim.captured or sim.host_syncs:
+        fail(f"{phase}: the PackedSimulation is not captured ({sim.host_syncs})")
+    st_graph = st_eager = sim.state
+    rows = []
+    for k in range(steps):
+        sim.bcs[1].value += increment
+        bc_dofs, bc_vals = combine_bcs(sim.bcs)
+        vals, f_ext = sim._inputs(bc_vals, sim._load(sim.f_ext))
+        replays = sim._step.replays
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st_graph, s_graph = sim._step(sim._models, st_graph, bc_dofs, vals, f_ext,
+                                          sim.del_t)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        with disable_capture():
+            st_eager, s_eager = sim._step(sim._models, st_eager, bc_dofs, vals, f_ext,
+                                          sim.del_t)
+        s_graph = {key: v.item() for key, v in s_graph.items()}
+        s_eager = {key: v.item() for key, v in s_eager.items()}
+        if sim._step.replays != replays + 1:
+            fail(f"{phase}: step {k + 1} through the compiled step did not replay its graph")
+        if s_graph != s_eager:
+            fail(f"{phase}: step {k + 1} replayed {s_graph} against eager {s_eager}")
+        if not s_graph["r_norm"] <= max(sim._newton_atol, sim._newton_rtol * s_graph["r0_norm"]):
+            fail(f"{phase}: step {k + 1} did not converge: {s_graph}")
+        rows.append(s_graph)
+    if not same_tree(st_graph, st_eager):
+        fail(f"{phase}: the replayed state differs from the eager one")
+    return rows
 
 
 def phase_library() -> None:
@@ -4386,8 +4440,8 @@ def loop_simulation(path: dict) -> str:
     same calls inside disable_capture() (a fresh simulation of the same
     options): states and last_stats bit-equal, last_stats["captured"]
     true; PackedSimulation with no option but device and dtype (a 4^3 box)
-    captured and converged; a Drucker-Prager law reports captured false
-    with its reason."""
+    captured and converged; a Drucker-Prager law on the 4^3 box captured,
+    its replays bit-equal to disable_capture() (``graph_against_eager``)."""
     from fenics_constitutive_tpu_torch.models import DruckerPrager3D, VonMises3D
     from fenics_constitutive_tpu_torch.solver import PackedSimulation, disable_capture
 
@@ -4418,19 +4472,21 @@ def loop_simulation(path: dict) -> str:
             and plain.last_stats["captured"] is True):
         fail(f"phase 27: PackedSimulation(VonMises3D, V, bcs, 2, device, dtype) at every default "
              f"is not captured ({plain.host_syncs}) or did not converge ({plain.last_stats})")
-    dp = PackedSimulation(DruckerPrager3D({"mu": MU, "kappa": KAPPA, "a": 0.1, "b": 0.1,
-                                           "b_flow": 0.1}), V4, bcs4, 2, device=CARD,
+    V4, bcs4 = box(4)
+    dp = PackedSimulation(DruckerPrager3D(DP_PARAMS), V4, bcs4, 2, device=CARD,
                           dtype=torch.float64)
-    if dp.captured or "DruckerPrager3D" not in " ".join(dp.host_syncs):
-        fail(f"phase 27: a Drucker-Prager PackedSimulation reports captured {dp.captured} "
-             f"({dp.host_syncs})")
+    bcs4[1].value = 0.004
+    if not dp.solve()[1]:  # the capture
+        fail(f"phase 27: the Drucker-Prager box's first step did not converge ({dp.last_stats})")
+    dp_rows = graph_against_eager("phase 27 DruckerPrager3D", dp, 0.004)
     line = (f"PackedSimulation at its defaults: solve() x{LOOP_STEPS} replayed (newton "
             f"{[r[2]['newton_iters'] for r in rows]}, cg_last "
             f"{[r[2]['cg_iters_last'] for r in rows]}), bit-equal to disable_capture() in "
             f"state and last_stats, captured {rows[-1][2]['captured']}; every default (4^3 "
             f"box, f64, preconditioner {plain.preconditioner}): captured {plain.captured}; "
-            f"DruckerPrager3D: "
-            f"captured {dp.captured} ({dp.host_syncs[0]})")
+            f"DruckerPrager3D (4^3 box): captured {dp.captured} (host_syncs {dp.host_syncs}), "
+            f"3 steps past yield replayed under set_sync_debug_mode('error') bit-equal to "
+            f"disable_capture() (newton {[r['newton_iters'] for r in dp_rows]})")
     print(f"phase 27 {line}", flush=True)
     return line
 

@@ -10,7 +10,8 @@ J2 has a floor of 1e-30 in the classic cone, so the flow direction stays
 finite at a zero deviator. At the cone's tip the local Newton stops at its
 trip cap with non-finite values; the hyperbolic surface is smooth there.
 Both laws have no SoA twin: the engines run them through the generic
-dense-tangent adapter.
+dense-tangent adapter. The return map reads nothing back to the host, so a
+step over them is captured in a CUDA graph (``solver/compiled.py``).
 """
 
 from __future__ import annotations
@@ -28,8 +29,6 @@ __all__ = ["DruckerPrager3D", "DruckerPragerHyperbolic3D"]
 
 class _DruckerPragerBase(IncrSmallStrainModel):
     _param_names: tuple[str, ...]
-    host_sync = ("the general return map's local Newton takes its active points by "
-                 "nonzero() and reads their count back once a trip")
 
     def __init__(self, parameters):
         self.params = {
@@ -39,8 +38,6 @@ class _DruckerPragerBase(IncrSmallStrainModel):
         self.newton_atol = 1e-10
         self.newton_rtol = 1e-10
         self.newton_maxit = 25
-        #: points still active on each trip of the last ``evaluate``'s local Newton
-        self.last_active_per_trip: list[int] = []
 
     @property
     def constraint(self) -> Constraint:
@@ -59,24 +56,32 @@ class _DruckerPragerBase(IncrSmallStrainModel):
         """The J2 term under the square root of the yield function."""
         raise NotImplementedError
 
+    @staticmethod
+    def _invariants(sigma):
+        """(I1 [1], J2 [1], dev [1, 6]) of one point's stress [6], one point
+        deep: under torch.func's jacfwd a Python number that meets a 0-d
+        tensor turns its tangent float64, so a float32 stress would give a
+        float64 Jacobian."""
+        return mandel.i1_j2_dev(sigma[None])
+
     def _f(self, sigma, kappa):
         del kappa  # no hardening feedback
-        i1, j2, _ = mandel.i1_j2_dev(sigma)
-        return torch.sqrt(self._j2_term(j2)) + self.params["b"] * i1 - self.params["a"]
+        i1, j2, _ = self._invariants(sigma)
+        return (torch.sqrt(self._j2_term(j2)) + self.params["b"] * i1 - self.params["a"])[0]
 
     def _g(self, sigma, kappa, i2):
         # b_flow I2 + d sqrt(J2 term)/d sigma: df/dsigma when b_flow == b
         del kappa
-        _, j2, s = mandel.i1_j2_dev(sigma)
-        return self.params["b_flow"] * i2 + (0.5 / torch.sqrt(self._j2_term(j2))) * s
+        _, j2, s = self._invariants(sigma)
+        half_inv = 0.5 / torch.sqrt(self._j2_term(j2))
+        return (self.params["b_flow"] * i2 + half_inv[:, None] * s)[0]
 
     def evaluate(self, t, del_t, grad_del_u, stress, history):
         del t, del_t
         C = mandel.isotropic_elastic_tangent(self.params["mu"], self.params["kappa"],
                                              dtype=stress.dtype, device=stress.device)
-        i2 = torch.as_tensor(mandel.sym_identity(6), dtype=stress.dtype, device=stress.device)
+        i2 = mandel.device_constant(mandel.sym_identity(6), stress.dtype, stress.device)
         eps = mandel.strain_from_grad_u(grad_del_u, Constraint.FULL)
-        self.last_active_per_trip = []
         sigma_1, tangent, alpha_1, del_eps_p = implicit_return_map(
             self._f,
             lambda sigma, kappa: self._g(sigma, kappa, i2),
@@ -87,7 +92,6 @@ class _DruckerPragerBase(IncrSmallStrainModel):
             atol=self.newton_atol,
             rtol=self.newton_rtol,
             maxit=self.newton_maxit,
-            active_per_trip=self.last_active_per_trip,
         )
         history_new = {
             "alpha": alpha_1,

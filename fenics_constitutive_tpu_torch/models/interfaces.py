@@ -125,6 +125,13 @@ class IncrSmallStrainModel(abc.ABC):
         strain increment (``mandel_to_matrix``); a small-strain model reads
         only the symmetric part, so this is exact. Packed history entries
         are ``[d, *qp]`` with a matrix entry flattened to ``d = rows * cols``.
+
+        The new stress and history come back contiguous, as the engines lay
+        out the state they build: a compiled step copies each call's state
+        into buffers laid out like its first call's, and a reduction's
+        summation order follows its input's layout, so a state laid out
+        otherwise would make the replayed step differ from the eager one in
+        the last bits.
         """
         c = self.constraint
         s = c.stress_strain_dim
@@ -140,11 +147,11 @@ class IncrSmallStrainModel(abc.ABC):
 
         def pack(v):  # AoS [n, *entry] -> packed [d, *qp]
             flat = v.reshape(n, -1)
-            return flat.T.reshape(flat.shape[1], *qp_shape)
+            return flat.T.reshape(flat.shape[1], *qp_shape).contiguous()
 
         hist_aos = None if history is None else {k: unpack(k, v) for k, v in history.items()}
         s_new, tg, h_new = self.evaluate(t, del_t, grad, stress_aos, hist_aos)
-        s_out = s_new.T.reshape(s, *qp_shape)
+        s_out = s_new.T.reshape(s, *qp_shape).contiguous()
         tangent = DenseTangent(tg.permute(1, 2, 0).reshape(s, s, *qp_shape))
         h_out = None if h_new is None else {k: pack(v) for k, v in h_new.items()}
         return s_out, tangent, h_out

@@ -34,9 +34,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.timers import scope
 from . import mandel
 from .mandel import Constraint
-from .packed import CellSlots
+from .packed import CellSlots, DenseTangent
 from .structured import _matmul
 
 __all__ = [
@@ -473,13 +474,16 @@ class WindowedGeometry(nn.Module):
         """The tangent operator: [vs*M_pad] -> [vs*M_pad]. The cells' part
         runs as K7 on CUDA tensors where ``cuda_window.cell_apply_form``
         holds (an IsotropicTangent on affine P1 tets of 3 components), in
-        plain PyTorch otherwise; the scatter (K5 on the card) sums it onto
-        the nodes."""
+        plain PyTorch otherwise (the scope ``cg.operator.dense`` for a
+        DenseTangent); the scatter (K5 on the card) sums it onto the nodes."""
         from .cuda_window import cell_apply_form, windowed_cell_apply
 
         u2 = v.reshape(self.vs, self.ex.M_pad)
         if v.is_cuda and cell_apply_form(self, tangent):
             f = windowed_cell_apply(self, u2, tangent)
+        elif isinstance(tangent, DenseTangent):
+            with scope("cg.operator.dense"):
+                f = self.cell_apply_ref(u2, tangent)
         else:
             f = self.cell_apply_ref(u2, tangent)
         return self.ex.scatter(f).reshape(-1)

@@ -45,8 +45,10 @@ one device-to-device copy of the state a call (and one into the static
 buffers): about 56 MB each way for the 1M-QP box in float32.
 
 What can be captured: every step of ``make_packed_step`` on one process
-(``step.host_syncs`` is empty) over laws that declare no ``host_sync``
-(Drucker-Prager's batched return map keeps its host loop). A sharded step
+(``step.host_syncs`` is empty) over laws that declare no ``host_sync``: every
+law of the library, several on one part and dense-tangent ones included
+(Drucker-Prager's local Newton is a ``device_while``), but the native ones,
+which run on the host. A sharded step
 all-reduces through the host (gloo), so ``capture=True`` refuses it with
 ``ValueError`` and the default runs it eagerly. Inside the captured region
 the host may read nothing: ``no_host_sync()`` makes every read raise, apart

@@ -20,7 +20,8 @@ step pays no permutation at all; the gather engine works node-major.
 
 Host synchronisation: the Newton loop (JAX's ``lax.while_loop`` over
 ``(u, it, r, s, tg, h, cg_k)`` while ``||r|| > max(atol, rtol ||r0||)`` and
-``it < max_newton``), the adaptive CG and the Mises local Newton are
+``it < max_newton``), the adaptive CG and the laws' local Newtons (Mises',
+and the general return map of the Drucker-Prager laws) are
 ``solver.compiled.device_while`` loops. Run eagerly each reads its
 predicate back once a trip; in a compiled step (``compile_step``) they are
 CUDA graph while nodes and the step reads nothing back. With

@@ -184,6 +184,12 @@ def test_capturable_body_reads_nothing_back(configs, config):
 # -- (b) refusals --------------------------------------------------------------------
 
 
+class SyncingLaw(VonMises3D):
+    """A law that declares a host read, as the native ones do."""
+
+    host_sync = "its update runs on the host"
+
+
 def test_capture_refuses_what_reads_back(configs):
     """Converged Newton and adaptive CG are device loops now: only a law with
     a ``host_sync`` (and a sharded geometry, below) is refused."""
@@ -195,12 +201,17 @@ def test_capture_refuses_what_reads_back(configs):
         assert compile_step(step, capture=True).static
         assert not compile_step(step).captured  # no graph off the card
     step = make_packed_step(g, max_newton=1, cg_fixed_iters=9)
-    dp = DruckerPrager3D({"mu": 1.0, "kappa": 1.0, "a": 0.1, "b": 0.1, "b_flow": 0.1})
-    with pytest.raises(ValueError, match="DruckerPrager3D"):
-        compile_step(step, capture=True, models=(dp,))
+    law = SyncingLaw(dict(models[0].params))
+    with pytest.raises(ValueError, match="SyncingLaw"):
+        compile_step(step, capture=True, models=(law,))
     comp = compile_step(step, recorder=HostRecorder)
-    with pytest.raises(ValueError, match="DruckerPrager3D"):
-        comp((dp,), state, *common.step_args(common.box(4)[1], g[0].ndofs, F64, CPU))
+    with pytest.raises(ValueError, match="SyncingLaw"):
+        comp((law,), state, *common.step_args(common.box(4)[1], g[0].ndofs, F64, CPU))
+    # Drucker-Prager's return map reads nothing back: its step is captured
+    dp = DruckerPrager3D({"mu": 1.0, "kappa": 1.0, "a": 0.1, "b": 0.1, "b_flow": 0.1})
+    comp = compile_step(step, capture=True, models=(dp,))
+    assert comp.static and comp.host_syncs == ()
+    assert compile_step(step, recorder=HostRecorder, models=(dp,)).captured
 
 
 def test_capture_refuses_a_sharded_geometry(tmp_path):
@@ -383,17 +394,19 @@ def test_a_failed_attempt_leaves_the_committed_state(box, mat, monkeypatch):
 
 def test_simulation_runs_eagerly_off_the_card_and_where_it_reads_back(box, mat):
     """Off the card every PackedSimulation runs eagerly; on it, the defaults
-    (converged Newton, adaptive CG) are capturable (no host sync), and a
-    Drucker-Prager law names its host loop."""
+    (converged Newton, adaptive CG) and a Drucker-Prager law are capturable
+    (no host sync), and a law with a ``host_sync`` names it."""
     V, bcs = box(3)["torch"]
     fixed = PackedSimulation(VonMises3D(mat), V, bcs, 2, max_newton=1, cg_fixed_iters=5,
                              device="cpu", dtype=F64)
     conv = PackedSimulation(VonMises3D(mat), V, bcs, 2, device="cpu", dtype=F64)
     dp = PackedSimulation(DruckerPrager3D({"mu": 1.0, "kappa": 1.0, "a": 0.1, "b": 0.1,
                                            "b_flow": 0.1}), V, bcs, 2, device="cpu", dtype=F64)
+    syncing = PackedSimulation(SyncingLaw(mat), V, bcs, 2, device="cpu", dtype=F64)
     assert not fixed.captured and fixed.host_syncs == ()
     assert not conv.captured and conv.host_syncs == ()
-    assert not dp.captured and "DruckerPrager3D" in dp.host_syncs[0]
+    assert not dp.captured and dp.host_syncs == ()
+    assert not syncing.captured and "SyncingLaw" in syncing.host_syncs[0]
     fixed.solve()
     conv.solve()
     assert fixed.last_stats["captured"] is False and conv.last_stats["captured"] is False

@@ -16,8 +16,10 @@ CPU.
     1e-12, stress and tangent within 1e-12.
 (c) Every law of the library through ``PackedSimulation`` with the
     stand-in standing in for the card's graph: captured, and bit-equal to
-    the same solves inside ``disable_capture()``; Drucker-Prager, whose
-    return map reads back, is refused.
+    the same solves inside ``disable_capture()``, the Drucker-Prager laws
+    (their return map's local Newton a while node) on a box and beside a
+    Maxwell solid on the benchmark's two-law tet part; a law that reads
+    back (``host_sync``) is refused.
 """
 
 import math
@@ -49,7 +51,7 @@ from fenics_constitutive_tpu_torch.solver import (
     simulation,
 )
 from fenics_constitutive_tpu_torch.solver.compiled import no_host_sync
-from test_torch_compiled import HostRecorder, mises_inputs, trees_equal
+from test_torch_compiled import HostRecorder, SyncingLaw, mises_inputs, trees_equal
 
 F64 = torch.float64
 SCALES = (1.0, 2.0, 3.0)
@@ -199,6 +201,7 @@ def test_local_newton_while_node_matches_jax(form):
 # -- (c) every law through PackedSimulation with the stand-in ------------------------
 
 SLS = {"E0": 42000.0, "E1": 10000.0, "tau": 2.0, "nu": 0.3}
+DP = {"mu": 80769.0, "kappa": 175000.0, "a": 1000.0, "b": 0.15, "b_flow": 0.15}
 LAWS = {
     "elastic": lambda: tm.LinearElasticityModel({"E": 42000.0, "nu": 0.3}, Constraint.FULL),
     "mises-exp": lambda: VonMises3D({"p_ka": 175000.0, "p_mu": 80769.0, "p_y0": 1200.0,
@@ -207,6 +210,8 @@ LAWS = {
         {"mu": 80769.0, "kappa": 175000.0, "y_0": 1200.0, "h": 5000.0}),
     "kelvin": lambda: tm.SpringKelvinModel(SLS, Constraint.FULL),
     "maxwell": lambda: tm.SpringMaxwellModel(SLS, Constraint.FULL),
+    "dp": lambda: tm.DruckerPrager3D(DP),
+    "dp-hyp": lambda: tm.DruckerPragerHyperbolic3D({**DP, "d": 0.1}),
 }
 
 
@@ -234,11 +239,50 @@ def test_every_law_replays_through_simulation(box, law, monkeypatch):
 
 
 def test_drucker_prager_is_not_captured(box, monkeypatch):
+    """A law that declares a ``host_sync`` is not captured; Drucker-Prager,
+    whose return map reads nothing back, is."""
     real = simulation.compile_step
     monkeypatch.setattr(simulation, "compile_step",
                         lambda step, **kw: real(step, recorder=HostRecorder, **kw))
     V, bcs = box(3)["torch"]
+    sim = PackedSimulation(SyncingLaw(dict(LAWS["mises-exp"]().params)), V, bcs, 2,
+                           device="cpu", dtype=F64)
+    assert not sim.captured and "SyncingLaw" in sim.host_syncs[0]
     dp = tm.DruckerPrager3D({"mu": 80769.0, "kappa": 175000.0, "a": 0.1, "b": 0.1,
                              "b_flow": 0.1})
     sim = PackedSimulation(dp, V, bcs, 2, device="cpu", dtype=F64)
-    assert not sim.captured and "DruckerPrager3D" in sim.host_syncs[0]
+    assert sim.captured and sim.host_syncs == ()
+
+
+def test_two_laws_on_the_tet_part_replay_through_simulation(monkeypatch, tmp_path):
+    """The benchmark's dp-maxwell-tet35-f64 configuration at 4^3 (the shuffled
+    Gmsh tet box on the windowed engine with its AMG; Drucker-Prager below z
+    = 0.51, a Maxwell solid above, del_t 0.5) through the stand-in: captured,
+    and bit-equal in state and last_stats to the same solves inside
+    ``disable_capture()``, over warm-up loads into the plastic range."""
+    from benchmark import harness, program
+    from benchmark.meshes import mesh_module
+
+    real = simulation.compile_step
+    monkeypatch.setattr(simulation, "compile_step",
+                        lambda step, **kw: real(step, recorder=HostRecorder, **kw))
+    cfg = harness.read_cell("dp-maxwell-tet35-f64.plastic")["config"]
+    spec = dict(cfg["mesh"], n=4)
+    mod = mesh_module(spec["kind"])
+    inputs = mod.inputs(spec)
+    laws = harness.law_cells(cfg, inputs)
+    mod.prepare(inputs, spec, tmp_path)
+    progs = [program.Program(dict(cfg, mesh=spec), mod, inputs, laws, tmp_path, "cpu", F64)
+             for _ in range(2)]
+    assert progs[0].sim.captured and progs[0].sim.host_syncs == ()
+    assert progs[0].sim.engine == "windowed"
+    for load in (0.002, 0.004, 0.006, 0.008):
+        a = progs[0].solve(load)
+        with disable_capture():
+            b = progs[1].solve(load)
+        assert a == b and a[1]
+        assert {k: v for k, v in progs[0].last_stats.items() if k != "captured"} == {
+            k: v for k, v in progs[1].last_stats.items() if k != "captured"}
+    assert trees_equal(progs[0].state, progs[1].state)
+    assert float(progs[0].state.histories[0]["alpha"].max()) > 0  # DP has yielded
+    assert progs[0].sim._step.replays == 3
