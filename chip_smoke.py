@@ -663,7 +663,7 @@ def phase_device() -> tuple[str, str]:
 def phase_build() -> None:
     from fenics_constitutive_tpu_torch.ops import _cuda_build
 
-    libs = ("matvec", "eval", "window", "smoother", "lattice", "graph_loop")
+    libs = ("matvec", "eval", "window", "smoother", "lattice", "return_map", "graph_loop")
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(_cuda_build.load_library, lib) for lib in libs]:
@@ -1701,13 +1701,7 @@ def phase_multilaw(tet: dict) -> dict:
                                                  state.stress[i], state.histories[i])
         return geos[i].residual(s_new), tg
 
-    # one-time set-up on first use: the batched solver's library, then the
-    # rest of the first DP eval (torch.func's first vmap/jacfwd among it)
-    t0 = time.perf_counter()
-    torch.linalg.solve(torch.eye(8, dtype=torch.float64, device=CARD).expand(4, 8, 8),
-                       torch.ones((4, 8), dtype=torch.float64, device=CARD))
-    torch.cuda.synchronize()
-    solver_s = time.perf_counter() - t0
+    # one-time set-up of the first DP eval (K9's library is built in phase 2)
     t0 = time.perf_counter()
     tangents = [law_eval(0)[1]]
     torch.cuda.synchronize()
@@ -1799,8 +1793,7 @@ def phase_multilaw(tet: dict) -> dict:
     print(f"phase 14 two laws on the imported {N_TET}^3 mesh f64 (DruckerPrager3D z < 0.5 "
           f"on {geos[0].n_cells} cells, N {geos[0].N}; SpringMaxwellModel above on "
           f"{geos[1].n_cells} cells, N {geos[1].N}; {sim.engine} + {sim.preconditioner}, build "
-          f"{build_s:.1f} s; first use: batched solve {solver_s:.2f} s, first DP eval "
-          f"{first_s:.2f} s): solve_schedule 3 steps of {STRETCH_STEP} k, {ms_step:.1f} ms/step "
+          f"{build_s:.1f} s; first DP eval {first_s:.2f} s): solve_schedule 3 steps of {STRETCH_STEP} k, {ms_step:.1f} ms/step "
           f"(CUDA events), newton {stats['newton_iters'].tolist()}, cg_last "
           f"{stats['cg_iters_last'].tolist()}, r " + ", ".join(f"{r:.2e}" for r in stats["r_norm"])
           + f"; launches per step K4 {counts['gather'] / K:g} K5 {counts['scatter'] / K:g} K6 "
@@ -1818,12 +1811,44 @@ def phase_multilaw(tet: dict) -> dict:
           + ("not measured" if k6_cycle_ms is None else f"{cycles * k6_cycle_ms / K:.2f} ms/step")
           + f"; step 4 alone newton {niter4}, {step4_ms:.1f} ms (host clock); step 5 profiled: "
           + dev)
+    k9 = k9_per_eval(sim, STRETCH_STEP)
     rows = graph_against_eager("phase 14", sim, STRETCH_STEP)
     print(f"phase 14 the two-law step captured (host_syncs {sim.host_syncs}): 3 steps replayed "
           f"under set_sync_debug_mode('error') bit-equal to disable_capture() in state and "
           f"stats (newton {[r['newton_iters'] for r in rows]}, cg_last "
-          f"{[r['cg_iters_last'] for r in rows]})", flush=True)
+          f"{[r['cg_iters_last'] for r in rows]}); one eager step: {k9}", flush=True)
     return counts
+
+
+def k9_per_eval(sim, increment: float) -> str:
+    """One more step of ``sim`` (its committed state, its moved BC raised by
+    ``increment``) inside disable_capture(): K9 launches once for each
+    evaluation of its Drucker-Prager law (the ``law.eval`` scopes of that
+    law), and the Maxwell law launches none."""
+    from fenics_constitutive_tpu_torch.ops import cuda_return_map
+    from fenics_constitutive_tpu_torch.solver import disable_capture
+
+    dp = sim._models[0]
+    evals = []
+    real = dp.evaluate_packed
+
+    def counted(*args):
+        evals.append(1)
+        return real(*args)
+
+    dp.evaluate_packed = counted
+    before = cuda_return_map.launches["dp_return_map"]
+    try:
+        sim.bcs[1].value += increment
+        with disable_capture():
+            niter, conv = sim.solve()
+    finally:
+        del dp.evaluate_packed
+    k9 = cuda_return_map.launches["dp_return_map"] - before
+    if not conv or k9 != len(evals) or k9 != niter + 1:
+        fail(f"phase 14: {k9} K9 launches for {len(evals)} DP evaluations in one eager step "
+             f"(newton {niter}, converged {conv})")
+    return f"newton {niter}, {len(evals)} DP evaluations, {k9} K9 launches"
 
 
 def graph_against_eager(phase: str, sim, increment: float, steps: int = 3) -> list:
@@ -1871,6 +1896,108 @@ def graph_against_eager(phase: str, sim, increment: float, steps: int = 3) -> li
     return rows
 
 
+#: phase 14b: the dp-maxwell cell's Drucker-Prager points (132,300 tets at q 2)
+N_K9 = 529_200
+#: K9 against the plain map, normwise ((stress, alpha, plastic strain), tangent);
+#: tests/torch_port/test_torch_dp_return_map.py gives the reasons
+TOL_K9 = {torch.float64: (1e-12, 1e-10), torch.float32: (1e-5, 2e-4)}
+
+
+def k9_inputs(dtype, rng):
+    """N_K9 points in the unit test's mix (the zero state, elastic, past
+    yield, near the apex; DruckerPrager3D's parameters) and the state the
+    plain map returns from them, then a second increment (2e-4, deviatoric
+    near the apex) that unloads, reloads or flows on: (stress, del_eps,
+    alpha) of that step."""
+    from fenics_constitutive_tpu_torch.models import DruckerPrager3D
+
+    law = DruckerPrager3D(DP_PARAMS)
+    n = N_K9 // 4
+    a, b, mu, ka = DP_PARAMS["a"], DP_PARAMS["b"], DP_PARAMS["mu"], DP_PARAMS["kappa"]
+
+    def unit_dev(k):
+        m = rng.normal(size=(k, 6))
+        m[:, :3] -= m[:, :3].mean(axis=1, keepdims=True)
+        return m / np.linalg.norm(m, axis=1, keepdims=True)
+
+    plastic = unit_dev(n) * (rng.uniform(1.2, 4.0, n) * a / (np.sqrt(2.0) * mu))[:, None]
+    plastic[:, :3] += rng.uniform(-1e-3, 1e-3, (n, 1)) / 3.0
+    delta = rng.uniform(0.01, 0.05, n)
+    near = unit_dev(n) * (rng.uniform(1.5, 3.0, n) * delta * a / (np.sqrt(2.0) * mu))[:, None]
+    near[:, :3] += ((a / b) * (1.0 - delta) / (9.0 * ka))[:, None]
+    first = np.concatenate([np.zeros((n, 6)), rng.normal(size=(n, 6)) * 1e-4, plastic, near])
+
+    def dev(x):
+        return torch.as_tensor(x, dtype=dtype, device=CARD)
+
+    second = rng.normal(size=(N_K9, 6)) * 2e-4
+    second[3 * n:, :3] -= second[3 * n:, :3].mean(axis=1, keepdims=True)
+    zero = torch.zeros((N_K9, 6), dtype=dtype, device=CARD)
+    s, _, alpha, _ = law._plain_return_map(zero, dev(first), zero[:, :1])
+    return s, dev(second), alpha
+
+
+def phase_k9(results: dict) -> None:
+    """Phase 14b: K9 (Drucker-Prager's return map, ``csrc/return_map.cu``)
+    at the dp-maxwell cell's 529,200 points, float64 and float32, from a
+    plastic state: against the plain map on the card (max-norm, at the
+    points where the plain map has converged: its stress and alpha move by
+    less than the tolerance when its trip cap rises from 25 to 50), two
+    launches bit-equal, K9's time on the card (torch.profiler, CUDA events)
+    beside the plain map's and the byte bound; ptxas's registers and
+    spills."""
+    from fenics_constitutive_tpu_torch.models import DruckerPrager3D
+    from fenics_constitutive_tpu_torch.ops import _cuda_build, cuda_return_map
+
+    law = DruckerPrager3D(DP_PARAMS)
+    line = []
+    for dtype in (torch.float64, torch.float32):
+        s, e, alpha = k9_inputs(dtype, np.random.default_rng(14))
+        k9 = cuda_return_map.dp_return_map(law, s, e, alpha)
+        again = cuda_return_map.dp_return_map(law, s, e, alpha)
+        plain = law._plain_return_map(s, e, alpha)
+        law.newton_maxit = 50
+        longer = law._plain_return_map(s, e, alpha)
+        law.newton_maxit = 25
+        if not all(torch.equal(x, y) for x, y in zip(k9, again)):
+            fail(f"phase 14b: two K9 launches differ ({dtype})")
+        tol, tol_t = TOL_K9[dtype]
+        stuck = torch.zeros_like(alpha[:, 0], dtype=torch.bool)
+        for i in (0, 2):
+            d = (longer[i] - plain[i]).abs().max(dim=1).values
+            stuck |= ~(d <= tol * plain[i].abs().max())
+        ok = ~stuck
+        rels = [normwise(x, y)[1] for x, y in zip(k9, plain)]
+        errs = [float((x[ok] - y[ok]).abs().max() / y[ok].abs().max()) for x, y in zip(k9, plain)]
+        if not all(np.isfinite(errs)) or max(errs[0], errs[2], errs[3]) > tol or errs[1] > tol_t:
+            far = ((k9[0] - plain[0]).abs().max(dim=1).values > tol * plain[0].abs().max())
+            kinds = torch.bincount(torch.nonzero(far & ok)[:, 0] // (N_K9 // 4), minlength=4)
+            fail(f"phase 14b: K9 {dtype} against the plain map at its {int(ok.sum())} converged "
+                 f"points: max-norm errors (stress, tangent, alpha, plastic strain) {errs} > "
+                 f"{tol:g}, {tol_t:g}; stress off at {kinds.tolist()} points of each kind")
+        plastic = float((plain[2] > alpha).double().mean())
+        nbytes = N_K9 * (13 + 49) * s.element_size()
+        bound, _ = bound_ms(nbytes, 0.0, dtype)
+        dev = device_ms(lambda: cuda_return_map.dp_return_map(law, s, e, alpha), floor_ms=bound)
+        events = cuda_ms(lambda: cuda_return_map.dp_return_map(law, s, e, alpha))
+        plain_ms = cuda_ms(lambda: law._plain_return_map(s, e, alpha), iters=3, warmup=1)
+        key = str(dtype)[6:]
+        results[f"K9_{key}"] = {"device_ms": dev, "ms": events, "plain_ms": plain_ms,
+                                "bound_ms": bound, "bytes": nbytes, "plastic_share": plastic,
+                                "unconverged": int(stuck.sum()), "max_err": errs, "rel": rels}
+        line.append(f"{key}: {100 * plastic:.0f}% of the points flow, {int(stuck.sum())} stop "
+                    f"unconverged at the trip cap; max-norm errors against "
+                    f"the plain map stress {errs[0]:.1e}, tangent {errs[1]:.1e}, alpha "
+                    f"{errs[2]:.1e}, plastic strain {errs[3]:.1e} (tol {tol:g}, {tol_t:g}); two "
+                    f"launches bit-equal; K9 on the card {dev:.4f} ms (events {events:.4f}), "
+                    f"plain map {plain_ms:.2f} ms, bound {bound:.4f} (bytes, "
+                    f"{nbytes / 1e6:.1f} MB): {100 * bound / dev:.1f}%")
+    usage = [ln.strip() for ln in _cuda_build.build_log["return_map"]["log"].splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"phase 14b K9 at {N_K9} Drucker-Prager points: " + "; ".join(line) + "; ptxas: "
+          + " | ".join(usage), flush=True)
+
+
 def phase_library() -> None:
     """Every FULL law on the card against the same run on the CPU: a 6^3
     shuffled tet mesh (windowed engine, AMG) and a 6^3 hex box (K1 for the
@@ -1879,7 +2006,12 @@ def phase_library() -> None:
     above); then the dense-tangent and Jacobi-diagonal products with TF32
     on."""
     from fenics_constitutive_tpu_torch.fem import FunctionSpace
-    from fenics_constitutive_tpu_torch.ops import DenseTangent, cuda_matvec, cuda_window
+    from fenics_constitutive_tpu_torch.ops import (
+        DenseTangent,
+        cuda_matvec,
+        cuda_return_map,
+        cuda_window,
+    )
     from fenics_constitutive_tpu_torch.ops.structured import build_structured_geometry
     from fenics_constitutive_tpu_torch.models import Constraint
     from fenics_constitutive_tpu_torch.solver import PackedSimulation
@@ -1897,6 +2029,7 @@ def phase_library() -> None:
                 bcs = bench_bcs(V)
                 k1 = cuda_matvec.launches
                 win = sum(cuda_window.launches.values())
+                k9 = cuda_return_map.launches["dp_return_map"]
                 laws = make(V) if make is two_layer_laws else make()
                 sim = PackedSimulation(laws, V, bcs, 2, del_t=0.5, engine="windowed",
                                        device=device, dtype=torch.float64,
@@ -1910,8 +2043,10 @@ def phase_library() -> None:
                     iters.append(niter)
                 runs[device] = (sim.u.cpu(), torch.as_tensor(sim.stress), iters,
                                 cuda_matvec.launches - k1,
-                                sum(cuda_window.launches.values()) - win)
-            (u_c, s_c, it_c, k1_c, win_c), (u_h, s_h, it_h, _, _) = runs[CARD], runs["cpu"]
+                                sum(cuda_window.launches.values()) - win,
+                                cuda_return_map.launches["dp_return_map"] - k9)
+            (u_c, s_c, it_c, k1_c, win_c, k9_c), (u_h, s_h, it_h, _, _, k9_h) = (runs[CARD],
+                                                                               runs["cpu"])
             rel = max(normwise(u_c, u_h)[1], normwise(s_c, s_h)[1])
             worst = max(worst, rel)
             factored = not name.startswith("dp")
@@ -1922,8 +2057,11 @@ def phase_library() -> None:
                      + ("some" if factored else "none (a DenseTangent law runs 'plain')"))
             if kind == "tet" and win_c <= 0:
                 fail(f"phase 15 tet {name} never launched the window kernels")
+            if (k9_c > 0) != name.startswith("dp") or k9_h:
+                fail(f"phase 15 {kind} {name}: {k9_c} K9 launches on the card, {k9_h} on the CPU")
             line.append(f"{kind} {name} newton {it_c} (CPU {it_h}) rel {rel:.1e}"
-                        + (f" K1 {k1_c}" if kind == "box" else f" K4-K6 {win_c}"))
+                        + (f" K1 {k1_c}" if kind == "box" else f" K4-K6 {win_c}")
+                        + (f" K9 {k9_c}" if k9_c else ""))
 
     # the products that must not run in TF32: float32, TF32 on vs off
     rng = np.random.default_rng(8)
@@ -4558,6 +4696,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         timed("phase 13", phase_multimat, Path(tmp))
     two_law = timed("phase 14", phase_multilaw, tet)
+    timed("phase 14b", phase_k9, results)
     timed("phase 15", phase_library)
     tet_box = timed("phase 16", phase_tet_box, results)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4628,6 +4767,9 @@ def main() -> None:
     kernels.append({"name": "windowed_cell_apply", "route": "cuda", "source": src + "window.cu",
                     "replaces": "the plain middle of WindowedGeometry.matvec (no TPU kernel)",
                     "f64": results["K7_float64"], "f32": results["K7_float32"]})
+    kernels.append({"name": "dp_return_map", "route": "cuda", "source": src + "return_map.cu",
+                    "replaces": "the plain implicit_return_map of Drucker-Prager (no TPU kernel)",
+                    "f64": results["K9_float64"], "f32": results["K9_float32"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -10,8 +10,11 @@ J2 has a floor of 1e-30 in the classic cone, so the flow direction stays
 finite at a zero deviator. At the cone's tip the local Newton stops at its
 trip cap with non-finite values; the hyperbolic surface is smooth there.
 Both laws have no SoA twin: the engines run them through the generic
-dense-tangent adapter. The return map reads nothing back to the host, so a
-step over them is captured in a CUDA graph (``solver/compiled.py``).
+dense-tangent adapter. On CUDA tensors of float32 or float64 the return map
+is one launch of K9 (``ops/cuda_return_map.py``), one thread a point; on the
+CPU it is the plain ``implicit_return_map``. Neither reads anything back to
+the host, so a step over them is captured in a CUDA graph
+(``solver/compiled.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import mandel
+from ..ops import cuda_return_map, mandel
 from ..ops.mandel import Constraint
 from .interfaces import IncrSmallStrainModel
 from .plasticity_general import implicit_return_map
@@ -76,23 +79,32 @@ class _DruckerPragerBase(IncrSmallStrainModel):
         half_inv = 0.5 / torch.sqrt(self._j2_term(j2))
         return (self.params["b_flow"] * i2 + half_inv[:, None] * s)[0]
 
-    def evaluate(self, t, del_t, grad_del_u, stress, history):
-        del t, del_t
+    def _plain_return_map(self, stress, eps, alpha):
+        """The plain map (``implicit_return_map``): K9's twin, the CPU's path."""
         C = mandel.isotropic_elastic_tangent(self.params["mu"], self.params["kappa"],
                                              dtype=stress.dtype, device=stress.device)
         i2 = mandel.device_constant(mandel.sym_identity(6), stress.dtype, stress.device)
-        eps = mandel.strain_from_grad_u(grad_del_u, Constraint.FULL)
-        sigma_1, tangent, alpha_1, del_eps_p = implicit_return_map(
+        return implicit_return_map(
             self._f,
             lambda sigma, kappa: self._g(sigma, kappa, i2),
             C,
             stress,
             eps,
-            history["alpha"],
+            alpha,
             atol=self.newton_atol,
             rtol=self.newton_rtol,
             maxit=self.newton_maxit,
         )
+
+    def evaluate(self, t, del_t, grad_del_u, stress, history):
+        del t, del_t
+        eps = mandel.strain_from_grad_u(grad_del_u, Constraint.FULL)
+        if cuda_return_map.dp_return_map_form(self, stress):
+            sigma_1, tangent, alpha_1, del_eps_p = cuda_return_map.dp_return_map(
+                self, stress, eps, history["alpha"])
+        else:
+            sigma_1, tangent, alpha_1, del_eps_p = self._plain_return_map(
+                stress, eps, history["alpha"])
         history_new = {
             "alpha": alpha_1,
             "plastic_strain": history["plastic_strain"] + del_eps_p,

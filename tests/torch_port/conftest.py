@@ -9,6 +9,23 @@ with x64); data move between the packages as numpy arrays.
 import numpy as np
 import pytest
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card (a CUDA kernel, which has no CPU mode; skips here)")
+
+
+@pytest.fixture
+def card():
+    """Skip unless a CUDA card is present (decided when the test runs, never
+    at import). On the card: ``python -m pytest tests/torch_port -m card``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the CUDA kernel runs on the card only")
+    return torch.device("cuda")
+
+
 @pytest.fixture(scope="session", autouse=True)
 def _one_torch_thread():
     """One intra-op thread for the port's CPU tests: the problems are small,

@@ -124,9 +124,9 @@ def test_bench_twins_write_no_file(path):
 def test_kernel_sources_present():
     csrc = PKG / "csrc"
     names = {p.name for p in csrc.glob("*.cu")}
-    # K1-K8, and the while nodes' set-conditional kernel (no TPU kernel's)
+    # K1-K9, and the while nodes' set-conditional kernel (no TPU kernel's)
     assert names == {"matvec.cu", "eval.cu", "window.cu", "smoother.cu", "lattice.cu",
-                     "graph_loop.cu"}
+                     "return_map.cu", "graph_loop.cu"}
     for p in csrc.glob("*.cu"):
         assert "Replaces" in p.read_text()[:2000], p.name
 
